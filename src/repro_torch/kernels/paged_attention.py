@@ -1,0 +1,256 @@
+"""Block-sparse paged attention (decode + prefill): the CUDA kernels and
+their plain PyTorch versions.
+
+Counterparts of ``repro.kernels.paged_attention``'s two Pallas kernels.
+The pool is a global (NB, BS, Hkv, D) array of BS-token blocks; a slot's
+table row maps its logical block j to a physical block (-1 = unmapped).
+
+* decode: one query token per slot against the blocks below
+  ``ceil(cache_len / BS)``; reading stops at the first -1 entry, which
+  is the gather reference's ``mapped_span`` clamp (mapped entries form a
+  prefix of a row).  The readable blocks are cut into runs of
+  ``decode_split`` blocks, each with its own online softmax, and the
+  runs are merged (flash-decoding), so a slot's walk spreads over many
+  SMs.  A slot with no readable position returns NaN, like the
+  reference softmax over an all -inf row.
+* prefill: the S queries of one slot's prompt chunk at absolute
+  positions ``offset + [0, S)``, causal, over the leading ``span`` tokens
+  of its row; -1 entries read block 0 unmasked (the gather reference
+  does the same); the softmax is the reference's online recurrence per
+  ``kv_chunk`` group with its -inf guards, and the output is
+  ``acc / max(l, 1e-20)`` (a fully masked row gives 0).
+
+Bitwise equality with the gather path is not a goal: the kernels and
+the plain versions below are held to it with f32 tolerances.  The plain
+versions follow the kernels' loops (runs of blocks with an online
+softmax, then the merge; group-wise max then accumulate) and are what ``ops.py`` runs for CPU
+tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build, launches
+
+MAX_REP = 16
+MAX_HEAD_DIM = 128
+# decode kernel blocks to aim for: two per SM of a 132-SM H100
+SPLIT_TARGET = 264
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def decode_split(batch: int, kv_heads: int, table_width: int) -> int:
+    """Logical blocks per split of the decode kernel: enough splits that
+    the (slot, kv head, split) grid covers the card about twice
+    (``SPLIT_TARGET`` blocks), never more splits than table entries."""
+    splits = max(1, -(-SPLIT_TARGET // max(batch * kv_heads, 1)))
+    return max(1, -(-table_width // min(splits, table_width)))
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, block_table, cache_len,
+                                 nb_split: int | None = None):
+    """q (B, 1, H, D); pools (NB, BS, Hkv, D); table (B, MB) int32;
+    cache_len () or (B,) -> (B, 1, H, D) in q.dtype.  Splits the readable
+    blocks into runs of ``nb_split`` (default ``decode_split``), keeps an
+    online softmax per run and merges the runs, as the kernel does."""
+    B, _, H, D = q.shape
+    _, BS, Hkv, _ = k_pool.shape
+    MB = block_table.shape[1]
+    rep = H // Hkv
+    nb_split = nb_split or decode_split(B, Hkv, MB)
+    lens = torch.broadcast_to(torch.as_tensor(cache_len).reshape(-1),
+                              (B,)).tolist()
+    table = block_table.tolist()
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    out = torch.empty((B, 1, H, D), dtype=torch.float32, device=dev)
+    for b in range(B):
+        qb = q[b, 0].float().reshape(Hkv, rep, D) * scale
+        # the readable prefix: below the depth and before the first -1
+        readable = min(-(-lens[b] // BS), MB)
+        readable = next((j for j in range(readable) if table[b][j] < 0),
+                        readable)
+        parts = []
+        for j0 in range(0, MB, nb_split):
+            m = torch.full((Hkv, rep), -math.inf, device=dev)
+            l = torch.zeros((Hkv, rep), device=dev)
+            acc = torch.zeros((Hkv, rep, D), device=dev)
+            for j in range(j0, min(j0 + nb_split, readable)):
+                phys = table[b][j]
+                kb = k_pool[phys].float()      # (BS, Hkv, D)
+                vb = v_pool[phys].float()
+                s = torch.einsum("grd,tgd->grt", qb, kb)
+                pos = j * BS + torch.arange(BS, device=dev)
+                s = torch.where(pos < lens[b], s, -math.inf)
+                m2 = torch.maximum(m, s.max(dim=-1).values)
+                corr = torch.exp(m - m2)
+                p = torch.exp(s - m2[..., None])
+                l = l * corr + p.sum(dim=-1)
+                acc = acc * corr[..., None] + torch.einsum("grt,tgd->grd",
+                                                           p, vb)
+                m = m2
+            parts.append((m, l, acc))
+        # merge the runs; a run that read nothing holds (-inf, 0, 0)
+        ms = torch.stack([p[0] for p in parts])
+        mx = ms.max(dim=0).values
+        c = torch.where(torch.isinf(ms), 0.0,
+                        torch.exp(ms - torch.where(torch.isinf(mx), 0.0,
+                                                   mx)))
+        l = (torch.stack([p[1] for p in parts]) * c).sum(dim=0)
+        acc = (torch.stack([p[2] for p in parts]) * c[..., None]).sum(dim=0)
+        # nothing readable: 0 / 0 = NaN, the reference's fully masked row
+        out[b, 0] = torch.where(l[..., None] > 0, acc / l[..., None],
+                                math.nan).reshape(H, D)
+    return out.to(q.dtype)
+
+
+def paged_prefill_attention_plain(q, k_pool, v_pool, block_row, offset,
+                                  span: int, kv_chunk: int = 1024):
+    """q (1, S, H, D) at positions offset + [0, S); pools (NB, BS, Hkv,
+    D); block_row (1, NBLK) covering ``span`` tokens -> (1, S, H, D)."""
+    _, S, H, D = q.shape
+    _, BS, Hkv, _ = k_pool.shape
+    rep = H // Hkv
+    dev = q.device
+    row = torch.clamp(block_row.reshape(-1).long(), min=0)
+    off = int(offset)
+    kc = min(kv_chunk, span)
+    scale = 1.0 / math.sqrt(D)
+    # rows flatten (replica, query) -> replica * S + query, per kv head
+    qg = q[0].float().reshape(S, Hkv, rep, D).permute(1, 2, 0, 3)
+    qg = qg.reshape(Hkv, rep * S, D)
+    qpos = off + torch.arange(rep * S, device=dev) % S
+    m = torch.full((Hkv, rep * S), -math.inf, device=dev)
+    l = torch.zeros((Hkv, rep * S), device=dev)
+    acc = torch.zeros((Hkv, rep * S, D), device=dev)
+    for k_lo in range(0, span, kc):
+        kpos = torch.arange(k_lo, min(k_lo + kc, span), device=dev)
+        phys = row[kpos // BS]
+        kb = k_pool[phys, kpos % BS].float()            # (n, Hkv, D)
+        vb = v_pool[phys, kpos % BS].float()
+        s = torch.einsum("grd,ngd->grn", qg, kb) * scale
+        s = torch.where(kpos[None, None, :] <= qpos[None, :, None], s,
+                        -math.inf)
+        m2 = torch.maximum(m, s.max(dim=-1).values)
+        m2s = torch.where(torch.isinf(m2), 0.0, m2)
+        p = torch.where(torch.isinf(s), 0.0, torch.exp(s - m2s[..., None]))
+        corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - m2s))
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("grn,ngd->grd", p, vb)
+        m = m2
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    out = out.reshape(Hkv, rep, S, D).permute(2, 0, 1, 3).reshape(1, S, H, D)
+    return out.to(q.dtype)
+
+
+def kv_blocks_read(cache_len, mapped_blocks, block_size: int,
+                   table_width: int) -> int:
+    """Physical KV blocks one decode step reads for one slot: blocks
+    spanned by the slot's depth, clamped to what the table maps (the
+    kernel's walk in host arithmetic).  The gather path reads the full
+    ``table_width`` span regardless."""
+    spanned = min(-(-int(cache_len) // block_size), table_width)
+    return max(min(spanned, int(mapped_blocks)), 0)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _fns():
+    lib = build.load("paged_attention")
+    dec, pre = lib.repro_paged_decode, lib.repro_paged_prefill
+    if dec.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        dec.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
+        dec.restype = ctypes.c_int
+        pre.argtypes = [p, p, p, p, i, i, i, p, i, i, i, i, i, i, i, p]
+        pre.restype = ctypes.c_int
+    return dec, pre
+
+
+def _check_attn(q, k_pool, v_pool, index, name):
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    for t, n in ((q, "q"), (k_pool, "k_pool"), (v_pool, "v_pool"),
+                 (index, "table")):
+        if t.device != dev:
+            raise ValueError(f"{n} is on {t.device}, expected {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{n} must be contiguous")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q has dtype {q.dtype}, expected float32/bfloat16")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError("q and the pools must share a dtype")
+    if index.dtype != torch.int32:
+        raise TypeError(f"block table has dtype {index.dtype}, expected int32")
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError("pools must be (NB, BS, Hkv, D) and equal")
+    H, D = q.shape[2], q.shape[3]
+    Hkv = k_pool.shape[2]
+    if k_pool.shape[3] != D or H % Hkv or H // Hkv > MAX_REP \
+            or D > MAX_HEAD_DIM:
+        raise ValueError(f"unsupported heads: H={H} Hkv={Hkv} D={D}")
+
+
+def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, cache_len):
+    _check_attn(q, k_pool, v_pool, block_table, "paged_decode_attention")
+    B, one, H, D = q.shape
+    _, BS, Hkv, _ = k_pool.shape
+    MB = block_table.shape[1]
+    if one != 1 or block_table.shape[0] != B:
+        raise ValueError(f"q {tuple(q.shape)} / table "
+                         f"{tuple(block_table.shape)} mismatch")
+    lens = torch.broadcast_to(torch.as_tensor(cache_len, device=q.device)
+                              .reshape(-1), (B,)).to(torch.int32).contiguous()
+    nb_split = decode_split(B, Hkv, MB)
+    splits = -(-MB // nb_split)
+    out = torch.empty_like(q)
+    part = torch.empty((B * H * splits * (D + 2),), dtype=torch.float32,
+                       device=q.device)
+    dec, _ = _fns()
+    with torch.cuda.device(q.device):
+        rc = dec(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 block_table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                 part.data_ptr(), B, H, Hkv, D, BS, MB, nb_split,
+                 int(q.dtype == torch.bfloat16),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches.COUNTS["paged_decode_attention"] += 1
+    return out
+
+
+def paged_prefill_attention_cuda(q, k_pool, v_pool, block_row, offset,
+                                 span: int, kv_chunk: int = 1024):
+    _check_attn(q, k_pool, v_pool, block_row, "paged_prefill_attention")
+    one, S, H, D = q.shape
+    _, BS, Hkv, _ = k_pool.shape
+    nblk = block_row.shape[-1]
+    if one != 1 or block_row.numel() != nblk:
+        raise ValueError(f"q {tuple(q.shape)} / row {tuple(block_row.shape)} "
+                         "must hold one slot")
+    if nblk * BS < span:
+        raise ValueError(f"row of {nblk} blocks cannot cover span {span}")
+    out = torch.empty_like(q)
+    _, pre = _fns()
+    with torch.cuda.device(q.device):
+        rc = pre(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 block_row.data_ptr(), int(offset), int(span), int(kv_chunk),
+                 out.data_ptr(), S, H, Hkv, D, BS, nblk,
+                 int(q.dtype == torch.bfloat16),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_prefill_attention kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches.COUNTS["paged_prefill_attention"] += 1
+    return out

@@ -1,0 +1,24 @@
+"""Layered serving-engine package (PyTorch counterpart of
+``repro.launch.engine``), one layer per module:
+
+  engine.py     -- ServeEngine: serving policy + the per-chunk loop
+  scheduler.py  -- Request lifecycle / SlotScheduler (admission, grants,
+                   preemption, block tables; numpy only)
+  policy.py     -- SchedPolicy: the admission decision layer (fifo)
+  block_pool.py -- BlockAllocator: refcounted KV block accounting
+  runner.py     -- ModelRunner: ALL device placement and dispatch
+  stats.py      -- ServeStats: run counters + the results payload
+"""
+
+from repro_torch.launch.engine.block_pool import BlockAllocator
+from repro_torch.launch.engine.engine import ServeEngine
+from repro_torch.launch.engine.policy import FifoPolicy, SchedPolicy
+from repro_torch.launch.engine.runner import ModelRunner
+from repro_torch.launch.engine.scheduler import (LIFECYCLE, Request,
+                                                 SlotScheduler)
+from repro_torch.launch.engine.stats import ServeStats
+
+__all__ = [
+    "BlockAllocator", "FifoPolicy", "LIFECYCLE", "ModelRunner", "Request",
+    "SchedPolicy", "ServeEngine", "ServeStats", "SlotScheduler",
+]

@@ -1,0 +1,155 @@
+"""Model dispatch for the port (dense family) and the weight bridge.
+
+PyTorch counterpart of the dense rows of ``repro.models.registry``.  The
+uniform serving API:
+
+    init_params(cfg, generator, device) -> params
+    params_from_numpy(tree, cfg, device) -> params
+    make_cache(cfg, batch, max_len, device=..., layout=...) -> cache
+    prefill(params, cfg, tokens, max_len) -> (hidden, cache)
+    prefill_chunk(params, cfg, tokens, cache, slot, offset, new_len, span)
+    decode_step(params, cfg, token, cache, key, head_noise=None)
+    write_slot(cfg, cache, slot, sub, block_row=None)
+
+Caches are slot-indexed and updated in place.  Paged KV pools carry one
+trailing sink block that no table maps (``layers.paged_index``);
+``kv_bytes`` leaves it out.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import transformer
+from repro_torch.models.layers import paged_index, paged_table_width  # noqa: F401
+
+# cache leaves that live in the global block pool under the paged layout
+PAGED_KV_LEAVES = ("k", "v")
+
+
+def _dense_only(cfg: ArchConfig):
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (see ROADMAP.md)")
+    return transformer
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, device):
+    return _dense_only(cfg).init_params(cfg, generator, device)
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # numpy's bf16 extension type
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
+    """The port's parameters from the JAX parameter tree given as nested
+    dicts of numpy arrays (``blocks`` stacked on a leading layer axis, the
+    head as ``{"q": {"mu", "rho"}}``).  The head's sigma = softplus(rho)
+    is computed here, once."""
+    _dense_only(cfg)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, device)
+
+    out = {k: walk(v) for k, v in tree.items() if k != "head"}
+    q = tree["head"]["q"]
+    out["head"] = {"mu": _tensor(q["mu"], device, torch.float32),
+                   "sigma": F.softplus(_tensor(q["rho"], device,
+                                               torch.float32))}
+    return out
+
+
+def supports_paged(cfg: ArchConfig) -> bool:
+    """Every attention-bearing family pages its self-attention KV."""
+    return cfg.family != "ssm"
+
+
+def supports_prompt_padding(cfg: ArchConfig) -> bool:
+    """Attention-only prompt state is positional, so junk pad tokens past
+    the prompt are causally invisible: prompts bucket to kv_block
+    multiples."""
+    return cfg.family in ("dense", "vlm", "moe", "encdec", "audio")
+
+
+def supports_chunked_prefill(cfg: ArchConfig) -> bool:
+    return supports_paged(cfg) and cfg.family == "dense"
+
+
+def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
+               layout: str = "dense", kv_block: int = 16,
+               num_blocks: int = 0):
+    mod = _dense_only(cfg)
+    if layout == "paged" and supports_paged(cfg):
+        return mod.make_cache(cfg, batch, max_len, device=device,
+                              layout="paged", kv_block=kv_block,
+                              num_blocks=num_blocks)
+    return mod.make_cache(cfg, batch, max_len, device=device)
+
+
+def prefill(params, cfg: ArchConfig, tokens, max_len: int):
+    return _dense_only(cfg).prefill(params, cfg, tokens, max_len)
+
+
+def prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
+                  offset: int, new_len: int, span: int):
+    if not supports_chunked_prefill(cfg):
+        raise ValueError(f"family {cfg.family!r} has no chunked prefill")
+    return _dense_only(cfg).prefill_chunk(params, cfg, tokens, cache, slot,
+                                          offset, new_len, span)
+
+
+def decode_step(params, cfg: ArchConfig, token, cache, key, head_noise=None):
+    return _dense_only(cfg).decode_step(params, cfg, token, cache, key,
+                                        head_noise=head_noise)
+
+
+def kv_bytes(cache) -> int:
+    """Allocated bytes of the self-attention KV (dense: the strips; paged:
+    the whole block pool without its sink block)."""
+    total = 0
+    for n in PAGED_KV_LEAVES:
+        if n in cache:
+            c = cache[n]
+            nbytes = c.numel() * c.element_size()
+            if "block_table" in cache:
+                nbytes = nbytes // c.shape[1] * (c.shape[1] - 1)
+            total += nbytes
+    return total
+
+
+def write_slot(cfg: ArchConfig, cache, slot: int, sub, block_row=None):
+    """Write a batch-1 request cache ``sub`` into decode slot ``slot``, in
+    place.  Dense: the (L, 1, max_len, ...) strips and ``len`` land in the
+    slot.  Paged: ``block_row`` (MB,) is the slot's physical-block row
+    from the host allocator; it is installed in the table and the strips
+    are scattered through it from position 0 (strip tokens past the
+    mapped blocks drop into the sink)."""
+    if "block_table" not in cache:
+        for n in PAGED_KV_LEAVES:
+            cache[n][:, slot] = sub[n][:, 0].to(cache[n].dtype)
+        cache["len"][slot] = sub["len"][0]
+        return cache
+    if block_row is None:
+        raise ValueError("paged cache write needs the slot's block_row")
+    table = block_row.reshape(1, -1).to(torch.int32)
+    cache["block_table"][slot] = table[0]
+    for n in PAGED_KV_LEAVES:
+        pool = cache[n]
+        strip = sub[n][:, 0]                            # (L, S, Hkv, hd)
+        lens = torch.zeros((1,), dtype=torch.int32, device=pool.device)
+        phys, off = paged_index(pool.shape[1], pool.shape[2], table, lens,
+                                strip.shape[1])
+        pool[:, phys[0], off[0]] = strip.to(pool.dtype)
+    cache["len"][slot] = sub["len"][0]
+    return cache

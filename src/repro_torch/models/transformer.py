@@ -1,0 +1,185 @@
+"""Dense decoder-only transformer (qwen2*, codeqwen, nemotron), serving path.
+
+PyTorch counterpart of ``repro.models.transformer``.  Layers are stacked
+on a leading L axis exactly as in the JAX parameter tree; where the JAX
+package scans over that axis, the port loops over it in Python (each
+layer's weights are views of the stacked tensors).
+
+Caches are slot-indexed dicts: ``len`` (B,) int32 per-slot depths plus
+either dense strips (L, B, max_len, Hkv, hd) or, under the paged layout,
+block pools (L, NB + 1, BS, Hkv, hd) behind a (B, MB) ``block_table``
+(the extra block is the write sink of ``layers.paged_scatter``).  Every
+step writes the cache in place and returns the same dict.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models import uncertain_head as U
+
+
+def layer(tree, i: int):
+    """Layer ``i`` of a layer-stacked parameter tree (views, no copy)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, device):
+    """Random serving parameters with the JAX package's distributions
+    (he_init weights, ones for the norms, zero QKV biases, N(0,1)/sqrt(d)
+    head mean and sigma = softplus(inv_softplus(head_init_sigma)))."""
+    dt = L.dtype_of(cfg)
+    lead = (cfg.num_layers,)
+    ones = dict(dtype=dt, device=device)
+    return {
+        "embed": L.init_embed(gen, cfg, device),
+        "blocks": {
+            "ln1": torch.ones((*lead, cfg.d_model), **ones),
+            "attn": L.init_attention(gen, cfg, device, lead),
+            "ln2": torch.ones((*lead, cfg.d_model), **ones),
+            "mlp": L.init_mlp(gen, cfg, device, lead),
+        },
+        "final_norm": torch.ones((cfg.d_model,), **ones),
+        "head": L.init_head(gen, cfg, device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+            return_kv: bool = False):
+    """tokens: (B, S) -> hidden (B, S, d); optionally the per-layer (k, v)
+    stacked to (L, B, S, Hkv, hd)."""
+    x = L.apply_embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        bp = layer(params["blocks"], i)
+        h, (k, v) = L.apply_attention(bp["attn"], cfg,
+                                      L.rms_norm(x, bp["ln1"]), rot=rot)
+        x = x + h
+        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+        if return_kv:
+            ks.append(k)
+            vs.append(v)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if return_kv:
+        return x, (torch.stack(ks), torch.stack(vs))
+    return x, None
+
+
+def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
+               dtype=None, layout: str = "dense", kv_block: int = 16,
+               num_blocks: int = 0):
+    """Slot-indexed KV cache (see the module docstring for the layouts)."""
+    dt = dtype or L.dtype_of(cfg)
+    lens = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if layout == "paged":
+        nb = num_blocks or batch * L.paged_table_width(max_len, kv_block)
+        shape = (cfg.num_layers, nb + 1, kv_block, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device),
+                "len": lens,
+                "block_table": L.init_block_table(batch, max_len, kv_block,
+                                                  device)}
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device), "len": lens}
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
+    """Run the full prompt; returns (hidden_last, cache) with (L, B,
+    max_len, Hkv, hd) strips and ``len`` = prompt length."""
+    hidden, (k, v) = forward(params, cfg, tokens, return_kv=True)
+    B, S = tokens.shape
+    pad = (0, 0, 0, 0, 0, max_len - S)
+    cache = {"k": torch.nn.functional.pad(k, pad),
+             "v": torch.nn.functional.pad(v, pad),
+             "len": torch.full((B,), S, dtype=torch.int32,
+                               device=tokens.device)}
+    return hidden[:, -1], cache
+
+
+def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
+                  slot: int, offset: int, new_len: int, span: int) -> dict:
+    """One chunk of an incremental prompt prefill for ``slot``.
+
+    tokens: (1, S) chunk at absolute positions ``offset + [0, S)``;
+    ``span``: the whole prompt's attention extent.  Writes the chunk's K/V
+    into the slot's pool blocks and pins the slot's ``len`` to ``new_len``
+    (healing the +1/step drift of interleaved decode steps).  Hidden
+    outputs are discarded: the engine re-feeds the prompt's last token at
+    activation, as with batch prefill."""
+    row = cache["block_table"][slot:slot + 1]
+    x = L.apply_embed(params["embed"], tokens)
+    S = tokens.shape[1]
+    # shared by every layer: the chunk's RoPE tables and pool write index
+    positions = offset + torch.arange(S, device=x.device)[None, :]
+    rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    at = torch.full((1,), offset, dtype=torch.int32, device=x.device)
+    kv_index = L.paged_index(cache["k"].shape[1], cache["k"].shape[2], row,
+                             at, S)
+    for i in range(cfg.num_layers):
+        bp = layer(params["blocks"], i)
+        h, _ = L.apply_attention_chunk(
+            bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
+            kv_pools=(cache["k"][i], cache["v"][i]), block_row=row,
+            offset=offset, span=span, rot=rot, kv_index=kv_index)
+        x = x + h
+        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+    cache["len"][slot] = new_len
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
+    """The KV-writing decode body: embed -> blocks -> final norm.
+
+    token: (B,).  Writes each slot's K/V at its PRE-step depth and returns
+    ``(hidden (B, d), cache)`` with ``len`` advanced by one (a new tensor:
+    the caller's pre-step ``len`` stays valid for the head)."""
+    x = L.apply_embed(params["embed"], token[:, None])
+    lens = cache["len"]
+    table = cache.get("block_table")
+    # shared by every layer: the RoPE tables at each slot's depth and, when
+    # paged, the pool positions this step writes
+    rot = L.rope_tables(lens.reshape(-1, 1), cfg.head_dim, cfg.rope_theta)
+    kv_index = None if table is None else L.paged_index(
+        cache["k"].shape[1], cache["k"].shape[2], table, lens, 1)
+    for i in range(cfg.num_layers):
+        bp = layer(params["blocks"], i)
+        h, _ = L.apply_attention(
+            bp["attn"], cfg, L.rms_norm(x, bp["ln1"]), rot=rot,
+            kv_cache=(cache["k"][i], cache["v"][i]), cache_len=lens,
+            block_table=table, kv_index=kv_index)
+        x = x + h
+        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    cache["len"] = lens + 1
+    return x[:, 0], cache
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
+                key: tuple[int, int], head_noise=None):
+    """One uncertain decode step: (outputs, cache) with outputs =
+    {next_token, H, SE, MI, p_max} per slot from ``cfg.mc_samples`` LRT
+    head draws (``uncertain_head``)."""
+    lens0 = cache["len"]
+    hidden, cache = decode_hidden(params, cfg, token, cache)
+    return U.head_outputs(params, cfg, hidden, lens0, key,
+                          head_noise=head_noise), cache

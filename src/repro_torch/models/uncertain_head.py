@@ -1,0 +1,58 @@
+"""The uncertain decode head (the body/head split of a decode step).
+
+PyTorch counterpart of ``repro.models.uncertain_head``.  A decode step is
+a KV-writing BODY (``decode_hidden``) followed by this HEAD:
+``cfg.mc_samples`` LRT draws from the Bayesian output projection over the
+body's hidden state, reduced to the paper's (H, SE, MI) triplet plus the
+greedy next token.
+
+Two entropy modes, as in the JAX package:
+
+* ``head_entropy='kernel'``: the fused head (``ops.uncertainty_head_
+  sampled``) draws its variates from the Philox stream keyed by
+  (seed, global step) inside the kernel — no xi tensor exists;
+* ``'operand'``: an explicit (S, B, V) xi that is a pure function of
+  (seed, slot, depth) (``layers.decode_head_noise``, or the caller's
+  ``head_noise`` provider with the same signature), then the plain
+  logits path.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.uncertainty import uncertainty_from_logits
+from repro_torch.models import layers as L
+
+# (seed, cache_len (B,), num_samples, vocab) -> (S, B, V) f32 xi
+HeadNoise = Callable[[int, torch.Tensor, int, int], torch.Tensor]
+
+
+def head_outputs(params, cfg: ArchConfig, hidden: torch.Tensor,
+                 cache_len: torch.Tensor, key: tuple[int, int],
+                 head_noise: Optional[HeadNoise] = None) -> dict:
+    """Uncertain head over a decode hidden state.
+
+    hidden: (B, d); ``cache_len``: (B,) PRE-step depths (the operand noise
+    site); ``key``: (seed, step) of the head stream.  Returns
+    {next_token, H, SE, MI, p_max} per slot.
+    """
+    head = params["head"]
+    S = cfg.mc_samples
+    seed, step = key
+    if cfg.head_entropy == "kernel" and not cfg.logits_softcap:
+        from repro_torch.kernels import ops
+        unc = ops.uncertainty_head_sampled(hidden, head["mu"], head["sigma"],
+                                           seed, step, num_samples=S)
+        return {"next_token": unc["pred"], "H": unc["H"], "SE": unc["SE"],
+                "MI": unc["MI"], "p_max": unc["p_max"]}
+    xi = (head_noise or L.decode_head_noise)(seed, cache_len, S,
+                                             cfg.vocab_size)
+    logits = L.head_logits_sampled(head, hidden[None], cfg, xi)
+    unc = uncertainty_from_logits(logits)
+    p_max, tok = unc["p_mean"].max(dim=-1)
+    return {"next_token": tok.to(torch.int32), "H": unc["H"],
+            "SE": unc["SE"], "MI": unc["MI"], "p_max": p_max}
