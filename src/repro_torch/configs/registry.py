@@ -1,5 +1,5 @@
-"""--arch registry of the port (a copy of the JAX package's registry
-without the paper BNN, whose config module builds a JAX model).
+"""--arch registry of the port (a copy of the JAX package's registry),
+plus ``get_bnn_config`` for the paper's own BNN.
 
 ``get_config(name)`` returns the full published config; ``reduced(cfg)``
 scales any config down to a CPU-smoke-testable size while preserving the
@@ -34,6 +34,13 @@ PORTED_FAMILIES = ("dense",)
 
 def normalize(name: str) -> str:
     return name.replace("-", "_").replace(".", "_").lower()
+
+
+def get_bnn_config(preset: str = "bloodcell"):
+    """The paper's own CNN (configs/paper_bnn.py): not an LM ArchConfig."""
+    from repro_torch.configs import paper_bnn
+    return {"bloodcell": paper_bnn.BLOODCELL,
+            "mnist": paper_bnn.MNIST_LIKE}[preset]
 
 
 def get_config(name: str) -> ArchConfig:

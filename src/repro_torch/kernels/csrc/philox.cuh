@@ -1,4 +1,4 @@
-// Philox4x32-10 (Salmon et al., SC'11) and the head's normal draw.
+// Philox4x32-10 (Salmon et al., SC'11) and the kernels' normal draws.
 //
 // Counter-based: the value at an element depends only on (key, counter),
 // so a kernel can regenerate any variate it drew before without storing
@@ -43,6 +43,26 @@ __device__ __forceinline__ float philox_normal(uint32_t seed, uint32_t step,
   const float u2 = (float)(o.y >> 8) * (1.0f / 16777216.0f);
   const float r = sqrtf(-2.0f * logf(1.0f - u1));
   return r * cosf(6.2831853071795865f * u2);
+}
+
+// Four normals from one call, for the streams that are bound by Philox
+// work (weight-space GEMM, per-symbol conv): both Box-Muller outputs of
+// both word pairs, in the order r0 cos, r0 sin, r1 cos, r1 sin
+// (repro_torch/kernels/rng.py::normals4 is the twin).
+__device__ __forceinline__ float4 philox_normal4(uint32_t c0, uint32_t c1,
+                                                 uint32_t c2, uint32_t tag,
+                                                 uint32_t seed) {
+  const uint4 o = philox4x32_10(make_uint4(c0, c1, c2, tag), seed, 0u);
+  const float u1 = (float)(o.x >> 8) * (1.0f / 16777216.0f);
+  const float u2 = (float)(o.y >> 8) * (1.0f / 16777216.0f);
+  const float u3 = (float)(o.z >> 8) * (1.0f / 16777216.0f);
+  const float u4 = (float)(o.w >> 8) * (1.0f / 16777216.0f);
+  const float r0 = sqrtf(-2.0f * logf(1.0f - u1));
+  const float r1 = sqrtf(-2.0f * logf(1.0f - u3));
+  float s0, c0f, s1, c1f;
+  sincosf(6.2831853071795865f * u2, &s0, &c0f);
+  sincosf(6.2831853071795865f * u4, &s1, &c1f);
+  return make_float4(r0 * c0f, r0 * s0, r1 * c1f, r1 * s1);
 }
 
 }  // namespace repro

@@ -15,8 +15,11 @@ import pytest
 import torch
 
 from _torch_parity import assert_close, cuda_device  # noqa: F401
-from repro_torch.kernels import launches
+from repro_torch.core.photonic import quantize_ste
+from repro_torch.kernels import bayes_matmul as BM
+from repro_torch.kernels import launches, ref
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import photonic_conv as PC
 from repro_torch.kernels import uncertainty_head as UH
 
 pytestmark = pytest.mark.needs_cuda
@@ -143,6 +146,117 @@ def test_cuda_wrappers_refuse_bad_operands(cuda_device):
     x, mu, sg, _ = (t.to(cuda_device) for t in _head(1, 2, 16, 50, 2))
     with pytest.raises(ValueError):
         UH.uncertainty_head_cuda(x, mu, sg[:, :10], num_samples=2)
+
+
+def _assert_adc_close(got, want):
+    """Bit-equal, or at most 0.1% of outputs one ADC step (4/127) apart:
+    Box-Muller's libm calls may round an ulp apart between the kernel and
+    PyTorch's CUDA ops, which can move a sum across an ADC level."""
+    d = (got - want).abs().cpu().double()
+    flips = d > 0
+    assert flips.sum() <= 0.001 * d.numel(), int(flips.sum())
+    assert torch.allclose(d[flips], torch.full_like(d[flips], 4 / 127),
+                          rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,T", [(3, 300), (16, 256), (1, 9), (5, 600)])
+def test_cuda_photonic_conv_matches_plain(cuda_device, B, T):
+    r = np.random.default_rng(B * T)
+    x = torch.from_numpy(r.uniform(-1.5, 1.5, (B, T)).astype(
+        np.float32)).to(cuda_device)
+    mu = torch.linspace(-0.9, 0.9, 9, device=cuda_device)
+    sg = 0.3 * mu.abs()
+    eps = torch.from_numpy(r.standard_normal((B, T - 8, 9)).astype(
+        np.float32)).to(cuda_device)
+    got = PC.photonic_conv_cuda(x, mu, sg, eps)
+    assert torch.equal(got, PC.photonic_conv_plain(x, mu, sg, eps))
+    got = PC.photonic_conv_sampled_cuda(x, mu, sg, 17)
+    _assert_adc_close(got, PC.photonic_conv_plain(x, mu, sg, seed=17))
+    assert torch.equal(got, PC.photonic_conv_sampled_cuda(x, mu, sg, 17))
+    assert not torch.equal(got, PC.photonic_conv_sampled_cuda(x, mu, sg, 18))
+
+
+def _gemm(seed, M, K, N, S=None, dev="cuda"):
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((M, K)).astype(np.float32)
+    mu = (0.3 * r.standard_normal((K, N))).astype(np.float32)
+    sg = np.abs(0.1 * r.standard_normal((K, N))).astype(np.float32)
+    eps = r.standard_normal((K, N) if S is None else (S, K, N)).astype(
+        np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (x, mu, sg, eps)]
+
+
+def _rel_close(got, want, tol=1e-4):
+    """f32 sums in another order: within 1e-4 of max |y|."""
+    err = float((got - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("M,K,N", [(33, 70, 17), (128, 1024, 300),
+                                   (1, 9, 7), (200, 171, 32)])
+def test_cuda_bayes_matmul_matches_plain(cuda_device, M, K, N):
+    x, mu, sg, eps = _gemm(M + K, M, K, N)
+    _rel_close(BM.bayes_matmul_cuda(x, mu, sg, eps),
+               ref.bayes_matmul(x, mu, sg, eps))
+    xb, mb, sb = (t.to(torch.bfloat16) for t in (x, mu, sg))
+    _rel_close(BM.bayes_matmul_cuda(xb, mb, sb, eps),
+               ref.bayes_matmul(xb, mb, sb, eps))
+
+
+@pytest.mark.parametrize("S", [1, 4, 10, 16])
+@pytest.mark.parametrize("M,K,N", [(33, 70, 17), (130, 171, 32)])
+def test_cuda_bayes_matmul_sampled_matches_plain(cuda_device, S, M, K, N):
+    x, mu, sg, eps = _gemm(S + M, M, K, N, S)
+    for kw in ({"eps": eps}, {"seed": 9}):
+        got = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=S, **kw)
+        want = BM.bayes_matmul_sampled_plain(x, mu, sg, num_samples=S, **kw)
+        assert got.shape == (S, M, N)
+        _rel_close(got, want)
+
+
+def test_cuda_sampled_gemm_shares_w_across_row_blocks(cuda_device):
+    """Rows 3 and 100 lie in different 64-row blocks of the kernel: with
+    the same x row they must see the same W_s for every s."""
+    x, mu, sg, _ = _gemm(4, 130, 171, 40)
+    x[100] = x[3]
+    launches.reset()
+    y = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=10, seed=3)
+    y2 = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=10, seed=3)
+    assert launches.snapshot()["bayes_matmul_sampled"] == 2
+    assert torch.equal(y, y2)
+    assert torch.equal(y[:, 3], y[:, 100])
+    assert not torch.equal(y[0, 3], y[1, 3])
+
+
+def test_cuda_quantizers_do_not_synchronize(cuda_device):
+    """The DAC/ADC quantizers run three times per machine-mode forward
+    pass of the BNN: a host copy of their scale would stall the stream
+    each time."""
+    x = torch.linspace(-2, 2, 1001, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q = ref.quantize(x, 8, 4.0)
+        qs = quantize_ste(x, 8, 1.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(q.cpu(), ref.quantize(x.cpu(), 8, 4.0))
+    assert torch.equal(qs.cpu(), quantize_ste(x.cpu(), 8, 1.0))
+
+
+def test_cuda_paper_wrappers_refuse_bad_operands(cuda_device):
+    x, mu, sg, eps = _gemm(1, 8, 16, 12)
+    with pytest.raises(ValueError):
+        BM.bayes_matmul_cuda(x, mu, sg[:, :5], eps)
+    with pytest.raises(ValueError):
+        BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=17)
+    xc = torch.zeros((2, 20), device=cuda_device)
+    mu9 = torch.zeros(9, device=cuda_device)
+    with pytest.raises(ValueError):
+        PC.photonic_conv_cuda(xc, mu9, mu9, torch.zeros((2, 11, 9),
+                                                        device=cuda_device))
+    with pytest.raises(TypeError):
+        PC.photonic_conv_sampled_cuda(xc.double(), mu9, mu9, 1)
 
 
 if __name__ == "__main__":
