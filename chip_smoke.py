@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serving path and the paper's photonic /
-Bayesian path on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving path, the paper's photonic / Bayesian
+path and the LM-side kernels' library surface on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -25,14 +26,21 @@ Phases (any failure exits non-zero before the result line):
      prediction, through the port's entry points; the four paper
      kernels' launch counts are zeroed before each path call and read
      just after it (the checks and timing replays are not counted).
-  8. one JSON line of per-kernel numbers, the card's nvidia-smi line, then
-     the result line.
+  8. lm kernels: the four LM-side entry points of ``repro_torch.kernels``
+     (``lrt_matmul``, ``lrt_matmul_sampled``, ``uncertainty_head`` (the
+     two-pass head), ``flash_attention``) at bench_kernels' shape and
+     qwen2-1.5B's widths, each call's launches counted around it alone
+     (its own kernel, no other), checked against plain f32 GEMMs, the
+     fused head and the models' attention, and timed.
+  9. one JSON line of per-kernel numbers (eleven kernels), the card's
+     nvidia-smi line, then the result line.
 
 Imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import subprocess
@@ -70,6 +78,13 @@ SERVE_FLAGS = ["--arch", "qwen2_1_5b", "--slots", "4", "--num-requests", "8",
                "--prompt-len", "256", "--gen-len", "32", "--chunk", "8",
                "--kv-layout", "paged", "--kv-block", "16",
                "--prefill-chunk", "64", "--seed", "0"]
+
+
+def kernel_module(name: str):
+    """The submodule ``repro_torch.kernels.<name>``: the package exports
+    the ops functions of the same names, which shadow the submodules as
+    its attributes."""
+    return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
 def fail(msg: str):
@@ -142,46 +157,66 @@ def same_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def check_head(dev) -> dict:
-    from repro_torch.kernels import ref, rng
-    from repro_torch.kernels import uncertainty_head as UH
+# f32 reductions over K = 1536 and V = 151936 in another order: H and SE
+# (~log V ~ 12) agree to ~1e-5, MI is their difference
+HEAD_TOL = {"H": 2e-4, "SE": 2e-4, "MI": 2e-4, "p_max": 1e-6}
 
-    K, V, S = 1536, 151936, 10
-    g = torch.Generator(device=dev).manual_seed(1)
+
+def compare_heads(tag: str, got: dict, want: dict, x, mu, sigma, xi) -> float:
+    """H, SE, MI and p_max within HEAD_TOL, NaN where ``want`` has NaN;
+    pred equal wherever the top-2 gap of p-bar (from the full (S, M, V)
+    logits of ``xi``) is resolvable.  Returns the worst error."""
+    from repro_torch.kernels import ref
+
+    torch.cuda.synchronize()
+    worst = 0.0
+    for k, t in HEAD_TOL.items():
+        e = max_err(got[k], want[k])
+        worst = max(worst, e)
+        if not e <= t or not same_nan(got[k], want[k]):
+            fail(f"{tag}: {k} max |err| {e:.3g} > {t}")
+    pbar = torch.softmax(ref.lrt_matmul(x, mu, sigma, xi), dim=-1).mean(0)
+    top = pbar.topk(2, dim=-1).values
+    clear = (top[:, 0] - top[:, 1]) > 1e-6
+    bad = (got["pred"] != want["pred"]) & clear
+    if bad.any():
+        fail(f"{tag}: pred differs on {int(bad.sum())} rows with a clear "
+             "argmax")
+    return worst
+
+
+def head_case(dev, seed):
+    """qwen2-1.5B's head widths: K 1536, V 151936; mu ~ N(0, 1/K), sigma in
+    [0.01, 0.06)."""
+    K, V = 1536, 151936
+    g = torch.Generator(device=dev).manual_seed(seed)
     mu = torch.randn((K, V), generator=g, device=dev) / math.sqrt(K)
     sigma = 0.01 + 0.05 * torch.rand((K, V), generator=g, device=dev)
+    return mu, sigma, g
+
+
+def check_head(dev) -> dict:
+    from repro_torch.kernels import rng
+    UH = kernel_module("uncertainty_head")
+
+    S = 10
+    mu, sigma, g = head_case(dev, 1)
+    K, V = mu.shape
     worst, rows = 0.0, {}
     for M in (4, 16):
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
         xi = torch.randn((S, M, V), generator=g, device=dev)
-        # f32 reductions over K = 1536 and V = 151936 in another order:
-        # H and SE (~log V ~ 12) agree to ~1e-5, MI is their difference
-        tol = {"H": 2e-4, "SE": 2e-4, "MI": 2e-4, "p_max": 1e-6}
         for mode, kw in (("xi", {"xi": xi}), ("philox",
                                               {"seed": 7, "step": 3})):
             got = UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, **kw)
             want = UH.uncertainty_head_plain(x, mu, sigma, num_samples=S,
                                              **kw)
-            torch.cuda.synchronize()
-            for k, t in tol.items():
-                e = max_err(got[k], want[k])
-                worst = max(worst, e)
-                if not e <= t or not same_nan(got[k], want[k]):
-                    fail(f"head M={M} {mode}: {k} max |err| {e:.3g} > {t}")
-            # pred must match wherever the top-2 gap of p-bar is resolvable
             xi_full = xi if mode == "xi" else rng.head_normal(
                 7, 3, S, M, torch.arange(V, device=dev))
-            pbar = torch.softmax(ref.lrt_matmul(x, mu, sigma, xi_full),
-                                 dim=-1).mean(0)
-            top = pbar.topk(2, dim=-1).values
-            clear = (top[:, 0] - top[:, 1]) > 1e-6
-            bad = (got["pred"] != want["pred"]) & clear
-            if bad.any():
-                fail(f"head M={M} {mode}: pred differs on {int(bad.sum())} "
-                     "rows with a clear argmax")
-            print(f"  head M={M} {mode}: ok (max |err| "
-                  f"{max(max_err(got[k], want[k]) for k in tol):.3g})",
-                  flush=True)
+            e = compare_heads(f"head M={M} {mode}", got, want, x, mu, sigma,
+                              xi_full)
+            worst = max(worst, e)
+            print(f"  head M={M} {mode}: ok (max |err| {e:.3g})", flush=True)
         a = UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, seed=7,
                                      step=3)
         b = UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, seed=7,
@@ -371,7 +406,7 @@ def adc_check(name: str, got, want) -> float:
 
 
 def check_photonic(dev) -> tuple[dict, dict]:
-    from repro_torch.kernels import photonic_conv as PC
+    PC = kernel_module("photonic_conv")
     from repro_torch.kernels import ref
 
     rows = {}
@@ -448,7 +483,7 @@ def check_gemms(dev, M, K, N, S, r0, r1, seed) -> tuple[float, float]:
     the seeded stream; rows r0 and r1 (in different 64-row blocks) hold
     the same x, so they must see the same W_s.  Returns the worst errors
     of the single draw and of the sampled GEMM."""
-    from repro_torch.kernels import bayes_matmul as BM
+    BM = kernel_module("bayes_matmul")
     from repro_torch.kernels import ref
 
     x, mu, sg, g = gemm_case(dev, M, K, N, seed)
@@ -475,7 +510,7 @@ def check_gemms(dev, M, K, N, S, r0, r1, seed) -> tuple[float, float]:
 
 
 def check_bayes(dev) -> tuple[dict, dict]:
-    from repro_torch.kernels import bayes_matmul as BM
+    BM = kernel_module("bayes_matmul")
     from repro_torch.kernels import ref
 
     M, K, N, S = 128, 1024, 4096, 10
@@ -533,6 +568,218 @@ def check_bayes(dev) -> tuple[dict, dict]:
           f"{redraw * PHILOX_INT_OPS / INT32_OPS * 1e3:.4f} ms of integer "
           f"work at peak", flush=True)
     return rows
+
+
+# --------------------------------------------------------------------------
+# phase 3 (LM-side kernels): LRT GEMMs, two-pass head, flash attention
+# --------------------------------------------------------------------------
+
+# bench_kernels' Bayesian dense layer (f32 x) and qwen2-1.5B's head at the
+# serving path's 4 slots (bf16 hidden state)
+LRT_SHAPES = ((128, 1024, 4096, torch.float32),
+              (4, 1536, 151936, torch.bfloat16))
+# qwen2-1.5B's attention widths (H 12, Hkv 2, D 128, bf16):
+# (name, B, Sq, Sk, q_offset, causal)
+FLASH_CASES = (("prompt 256", 4, 256, 256, 0, True),
+               ("causal 2048", 4, 2048, 2048, 0, True),
+               ("prefill continuation", 1, 64, 2048, 1984, True),
+               ("decode window", 4, 1, 2048, 2047, True),
+               ("non-causal", 4, 256, 1024, 0, False))
+FLASH_H, FLASH_HKV, FLASH_D = 12, 2, 128
+
+
+def lrt_case(dev, M, K, N, dtype, seed):
+    x, mu, sg, g = gemm_case(dev, M, K, N, seed)
+    return x.to(dtype), mu, sg, g
+
+
+def lrt_moments(x, mu, sg):
+    """The LRT output's mean and std from plain f32 GEMMs (TF32 off)."""
+    x32 = x.float()
+    return x32 @ mu, torch.sqrt((x32 * x32) @ (sg * sg))
+
+
+def check_lrt(dev) -> tuple[dict, dict]:
+    """Both LRT entry points' kernel against its plain version at both
+    shapes (explicit xi, and the seeded stream for the S-sample GEMM),
+    within 1e-5 of max |y|; the seeded GEMM is a function of its seed and
+    its mean over S lies within std/sqrt(S) of the mean output.  The
+    table's rows are the bench_kernels shape."""
+    BM = kernel_module("bayes_matmul")
+    S = 10
+    worst1 = worst2 = 0.0
+    rows = None
+    for M, K, N, dt in LRT_SHAPES:
+        x, mu, sg, g = lrt_case(dev, M, K, N, dt, seed=14)
+        xi = torch.randn((M, N), generator=g, device=dev)
+        xi_s = torch.randn((S, M, N), generator=g, device=dev)
+        tag = f"M={M} K={K} N={N}"
+        e1 = rel_check(f"lrt_matmul {tag}", BM.lrt_matmul_cuda(x, mu, sg, xi),
+                       BM.lrt_matmul_plain(x, mu, sg, xi), tol=1e-5)
+        e2 = rel_check(f"lrt_matmul_sampled xi {tag}",
+                       BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=S,
+                                                  xi=xi_s),
+                       BM.lrt_matmul_sampled_plain(x, mu, sg, num_samples=S,
+                                                   xi=xi_s), tol=1e-5)
+        seeded = lambda seed: BM.lrt_matmul_sampled_cuda(  # noqa: E731
+            x, mu, sg, num_samples=S, seed=seed)
+        got = seeded(21)
+        e3 = rel_check(f"lrt_matmul_sampled seeded {tag}", got,
+                       BM.lrt_matmul_sampled_plain(x, mu, sg, num_samples=S,
+                                                   seed=21), tol=1e-5)
+        if not torch.equal(got, seeded(21)) or torch.equal(got, seeded(22)):
+            fail(f"lrt_matmul_sampled {tag}: not a function of the seed")
+        note = moments_check(f"lrt_matmul_sampled {tag}", got,
+                             *lrt_moments(x, mu, sg), S)
+        worst1, worst2 = max(worst1, e1), max(worst2, e2, e3)
+        esize = x.element_size()
+        calls = 10 if M == 128 else 3
+        b1 = bound(M * K * esize + (2 * K * N + 2 * M * N) * 4,
+                   4.0 * M * K * N, F32_FLOPS)
+        b2 = bound(M * K * esize + (2 * K * N + S * M * N) * 4,
+                   4.0 * M * K * N, F32_FLOPS,
+                   philox_calls=M * N * -(-S // 4))
+        # library yardstick: the two cuBLAS f32 GEMMs on x^2 and sigma^2
+        # formed beforehand
+        x32 = x.float()
+        x2, s2 = x32 * x32, sg * sg
+        lib_ms = device_ms(lambda: (torch.matmul(x32, mu),
+                                    torch.matmul(x2, s2)), calls)
+        r = ({"max_abs_err": e1,
+              "ms": device_ms(lambda: BM.lrt_matmul_cuda(x, mu, sg, xi),
+                              calls),
+              "plain_ms": time_ms(lambda: BM.lrt_matmul_plain(x, mu, sg, xi),
+                                  3),
+              "bound_ms": b1[0], "bound_by": b1[1], "library_ms": lib_ms},
+             {"max_abs_err": max(e2, e3),
+              "ms": device_ms(lambda: seeded(21), calls),
+              "plain_ms": time_ms(lambda: BM.lrt_matmul_sampled_plain(
+                  x, mu, sg, num_samples=S, seed=21), 1, 0),
+              "bound_ms": b2[0], "bound_by": b2[1], "library_ms": lib_ms})
+        print(f"  LRT GEMMs {tag} x {dt}: ok (max |err| {e1:.3g}, {e2:.3g}, "
+              f"{e3:.3g}; seeded {note}); lrt_matmul {r[0]['ms']:.4f} ms, "
+              f"bound {b1[0]:.4f} ms ({b1[1]}), plain {r[0]['plain_ms']:.3f}"
+              f" ms; lrt_matmul_sampled S={S} {r[1]['ms']:.4f} ms, bound "
+              f"{b2[0]:.4f} ms ({b2[1]}), plain {r[1]['plain_ms']:.2f} ms; "
+              f"two cuBLAS GEMMs {lib_ms:.4f} ms", flush=True)
+        if rows is None:
+            rows = r
+    rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst1, worst2
+    return rows
+
+
+def check_two_pass(dev) -> dict:
+    """The two-pass head against its plain version at M 4 and 16 with bf16
+    x; the row is M 4."""
+    UH = kernel_module("uncertainty_head")
+    S = 10
+    mu, sigma, g = head_case(dev, 15)
+    K, V = mu.shape
+    worst, row = 0.0, {}
+    for M in (4, 16):
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        xi = torch.randn((S, M, V), generator=g, device=dev)
+        got = UH.uncertainty_head_two_pass_cuda(x, mu, sigma, xi)
+        want = UH.uncertainty_head_two_pass_plain(x, mu, sigma, xi)
+        e = compare_heads(f"two-pass head M={M}", got, want, x, mu, sigma, xi)
+        worst = max(worst, e)
+        ms = device_ms(lambda: UH.uncertainty_head_two_pass_cuda(
+            x, mu, sigma, xi), 5)
+        # inputs read once and outputs written once; the (S, M, V) scratch
+        # is the kernel's own and not counted
+        b_ms, b_by = bound(M * K * 2 + 2 * K * V * 4 + S * M * V * 4
+                           + 5 * M * 4, 4.0 * M * K * V, F32_FLOPS)
+        scratch = 2 * S * M * V * 4
+        print(f"  two-pass head M={M}: ok (max |err| {e:.3g}), {ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}); with the scratch written and "
+              f"re-read {b_ms + scratch / HBM_BYTES_PER_S * 1e3:.4f} ms",
+              flush=True)
+        if M == 4:
+            # no single PyTorch call computes the head: no library time
+            row = {"ms": ms, "plain_ms": time_ms(
+                lambda: UH.uncertainty_head_two_pass_plain(x, mu, sigma, xi),
+                1, 0), "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+    row["max_abs_err"] = worst
+    return row
+
+
+def flash_case(dev, B, Sq, Sk, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, n, h, FLASH_D), generator=g, device=dev)
+            .to(torch.bfloat16)
+            for n, h in ((Sq, FLASH_H), (Sk, FLASH_HKV), (Sk, FLASH_HKV))]
+
+
+def bf16_check(name: str, got, want32) -> float:
+    """bf16 outputs against an f32 reference: within one bf16 ulp of |o|
+    (2^(e-8) for |o| in [2^(e-1), 2^e)) plus 2^-20 for f32 sums taken in
+    another order."""
+    w = want32.float()
+    d = (got.float() - w).abs()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - 8)
+    bad = ~(d <= ulp + 2.0 ** -20)
+    if bad.any() or not torch.isfinite(got).all():
+        fail(f"{name}: {int(bad.sum())} outputs beyond one bf16 ulp of the "
+             f"reference (max |err| {float(d.max()):.3g})")
+    return float(d.max())
+
+
+def attention_pairs(Sq, Sk, q_offset, causal) -> int:
+    """(query, key) pairs the attention reads: the causal mask's count."""
+    if not causal:
+        return Sq * Sk
+    return sum(min(Sk, max(0, q_offset + i + 1)) for i in range(Sq))
+
+
+def check_flash(dev) -> dict:
+    """The flash kernel against the plain version's f32 result at each
+    case, and SDPA beside it; the row is B 4, Sq = Sk = 2048, causal."""
+    FA = kernel_module("flash_attention")
+    H, Hkv, D = FLASH_H, FLASH_HKV, FLASH_D
+    worst, row = 0.0, {}
+    for name, B, Sq, Sk, off, causal in FLASH_CASES:
+        q, k, v = flash_case(dev, B, Sq, Sk, 16)
+        kw = {"causal": causal, "q_offset": off}
+        got = FA.flash_attention_cuda(q, k, v, **kw)
+        want = FA.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        e = bf16_check(f"flash attention {name}", got, want)
+        worst = max(worst, e)
+        # library yardstick: SDPA over K/V expanded to the query heads
+        # beforehand (not timed), causal by its flag or by a mask
+        qx = q.transpose(1, 2).contiguous()
+        kx, vx = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        sdpa = {}
+        if causal and off == 0 and Sq == Sk:
+            sdpa["is_causal"] = True
+        elif causal:
+            kpos = torch.arange(Sk, device=dev)
+            qpos = off + torch.arange(Sq, device=dev)
+            sdpa["attn_mask"] = kpos[None, :] <= qpos[:, None]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qx, kx, vx, **sdpa)
+        e_lib = max_err(lib().transpose(1, 2), want)
+        if not e_lib <= 2e-2:       # one bf16 ulp of O(1) outputs
+            fail(f"flash attention {name}: the SDPA yardstick differs by "
+                 f"{e_lib:.3g}")
+        pairs = attention_pairs(Sq, Sk, off, causal)
+        b_ms, b_by = bound((2 * B * Sq * H + 2 * B * Sk * Hkv) * D * 2,
+                           4.0 * B * H * D * pairs, BF16_FLOPS)
+        calls = 5 if Sq * Sk >= 2 ** 21 else 20
+        ms = device_ms(lambda: FA.flash_attention_cuda(q, k, v, **kw), calls)
+        lib_ms = device_ms(lib, calls)
+        print(f"  flash attention {name} (B {B}, Sq {Sq}, Sk {Sk}, q_offset "
+              f"{off}): ok (max |err| {e:.3g}; SDPA {e_lib:.3g}), {ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}), SDPA {lib_ms:.4f} ms, "
+              f"{4.0 * B * H * D * pairs / ms / 1e9:.2f} TFLOP/s", flush=True)
+        if name == "causal 2048":
+            row = {"ms": ms, "plain_ms": time_ms(
+                lambda: FA.flash_attention_plain(q, k, v, **kw), 1, 0),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    row["max_abs_err"] = worst
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -855,6 +1102,100 @@ def paper_bnn(dev) -> None:
               f"{top(tr['by_name'], 4)}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 8: the LM-side kernels through the library surface
+# --------------------------------------------------------------------------
+
+LM_KERNELS = ("lrt_matmul", "lrt_matmul_sampled", "uncertainty_head_two_pass",
+              "flash_attention")
+
+
+def lm_call(counts: dict, name: str, fn):
+    """One call of an entry point of ``repro_torch.kernels``: the launch
+    counts are zeroed just before it and read just after; its own kernel
+    must have launched, and no other."""
+    from repro_torch.kernels import launches
+
+    seen = dict.fromkeys(launches.COUNTS, 0)
+    out = on_path(seen, fn)
+    others = {k: n for k, n in seen.items() if n and k != name}
+    if seen[name] < 1 or others:
+        fail(f"lm kernels: {name} launched {seen[name]} times, other kernels "
+             f"{others}")
+    counts[name] += seen[name]
+    return out
+
+
+def lm_kernels(dev, counts: dict) -> None:
+    """The four LM-side entry points at the shapes of phase 3, each call
+    counted, checked by the repo's own references and timed (CUDA-graph
+    replay): the LRT GEMMs against plain f32 GEMMs and sigma/sqrt(S), the
+    two-pass head against the fused head on the same xi, flash attention
+    against the models' online-softmax attention in f32."""
+    import repro_torch.kernels as K
+    from repro_torch.models import layers as L
+    UH = kernel_module("uncertainty_head")
+
+    S = 10
+    for M, Kd, N, dt in LRT_SHAPES:
+        x, mu, sg, g = lrt_case(dev, M, Kd, N, dt, seed=17)
+        xi = torch.randn((M, N), generator=g, device=dev)
+        mean, std = lrt_moments(x, mu, sg)
+        y = lm_call(counts, "lrt_matmul",
+                    lambda: K.lrt_matmul(x, mu, sg, xi))
+        e = rel_check(f"ops.lrt_matmul M={M}", y, mean + std * xi, tol=1e-5)
+        ys = lm_call(counts, "lrt_matmul_sampled",
+                     lambda: K.lrt_matmul_sampled(x, mu, sg, 23,
+                                                  num_samples=S))
+        if ys.shape != (S, M, N):
+            fail(f"ops.lrt_matmul_sampled: shape {tuple(ys.shape)}")
+        note = moments_check(f"ops.lrt_matmul_sampled M={M}", ys, mean, std,
+                             S)
+        calls = 10 if M == 128 else 3
+        t1 = device_ms(lambda: K.lrt_matmul(x, mu, sg, xi), calls)
+        ts = device_ms(lambda: K.lrt_matmul_sampled(x, mu, sg, 23,
+                                                    num_samples=S), calls)
+        print(f"  ops.lrt_matmul M={M} K={Kd} N={N}: {t1:.4f} ms (max |err| "
+              f"vs f32 GEMMs {e:.3g}); ops.lrt_matmul_sampled S={S}: "
+              f"{ts:.4f} ms, {note}", flush=True)
+
+    mu, sigma, g = head_case(dev, 18)
+    Kd, V = mu.shape
+    for M in (4, 16):
+        x = torch.randn((M, Kd), generator=g, device=dev).to(torch.bfloat16)
+        xi = torch.randn((S, M, V), generator=g, device=dev)
+        out = lm_call(counts, "uncertainty_head_two_pass",
+                      lambda: K.uncertainty_head(x, mu, sigma, xi))
+        fused = UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, xi=xi)
+        e = compare_heads(f"ops.uncertainty_head M={M} vs the fused head",
+                          out, fused, x, mu, sigma, xi)
+        u = torch.stack([out["H"], out["SE"], out["MI"]])
+        if not torch.isfinite(u).all() or (out["MI"] < 0).any() or \
+                (out["H"] > math.log(V) + 1e-4).any():
+            fail(f"ops.uncertainty_head M={M}: H/SE/MI non-finite, MI < 0 "
+                 "or H > log V")
+        ms = device_ms(lambda: K.uncertainty_head(x, mu, sigma, xi), 5)
+        print(f"  ops.uncertainty_head M={M} V={V} S={S}: {ms:.4f} ms, "
+              f"agrees with the fused head (max |err| {e:.3g}); mean H "
+              f"{float(out['H'].mean()):.4f}, MI "
+              f"{float(out['MI'].mean()):.3g}", flush=True)
+
+    for name, B, Sq, Sk, off, causal in FLASH_CASES:
+        q, k, v = flash_case(dev, B, Sq, Sk, 19)
+        kw = {"causal": causal, "q_offset": off}
+        o = lm_call(counts, "flash_attention",
+                    lambda: K.flash_attention(q, k, v, **kw))
+        if o.shape != q.shape or o.dtype != q.dtype:
+            fail(f"ops.flash_attention {name}: {tuple(o.shape)} {o.dtype}")
+        want = L.flash_attention(q.float(), k.float(), v.float(), **kw)
+        e = bf16_check(f"ops.flash_attention {name} vs the models' attention",
+                       o, want)
+        calls = 5 if Sq * Sk >= 2 ** 21 else 20
+        ms = device_ms(lambda: K.flash_attention(q, k, v, **kw), calls)
+        print(f"  ops.flash_attention {name}: {ms:.4f} ms (max |err| vs the "
+              f"models' attention {e:.3g})", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on a GPU")
@@ -886,6 +1227,9 @@ def main():
     rows["photonic_conv"], rows["photonic_conv_sampled"] = \
         check_photonic(dev)
     rows["bayes_matmul"], rows["bayes_matmul_sampled"] = check_bayes(dev)
+    rows["lrt_matmul"], rows["lrt_matmul_sampled"] = check_lrt(dev)
+    rows["uncertainty_head_two_pass"] = check_two_pass(dev)
+    rows["flash_attention"] = check_flash(dev)
     print(f"phase kernels: {time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
@@ -928,6 +1272,13 @@ def main():
           flush=True)
     print(f"phase paper: {time.perf_counter() - t0:.1f}s", flush=True)
 
+    t0 = time.perf_counter()
+    lm_counts = dict.fromkeys(LM_KERNELS, 0)
+    lm_kernels(dev, lm_counts)
+    counts.update(lm_counts)
+    print(f"lm kernels launches {lm_counts}", flush=True)
+    print(f"phase lm kernels: {time.perf_counter() - t0:.1f}s", flush=True)
+
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",
                              "src/repro/kernels/uncertainty_head.py:291"),
@@ -947,6 +1298,16 @@ def main():
         "bayes_matmul_sampled": (
             "src/repro_torch/kernels/csrc/bayes_matmul.cu",
             "src/repro/kernels/bayes_matmul.py:199"),
+        "lrt_matmul": ("src/repro_torch/kernels/csrc/bayes_matmul.cu",
+                       "src/repro/kernels/bayes_matmul.py:130"),
+        "lrt_matmul_sampled": (
+            "src/repro_torch/kernels/csrc/bayes_matmul.cu",
+            "src/repro/kernels/bayes_matmul.py:283"),
+        "uncertainty_head_two_pass": (
+            "src/repro_torch/kernels/csrc/uncertainty_head.cu",
+            "src/repro/kernels/uncertainty_head.py:120"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:72"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": meta[name][0],

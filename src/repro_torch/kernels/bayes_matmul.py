@@ -1,6 +1,6 @@
-"""The sampled-weight GEMM: the CUDA kernels and their plain PyTorch
-versions (the weight-space half of ``repro.kernels.bayes_matmul``; the
-LRT half is not ported yet).
+"""The sampled-weight GEMM and the local-reparameterization (LRT) GEMM:
+the CUDA kernels and their plain PyTorch versions (counterpart of
+``repro.kernels.bayes_matmul``).
 
   * ``bayes_matmul``: one draw, y = x @ (mu + sigma * eps) with an
     explicit (K, N) eps — counterpart of ``bayes_matmul_kernel``.
@@ -12,14 +12,27 @@ LRT half is not ported yet).
     every row block of the kernel redraws the SAME W_s: one sampled
     weight matrix per sample, whatever the row.
 
-Both kernels are f32 GEMMs on the CUDA cores (no tensor cores, no TF32);
-bf16 operands are converted to f32 here, before the launch.  The
+  * ``lrt_matmul``: one output-space draw, y = x@mu + sqrt(max((x*x) @
+    sigma^2, 0)) * xi with an explicit (M, N) xi — counterpart of
+    ``lrt_matmul_kernel``.
+  * ``lrt_matmul_sampled``: S draws from ONE mean GEMM and ONE variance
+    GEMM, (S, M, N) — counterpart of ``lrt_matmul_fused_kernel``.  xi is
+    an explicit (S, M, N) operand or the TAG_LRT Philox stream keyed by
+    (seed, 0) with one counter per (n, m, s // 4): the draw depends on the
+    output element alone.
+
+The weight-space kernels are f32 GEMMs on the CUDA cores (no tensor
+cores, no TF32); bf16 operands are converted to f32 here, before the
+launch.  The LRT kernel reads x as f32 or bf16 and mu/sigma as f32.  The
 single draw's plain version is ``ref.bayes_matmul``.  The sampled GEMM's
 plain version below follows the kernel's loop — W_s formed per (bk, bn)
 tile, the variates drawn per tile from the element's own counter, row
 blocks replayed — so masking and stream keying are checked on the CPU.
-Its tile sizes are arguments: the stream must not depend on them.
-``ops.py`` picks the kernel or the plain version by the tensor's device.
+Its tile sizes are arguments: the stream must not depend on them.  The
+LRT GEMMs' plain versions form the mean and variance GEMMs once and then
+draw the epilogue's variates per column tile, as the kernel does per
+column.  ``ops.py`` picks the kernel or the plain version by the tensor's
+device.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ import torch
 from repro_torch.kernels import build, launches, rng
 
 MAX_SAMPLES = 16     # the fused kernel keeps S accumulators per output
+MAX_LRT_SAMPLES = 1024   # the LRT kernel loops over S in its epilogue
 PLAIN_BK = 128       # the plain version's default tiles (any tile gives
 PLAIN_BN = 256       # the same variates; the kernel uses its own)
 
@@ -71,6 +85,44 @@ def bayes_matmul_sampled_plain(x: torch.Tensor, mu: torch.Tensor,
                 w = mu[None, k0:k1, n0:n1] + sigma[None, k0:k1, n0:n1] * e
                 y[:, m0:m1, n0:n1] += x[None, m0:m1, k0:k1] @ w
     return y
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the LRT GEMMs
+# ---------------------------------------------------------------------------
+
+def lrt_matmul_sampled_plain(x: torch.Tensor, mu: torch.Tensor,
+                             sigma: torch.Tensor, *, num_samples: int,
+                             xi: torch.Tensor | None = None, seed: int = 0,
+                             bn: int = PLAIN_BN) -> torch.Tensor:
+    """(S, M, N) f32: the mean and variance GEMMs once, then S outputs
+    per column tile of ``bn``; xi=None draws each tile's variates from the
+    TAG_LRT stream keyed by seed."""
+    x32 = x.float()
+    mean = x32 @ mu.float()
+    std = torch.sqrt(torch.clamp((x32 * x32) @ (sigma.float() ** 2),
+                                 min=0.0))
+    M, N = mean.shape
+    dev = x.device
+    rows = torch.arange(M, dtype=torch.int64, device=dev)
+    y = torch.empty((num_samples, M, N), dtype=torch.float32, device=dev)
+    for n0 in range(0, N, bn):
+        n1 = min(n0 + bn, N)
+        if xi is None:
+            e = rng.lrt_normal(seed, num_samples, rows,
+                               torch.arange(n0, n1, dtype=torch.int64,
+                                            device=dev))
+        else:
+            e = xi[:, :, n0:n1].float()
+        y[:, :, n0:n1] = mean[None, :, n0:n1] + std[None, :, n0:n1] * e
+    return y
+
+
+def lrt_matmul_plain(x: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
+                     xi: torch.Tensor) -> torch.Tensor:
+    """One draw with an explicit (M, N) xi -> (M, N) f32."""
+    return lrt_matmul_sampled_plain(x, mu, sigma, num_samples=1,
+                                    xi=xi[None])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -152,3 +204,67 @@ def bayes_matmul_sampled_cuda(x, mu, sigma, *, num_samples: int,
     M, K, N, xs = _operands(x, mu, sigma, eps, lambda k, n: (S, k, n))
     y = torch.empty((S, M, N), dtype=torch.float32, device=x.device)
     return _launch("bayes_matmul_sampled", xs, S, seed, y, M, K, N)
+
+
+def _lrt_fn():
+    fn = build.load("bayes_matmul").repro_lrt_matmul
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, p, p, p, i, ctypes.c_uint32, p, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _lrt_launch(count: str, x, mu, sigma, xi, S: int, seed: int):
+    """Checks the operands and launches the LRT kernel -> (S, M, N) f32."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"{count} needs CUDA tensors, got {dev}")
+    if x.dim() != 2 or mu.dim() != 2:
+        raise ValueError(f"x must be (M, K) and mu (K, N), got "
+                         f"{tuple(x.shape)}, {tuple(mu.shape)}")
+    M, K = x.shape
+    N = mu.shape[1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x has dtype {x.dtype}, expected float32 or "
+                        "bfloat16")
+    for t, name, shape in ((mu, "mu", (K, N)), (sigma, "sigma", (K, N)),
+                           (xi, "xi", (S, M, N))):
+        if t is None:
+            continue
+        _check(t, name, shape, dev)
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected float32")
+    if not 1 <= S <= MAX_LRT_SAMPLES:
+        raise ValueError(f"num_samples must be in [1, {MAX_LRT_SAMPLES}], "
+                         f"got {S}")
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(f"seed must be 32-bit unsigned, got {seed}")
+    x, mu, sigma = (t.contiguous() for t in (x, mu, sigma))
+    xi = xi.contiguous() if xi is not None else None
+    y = torch.empty((S, M, N), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lrt_fn()(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                       mu.data_ptr(), sigma.data_ptr(),
+                       xi.data_ptr() if xi is not None else None, S, seed,
+                       y.data_ptr(), M, K, N, stream)
+    if rc != 0:
+        raise RuntimeError(f"{count} kernel launch failed: CUDA error {rc}")
+    launches.COUNTS[count] += 1
+    return y
+
+
+def lrt_matmul_cuda(x, mu, sigma, xi) -> torch.Tensor:
+    """One draw with an explicit (M, N) xi -> (M, N) f32."""
+    if xi is None or xi.dim() != 2:
+        raise ValueError("lrt_matmul needs an explicit (M, N) xi")
+    return _lrt_launch("lrt_matmul", x, mu, sigma, xi[None], 1, 0)[0]
+
+
+def lrt_matmul_sampled_cuda(x, mu, sigma, *, num_samples: int, xi=None,
+                            seed: int = 0) -> torch.Tensor:
+    """S draws from one mean and one variance GEMM -> (S, M, N) f32; xi
+    (S, M, N) or None for the in-kernel TAG_LRT stream keyed by seed."""
+    return _lrt_launch("lrt_matmul_sampled", x, mu, sigma, xi, num_samples,
+                       seed)

@@ -1,9 +1,13 @@
-// Fused Bayesian LM head with the uncertainty readout, for sm_90a.
+// Bayesian LM head with the uncertainty readout, fused and two-pass, for
+// sm_90a.
 //
 // Replaces: repro/kernels/uncertainty_head.py::uncertainty_head_fused_kernel
 // (bodies _head_stats_fused_kernel, _head_entropy_fused_kernel,
-// _sampled_logits_tile, _tile_xi) and the in-kernel normal draw of
-// repro/kernels/rng.py (uniform_from_bits, normal_draw, seed_from_key).
+// _sampled_logits_tile, _tile_xi), the in-kernel normal draw of
+// repro/kernels/rng.py (uniform_from_bits, normal_draw, seed_from_key),
+// and uncertainty_head_kernel (bodies _head_stats_kernel and
+// _head_entropy_kernel: the two-pass head with an (S, M, V) logits
+// scratch, explicit xi only).
 //
 // Computes, for x (M, K) and the variational head mu/sigma (K, V), S LRT
 // draws  l_s = x@mu + sqrt((x*x)@sigma^2) * xi_s  and reduces them to
@@ -32,6 +36,16 @@
 //           (p_max, index).
 //   final   one block per row: H, SE, MI, pred, p_max.
 //
+// The two-pass head (repro_uncertainty_head_two_pass) runs the same four
+// launches with the TPU kernel's scratch: pass 1 writes the (S, M, V) f32
+// logits (V unpadded, the ragged last tile masked) instead of mean/std,
+// and pass 2 re-reads them instead of rebuilding them.  Its floor is the
+// mu/sigma read plus writing and re-reading the scratch: 1.87 GB +
+// 2 x 24.3 MB at M 4 (V 151936, S 10).  The TPU's grid carried the online
+// stats sequentially across vocab tiles; here tiles run in parallel, so
+// both passes write per-tile partials and the merge / final launches
+// combine them, with the fused head's merge code and argmax rule.
+//
 // Padded columns (V is not a tile multiple) are masked with -1e30, never
 // -inf, so no inf - inf NaN appears; they add 0 to Z, A and H.  A row of x
 // holding NaN (an idle decode slot) yields NaN in that row only: every
@@ -41,6 +55,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "convert.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -53,10 +68,7 @@ constexpr int NRED = 256;  // threads of the merge / final blocks
 constexpr float NEG = -1e30f;
 constexpr uint32_t TAG_KERNEL = 0;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using repro::to_f32;
 
 // online-softmax partial over a set of logits: mx = max, z = sum e^(l-mx),
 // a = sum l e^(l-mx); z == 0 marks the empty set
@@ -104,8 +116,8 @@ __global__ void __launch_bounds__(TV)
                const float* __restrict__ mu, const float* __restrict__ sg,
                int V, const float* __restrict__ xi, int S, uint32_t seed,
                uint32_t step, float* __restrict__ mean_out,
-               float* __restrict__ std_out, float* __restrict__ part,
-               int NT) {
+               float* __restrict__ std_out, float* __restrict__ logits_out,
+               float* __restrict__ part, int NT) {
   __shared__ float4 xs[KC][MR / 4];
   __shared__ float4 x2s[KC][MR / 4];
   __shared__ Triple red[TV / 32][MAXS];
@@ -166,14 +178,16 @@ __global__ void __launch_bounds__(TV)
     if (m < M) {  // uniform across the block
       // sqrt(max(var, 0)) that keeps a NaN variance NaN
       av[r] = sqrtf(av[r] < 0.f ? 0.f : av[r]);
-      if (col_ok) {
+      if (col_ok && mean_out) {
         mean_out[(size_t)m * V + v] = am[r];
         std_out[(size_t)m * V + v] = av[r];
       }
       for (int s = 0; s < S; ++s) {
         float l = NEG;
-        if (col_ok)
+        if (col_ok) {
           l = am[r] + av[r] * variate(xi, seed, step, S, M, V, s, m, v);
+          if (logits_out) logits_out[((size_t)s * M + m) * V + v] = l;
+        }
         Triple t = warp_merge({l, 1.f, l});
         if (lane == 0) red[warp][s] = t;
       }
@@ -217,7 +231,8 @@ __global__ void __launch_bounds__(NRED)
 
 __global__ void __launch_bounds__(TV)
     head_pass2(const float* __restrict__ mean, const float* __restrict__ sd,
-               int M, int V, const float* __restrict__ xi, int S,
+               const float* __restrict__ logits, int M, int V,
+               const float* __restrict__ xi, int S,
                uint32_t seed, uint32_t step, const float* __restrict__ stats,
                float* __restrict__ part2, int NT) {
   __shared__ float smx[MAXS], sz[MAXS];
@@ -242,11 +257,18 @@ __global__ void __launch_bounds__(TV)
     __syncthreads();
     float contrib = 0.f, pb = -1.f;
     if (col_ok) {
-      const float mn = mean[(size_t)m * V + v];
-      const float dv = sd[(size_t)m * V + v];
+      // the two-pass head re-reads its scratch; the fused one rebuilds
+      // the logits from mean/std and the replayed variates
+      float mn = 0.f, dv = 0.f;
+      if (!logits) {
+        mn = mean[(size_t)m * V + v];
+        dv = sd[(size_t)m * V + v];
+      }
       float acc = 0.f;
       for (int s = 0; s < S; ++s) {
-        const float l = mn + dv * variate(xi, seed, step, S, M, V, s, m, v);
+        const float l =
+            logits ? logits[((size_t)s * M + m) * V + v]
+                   : mn + dv * variate(xi, seed, step, S, M, V, s, m, v);
         acc += expf(l - smx[s]) / sz[s];
       }
       pb = acc / (float)S;
@@ -355,40 +377,69 @@ __global__ void __launch_bounds__(NRED)
   }
 }
 
+// The four launches of either head.  logits == null: the fused head
+// (mean/std scratch, variates from xi or the Philox stream); otherwise the
+// two-pass head (the (S, M, V) logits scratch, xi required).
+int launch_head(const void* x, int x_bf16, int M, int K, const float* mu,
+                const float* sigma, int V, const float* xi, int S,
+                uint32_t seed, uint32_t step, int tile, float* mean, float* sd,
+                float* logits, float* part1, float* stats, float* part2,
+                float* H, float* SE, float* MI, float* pmax, int* pred,
+                cudaStream_t st) {
+  if (tile != TV || M < 1 || K < 1 || V < 1 || V >= (1 << 24) || S < 1 ||
+      S > MAXS || (logits && !xi))
+    return (int)cudaErrorInvalidValue;
+  const int NT = (V + TV - 1) / TV;
+  const dim3 grid(NT, (M + MR - 1) / MR);
+  if (x_bf16)
+    head_pass1<__nv_bfloat16><<<grid, TV, 0, st>>>(
+        (const __nv_bfloat16*)x, M, K, mu, sigma, V, xi, S, seed, step, mean,
+        sd, logits, part1, NT);
+  else
+    head_pass1<float><<<grid, TV, 0, st>>>((const float*)x, M, K, mu, sigma,
+                                           V, xi, S, seed, step, mean, sd,
+                                           logits, part1, NT);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  head_merge<<<S * M, NRED, 0, st>>>(part1, S * M, NT, stats);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  head_pass2<<<grid, TV, 0, st>>>(mean, sd, logits, M, V, xi, S, seed, step,
+                                  stats, part2, NT);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  head_final<<<M, NRED, 0, st>>>(part2, stats, M, S, NT, H, SE, MI, pmax,
+                                 pred);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns cudaGetLastError() after the launches (0 = launched).  xi may be
-// null: the variates are then drawn in-kernel from Philox keyed by
-// (seed, step).  Scratch sizes (floats): mean/std M*V each, part1 3*S*M*NT,
-// stats 3*S*M, part2 3*M*NT with NT = ceil(V / tile).
+// Both return cudaGetLastError() after the launches (0 = launched).
+// Scratch sizes (floats), NT = ceil(V / tile): part1 3*S*M*NT, stats
+// 3*S*M, part2 3*M*NT; the fused head's mean/std M*V each, the two-pass
+// head's logits S*M*V.
+//
+// The fused head: xi may be null, the variates are then drawn in-kernel
+// from Philox keyed by (seed, step).
 extern "C" int repro_uncertainty_head(
     const void* x, int x_bf16, int M, int K, const float* mu,
     const float* sigma, int V, const float* xi, int S, uint32_t seed,
     uint32_t step, int tile, float* mean, float* sd, float* part1,
     float* stats, float* part2, float* H, float* SE, float* MI, float* pmax,
     int* pred, void* stream) {
-  if (tile != TV || M < 1 || K < 1 || V < 1 || V >= (1 << 24) || S < 1 ||
-      S > MAXS)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int NT = (V + TV - 1) / TV;
-  const dim3 grid(NT, (M + MR - 1) / MR);
-  if (x_bf16)
-    head_pass1<__nv_bfloat16><<<grid, TV, 0, st>>>(
-        (const __nv_bfloat16*)x, M, K, mu, sigma, V, xi, S, seed, step, mean,
-        sd, part1, NT);
-  else
-    head_pass1<float><<<grid, TV, 0, st>>>((const float*)x, M, K, mu, sigma,
-                                           V, xi, S, seed, step, mean, sd,
-                                           part1, NT);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  head_merge<<<S * M, NRED, 0, st>>>(part1, S * M, NT, stats);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  head_pass2<<<grid, TV, 0, st>>>(mean, sd, M, V, xi, S, seed, step, stats,
-                                  part2, NT);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  head_final<<<M, NRED, 0, st>>>(part2, stats, M, S, NT, H, SE, MI, pmax,
-                                 pred);
-  return (int)cudaGetLastError();
+  if (!mean || !sd) return (int)cudaErrorInvalidValue;
+  return launch_head(x, x_bf16, M, K, mu, sigma, V, xi, S, seed, step, tile,
+                     mean, sd, nullptr, part1, stats, part2, H, SE, MI, pmax,
+                     pred, (cudaStream_t)stream);
+}
+
+// The two-pass head: xi (S, M, V) is required.
+extern "C" int repro_uncertainty_head_two_pass(
+    const void* x, int x_bf16, int M, int K, const float* mu,
+    const float* sigma, int V, const float* xi, int S, int tile,
+    float* logits, float* part1, float* stats, float* part2, float* H,
+    float* SE, float* MI, float* pmax, int* pred, void* stream) {
+  if (!logits) return (int)cudaErrorInvalidValue;
+  return launch_head(x, x_bf16, M, K, mu, sigma, V, xi, S, 0u, 0u, tile,
+                     nullptr, nullptr, logits, part1, stats, part2, H, SE,
+                     MI, pmax, pred, (cudaStream_t)stream);
 }

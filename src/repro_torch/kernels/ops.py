@@ -1,12 +1,11 @@
 """Public kernel entry points: CPU tensors take the plain PyTorch version,
 CUDA tensors launch the CUDA kernel (or raise — there is no fallback).
 
-Counterpart of ``repro.kernels.ops`` (the serving half, and the paper's
-photonic conv and weight-space GEMM), with the JAX names and argument
-order but no ``impl`` argument.  The device of the operands is the whole
-policy: the plain versions exist for the CPU tests and as the references
-``chip_smoke.py`` holds the kernels against.  Ragged shapes are masked in
-the kernels, so nothing is padded here.
+Counterpart of ``repro.kernels.ops``, with the JAX names and argument
+order but no ``impl`` argument and no tile sizes.  The device of the
+operands is the whole policy: the plain versions exist for the CPU tests
+and as the references ``chip_smoke.py`` holds the kernels against.
+Ragged shapes are masked in the kernels, so nothing is padded here.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import bayes_matmul as BM
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels import photonic_conv as PC
 from repro_torch.kernels import ref
@@ -30,10 +30,14 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 
 def uncertainty_head(x, mu, sigma, xi) -> dict[str, torch.Tensor]:
-    """Fused Bayesian head + (H, SE, MI, pred, p_max) per row with an
-    explicit (S, M, V) xi operand (the validation path)."""
-    fn = UH.uncertainty_head_cuda if _on_cuda(x) else UH.uncertainty_head_plain
-    return fn(x, mu, sigma, num_samples=xi.shape[0], xi=xi)
+    """Bayesian head + (H, SE, MI, pred, p_max) per row with an explicit
+    (S, M, V) xi: the two-pass head, whose pass 1 writes the (S, M, V)
+    logits scratch and whose pass 2 re-reads it (JAX's
+    ``uncertainty_head_kernel``).  The fused head with an explicit xi stays
+    reachable as ``uncertainty_head_cuda(..., xi=xi)``."""
+    fn = UH.uncertainty_head_two_pass_cuda if _on_cuda(x) \
+        else UH.uncertainty_head_two_pass_plain
+    return fn(x, mu, sigma, xi)
 
 
 def uncertainty_head_sampled(x, mu, sigma, seed: int, step: int,
@@ -42,6 +46,13 @@ def uncertainty_head_sampled(x, mu, sigma, seed: int, step: int,
     by (seed, step), drawn in the kernel and never stored."""
     fn = UH.uncertainty_head_cuda if _on_cuda(x) else UH.uncertainty_head_plain
     return fn(x, mu, sigma, num_samples=num_samples, seed=seed, step=step)
+
+
+def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
+    """GQA flash attention; q (B, Sq, H, D), k/v (B, Sk, Hkv, D) ->
+    (B, Sq, H, D) in q's dtype, query row i at position q_offset + i."""
+    fn = FA.flash_attention_cuda if _on_cuda(q) else FA.flash_attention_plain
+    return fn(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, cache_len):
@@ -80,6 +91,23 @@ def bayes_matmul_sampled(x, mu, sigma, seed: int,
                                             seed=seed)
     return BM.bayes_matmul_sampled_plain(x, mu, sigma,
                                          num_samples=num_samples, seed=seed)
+
+
+def lrt_matmul(x, mu, sigma, xi) -> torch.Tensor:
+    """Local-reparameterization GEMM y = x@mu + sqrt((x*x)@sigma^2) * xi
+    with an explicit output-space (M, N) xi; any (M, K, N)."""
+    fn = BM.lrt_matmul_cuda if _on_cuda(x) else BM.lrt_matmul_plain
+    return fn(x, mu, sigma, xi)
+
+
+def lrt_matmul_sampled(x, mu, sigma, seed: int,
+                       num_samples: int = 10) -> torch.Tensor:
+    """S seeded LRT MC samples (S, M, N) from one mean and one variance
+    GEMM; the output-space variates are the TAG_LRT Philox stream keyed by
+    seed, drawn in the epilogue on the GPU and never stored."""
+    fn = BM.lrt_matmul_sampled_cuda if _on_cuda(x) \
+        else BM.lrt_matmul_sampled_plain
+    return fn(x, mu, sigma, num_samples=num_samples, seed=seed)
 
 
 def photonic_conv(x, mu, sigma, eps, dac_bits: int = 8,

@@ -108,6 +108,20 @@ def lrt_matmul(x: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
     return m + torch.sqrt(torch.clamp(v, min=0.0)) * xi.float()
 
 
+def lrt_matmul_sampled(x: torch.Tensor, mu: torch.Tensor,
+                       sigma: torch.Tensor, seed: int,
+                       num_samples: int) -> torch.Tensor:
+    """S seeded LRT MC samples (S, M, N) sharing one mean and one variance
+    GEMM; the output-space variates are the TAG_LRT stream, drawn in
+    full."""
+    M, N = x.shape[0], mu.shape[1]
+    dev = x.device
+    xi = rng.lrt_normal(seed, num_samples,
+                        torch.arange(M, dtype=torch.int64, device=dev),
+                        torch.arange(N, dtype=torch.int64, device=dev))
+    return lrt_matmul(x, mu, sigma, xi)
+
+
 def uncertainty_head(x: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
                      xi: torch.Tensor) -> dict[str, torch.Tensor]:
     """Bayesian head + uncertainty readout (paper Eqs. 1-2).

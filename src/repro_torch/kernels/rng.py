@@ -22,6 +22,13 @@ U[0, 1) by their top 24 bits, exactly as ``repro.kernels.rng`` does.
     r1 sin in that order, with (r0, theta0) from words 0-1 and
     (r1, theta1) from words 2-3.  This is a contract: every seeded test
     and every seeded result of these two streams depends on it.
+  * output-space LRT GEMM (``TAG_LRT``): key (seed, 0), counter
+    (n, m, s // 4, TAG_LRT) for output element (m, n) and sample s, four
+    normals per call in the ``TAG_BAYES`` order.  The draw depends on the
+    output element alone, never on the kernel's tile.  The JAX package
+    seeds its TPU PRNG per (seed, i, j) tile and draws threefry off the
+    TPU, so parity with it is statistical; it is exact only when xi is
+    injected.
 
 The integer rounds run in int64 with 16-bit limbs for the 32x32->64
 products, so no intermediate overflows and CPU and CUDA give the same
@@ -48,6 +55,7 @@ TAG_KERNEL = 0     # in-kernel head draws, key (seed, step)
 TAG_OPERAND = 1    # operand-mode decode noise, key (seed, depth)
 TAG_BAYES = 2      # weight-space GEMM draws, key (seed, 0)
 TAG_CONV = 3       # per-symbol photonic conv draws, key (seed, 0)
+TAG_LRT = 4        # output-space LRT GEMM draws, key (seed, 0)
 
 
 def _mulhilo(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -112,16 +120,31 @@ def _groups(count: int, device) -> torch.Tensor:
     return torch.arange(-(-count // 4), dtype=torch.int64, device=device)
 
 
+def _matrix_normal(tag: int, seed: int, num_samples: int, rows: torch.Tensor,
+                   cols: torch.Tensor) -> torch.Tensor:
+    """(S, len(rows), len(cols)) variates of a four-normal stream with
+    counter (col, row, s // 4, tag) and key (seed, 0)."""
+    g = _groups(num_samples, rows.device)
+    w = philox4x32(cols[None, None, :], rows[None, :, None],
+                   g[:, None, None], tag, seed, 0)
+    z = normals4(*w)                                   # (G, R, C, 4)
+    return z.permute(0, 3, 1, 2).reshape(-1, len(rows),
+                                         len(cols))[:num_samples]
+
+
 def bayes_normal(seed: int, num_samples: int, k: torch.Tensor,
                  n: torch.Tensor) -> torch.Tensor:
     """(S, len(k), len(n)) weight-space variates of the stream keyed by
     seed, at weight rows ``k`` and columns ``n`` (int64 tensors; their
     device is the output's)."""
-    g = _groups(num_samples, k.device)
-    w = philox4x32(n[None, None, :], k[None, :, None], g[:, None, None],
-                   TAG_BAYES, seed, 0)
-    z = normals4(*w)                                   # (G, K, N, 4)
-    return z.permute(0, 3, 1, 2).reshape(-1, len(k), len(n))[:num_samples]
+    return _matrix_normal(TAG_BAYES, seed, num_samples, k, n)
+
+
+def lrt_normal(seed: int, num_samples: int, m: torch.Tensor,
+               n: torch.Tensor) -> torch.Tensor:
+    """(S, len(m), len(n)) output-space variates of the LRT stream keyed
+    by seed, at output rows ``m`` and columns ``n`` (int64 tensors)."""
+    return _matrix_normal(TAG_LRT, seed, num_samples, m, n)
 
 
 def conv_normal(seed: int, b: torch.Tensor, t: torch.Tensor,

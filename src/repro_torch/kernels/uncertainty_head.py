@@ -1,8 +1,10 @@
-"""Fused Bayesian LM head + uncertainty readout: the CUDA kernel and its
-plain PyTorch version.
+"""Bayesian LM head + uncertainty readout, fused and two-pass: the CUDA
+kernels and their plain PyTorch versions.
 
-Counterpart of ``repro.kernels.uncertainty_head.uncertainty_head_fused_
-kernel``.  For x (M, K) and the variational head mu/sigma (K, V) it takes
+Counterpart of ``repro.kernels.uncertainty_head``: the fused head
+(``uncertainty_head_fused_kernel``, the serving path's) and the two-pass
+head (``uncertainty_head_kernel``, behind ``ops.uncertainty_head``).  For
+x (M, K) and the variational head mu/sigma (K, V) both take
 S LRT draws ``x@mu + sqrt((x*x)@sigma^2) * xi_s`` and returns per row
 H, SE, MI, pred (argmax of the mean predictive, lowest index on ties) and
 p_max.  The variates xi are either an explicit (S, M, V) operand (the
@@ -15,8 +17,15 @@ stats, and regenerates the variates in its second pass.  The plain
 version below follows the same loop — 128-column tiles with the ragged
 tail masked to -1e30, per-tile (max, Z, A), a merge, a second sweep for
 p-bar, H and the argmax, then the final merge — so masking, merges and
-Philox replay are checked on the CPU.  ``ops.py`` picks between them by
-the tensor's device.
+Philox replay are checked on the CPU.
+
+The two-pass head takes an explicit xi only.  Its pass 1 writes the
+(S, M, V) logits scratch (V unpadded) with the per-tile stats, and its
+pass 2 re-reads the scratch instead of rebuilding the logits; the
+merges and the argmax rule are the fused head's.  Its plain version runs
+the same tile loop around a scratch, so it gives the fused plain
+version's numbers bit for bit.  ``ops.py`` picks between kernel and
+plain version by the tensor's device.
 
 sigma is ``softplus(rho)``; the serving parameters are frozen, so the
 port computes it once when they are loaded (``models/registry.py``)
@@ -37,7 +46,7 @@ _NEG = -1e30
 
 
 # ---------------------------------------------------------------------------
-# plain version (the kernel's loop, in PyTorch)
+# plain versions (the kernels' loops, in PyTorch)
 # ---------------------------------------------------------------------------
 
 def _tile_logits(mean, std, xi, seed, step, num_samples, c0, tile):
@@ -55,23 +64,16 @@ def _tile_logits(mean, std, xi, seed, step, num_samples, c0, tile):
     return logits, c1 - c0
 
 
-def uncertainty_head_plain(x: torch.Tensor, mu: torch.Tensor,
-                           sigma: torch.Tensor, *, num_samples: int,
-                           xi: torch.Tensor | None = None, seed: int = 0,
-                           step: int = 0,
-                           tile: int = TILE) -> dict[str, torch.Tensor]:
-    M, _ = x.shape
-    V = mu.shape[1]
-    S = num_samples
-    x32 = x.float()
-    # pass 1: one sweep over mu/sigma -> the (M, V) mean/std scratch
-    mean = x32 @ mu.float()
-    std = torch.sqrt(torch.clamp((x32 * x32) @ (sigma.float() ** 2),
-                                 min=0.0))
+def _head_readout(pass1_tile, pass2_tile, V: int, S: int, tile: int,
+                  dev) -> dict[str, torch.Tensor]:
+    """The head's tile loop over ``(S, M, tile)`` logits tiles (padding
+    masked), given by ``pass1_tile(c0)`` and ``pass2_tile(c0)``: per-tile
+    (max, Z, A), their merge, then p-bar, H and the argmax per tile and
+    the final merge."""
     starts = range(0, V, tile)
     tmax, tz, ta = [], [], []
     for c0 in starts:
-        logits, _ = _tile_logits(mean, std, xi, seed, step, S, c0, tile)
+        logits = pass1_tile(c0)
         mx = logits.max(dim=-1).values                       # (S, M)
         e = torch.exp(logits - mx[..., None])
         tmax.append(mx)
@@ -83,13 +85,14 @@ def uncertainty_head_plain(x: torch.Tensor, mu: torch.Tensor,
     c = torch.exp(tmax - gmx[..., None])
     z = (tz * c).sum(dim=-1)
     a = (ta * c).sum(dim=-1)
-    # pass 2: p-bar from the scratch + the replayed variates
+    # pass 2: p-bar per tile
     th, tbest, tidx = [], [], []
     for c0 in starts:
-        logits, n = _tile_logits(mean, std, xi, seed, step, S, c0, tile)
+        logits = pass2_tile(c0)
+        n = min(tile, V - c0)
         pbar = (torch.exp(logits - gmx[..., None]) / z[..., None]).sum(
             dim=0) / S                                       # (M, tile)
-        valid = torch.arange(tile, device=x.device) < n
+        valid = torch.arange(tile, device=dev) < n
         th.append(torch.where(valid, pbar * torch.log(pbar + 1e-12),
                               0.0).sum(dim=-1))
         best, idx = torch.where(valid, pbar, -1.0).max(dim=-1)
@@ -104,8 +107,59 @@ def uncertainty_head_plain(x: torch.Tensor, mu: torch.Tensor,
             "pred": pred.to(torch.int32), "p_max": p_max}
 
 
+def _mean_std(x, mu, sigma):
+    """The (M, V) mean and std of the LRT logits: one sweep over mu/sigma."""
+    x32 = x.float()
+    mean = x32 @ mu.float()
+    std = torch.sqrt(torch.clamp((x32 * x32) @ (sigma.float() ** 2),
+                                 min=0.0))
+    return mean, std
+
+
+def uncertainty_head_plain(x: torch.Tensor, mu: torch.Tensor,
+                           sigma: torch.Tensor, *, num_samples: int,
+                           xi: torch.Tensor | None = None, seed: int = 0,
+                           step: int = 0,
+                           tile: int = TILE) -> dict[str, torch.Tensor]:
+    """The fused head: pass 1 keeps the (M, V) mean/std, both passes
+    rebuild each logits tile from it and the (replayed) variates."""
+    mean, std = _mean_std(x, mu, sigma)
+    S = num_samples
+
+    def tile_logits(c0):
+        return _tile_logits(mean, std, xi, seed, step, S, c0, tile)[0]
+
+    return _head_readout(tile_logits, tile_logits, mu.shape[1], S, tile,
+                         x.device)
+
+
+def uncertainty_head_two_pass_plain(x: torch.Tensor, mu: torch.Tensor,
+                                    sigma: torch.Tensor, xi: torch.Tensor,
+                                    *, tile: int = TILE
+                                    ) -> dict[str, torch.Tensor]:
+    """The two-pass head with an explicit (S, M, V) xi: pass 1 writes each
+    logits tile into the (S, M, V) scratch, pass 2 re-reads it."""
+    mean, std = _mean_std(x, mu, sigma)
+    S, M, V = xi.shape
+    scratch = torch.empty((S, M, V), dtype=torch.float32, device=x.device)
+
+    def write(c0):
+        logits, n = _tile_logits(mean, std, xi, 0, 0, S, c0, tile)
+        scratch[:, :, c0:c0 + n] = logits[:, :, :n]
+        return logits
+
+    def read(c0):
+        n = min(tile, V - c0)
+        logits = torch.full((S, M, tile), _NEG, dtype=torch.float32,
+                            device=x.device)
+        logits[:, :, :n] = scratch[:, :, c0:c0 + n]
+        return logits
+
+    return _head_readout(write, read, V, S, tile, x.device)
+
+
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper
+# CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
 def _fn():
@@ -131,18 +185,28 @@ def _check(t: torch.Tensor, name: str, dtypes, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def uncertainty_head_cuda(x: torch.Tensor, mu: torch.Tensor,
-                          sigma: torch.Tensor, *, num_samples: int,
-                          xi: torch.Tensor | None = None, seed: int = 0,
-                          step: int = 0) -> dict[str, torch.Tensor]:
+def _two_pass_fn():
+    fn = build.load("uncertainty_head").repro_uncertainty_head_two_pass
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, i, p, p, i, p, i, i,
+                       p, p, p, p, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_head(kernel: str, x, mu, sigma, xi, S: int, seed: int = 0,
+                 step: int = 0) -> dict[str, torch.Tensor]:
+    """Checks the operands, allocates the scratch and the outputs, and
+    launches the fused head (``kernel`` "uncertainty_head") or the two-pass
+    head ("uncertainty_head_two_pass")."""
     dev = x.device
     if dev.type != "cuda":
-        raise ValueError(f"uncertainty_head_cuda needs CUDA tensors, got {dev}")
+        raise ValueError(f"{kernel} needs CUDA tensors, got {dev}")
     if x.dim() != 2:
         raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
     M, K = x.shape
     V = mu.shape[-1]
-    S = num_samples
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"num_samples must be in [1, {MAX_SAMPLES}], got {S}")
     if not (0 <= seed < 2 ** 32 and 0 <= step < 2 ** 32):
@@ -158,24 +222,49 @@ def uncertainty_head_cuda(x: torch.Tensor, mu: torch.Tensor,
     # the caching allocator hands it out again only to work queued after
     # them on this stream
     f32 = dict(dtype=torch.float32, device=dev)
-    mean = torch.empty((M, V), **f32)
-    std = torch.empty((M, V), **f32)
     part1 = torch.empty((3, S, M, nt), **f32)
     stats = torch.empty((3, S, M), **f32)
     part2 = torch.empty((3, M, nt), **f32)
     out = {n: torch.empty((M,), **f32) for n in ("H", "SE", "MI", "p_max")}
     out["pred"] = torch.empty((M,), dtype=torch.int32, device=dev)
+    tail = [t.data_ptr() for t in (part1, stats, part2, out["H"], out["SE"],
+                                   out["MI"], out["p_max"], out["pred"])]
+    head = (x.data_ptr(), int(x.dtype == torch.bfloat16), M, K,
+            mu.data_ptr(), sigma.data_ptr(), V,
+            xi.data_ptr() if xi is not None else None, S)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _fn()(x.data_ptr(), int(x.dtype == torch.bfloat16), M, K,
-                   mu.data_ptr(), sigma.data_ptr(), V,
-                   xi.data_ptr() if xi is not None else None, S, seed, step,
-                   TILE, mean.data_ptr(), std.data_ptr(), part1.data_ptr(),
-                   stats.data_ptr(), part2.data_ptr(), out["H"].data_ptr(),
-                   out["SE"].data_ptr(), out["MI"].data_ptr(),
-                   out["p_max"].data_ptr(), out["pred"].data_ptr(), stream)
+        if kernel == "uncertainty_head_two_pass":
+            logits = torch.empty((S, M, V), **f32)
+            rc = _two_pass_fn()(*head, TILE, logits.data_ptr(), *tail,
+                                stream)
+        else:
+            mean = torch.empty((M, V), **f32)
+            std = torch.empty((M, V), **f32)
+            rc = _fn()(*head, seed, step, TILE, mean.data_ptr(),
+                       std.data_ptr(), *tail, stream)
     if rc != 0:
-        raise RuntimeError(f"uncertainty_head kernel launch failed: CUDA "
-                           f"error {rc}")
-    launches.COUNTS["uncertainty_head"] += 1
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+    launches.COUNTS[kernel] += 1
     return out
+
+
+def uncertainty_head_cuda(x: torch.Tensor, mu: torch.Tensor,
+                          sigma: torch.Tensor, *, num_samples: int,
+                          xi: torch.Tensor | None = None, seed: int = 0,
+                          step: int = 0) -> dict[str, torch.Tensor]:
+    """The fused head; xi (S, M, V) or None for the in-kernel stream keyed
+    by (seed, step)."""
+    return _launch_head("uncertainty_head", x, mu, sigma, xi, num_samples,
+                        seed, step)
+
+
+def uncertainty_head_two_pass_cuda(x: torch.Tensor, mu: torch.Tensor,
+                                   sigma: torch.Tensor, xi: torch.Tensor
+                                   ) -> dict[str, torch.Tensor]:
+    """The two-pass head with an explicit (S, M, V) xi; the (S, M, V)
+    logits scratch lives for the call."""
+    if xi is None or xi.dim() != 3:
+        raise ValueError("the two-pass head needs an explicit (S, M, V) xi")
+    return _launch_head("uncertainty_head_two_pass", x, mu, sigma, xi,
+                        xi.shape[0])

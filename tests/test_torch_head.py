@@ -3,6 +3,8 @@ oracles, Philox against its known answers and the seeded stream's
 moments.  The CUDA kernel is held against its plain version in
 test_torch_kernels_cuda.py."""
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,7 +14,10 @@ from _torch_parity import assert_close, meshless_reference  # noqa: F401
 from repro.kernels import ops as JO
 from repro.kernels import ref as JR
 from repro_torch.kernels import ops, ref, rng
-from repro_torch.kernels import uncertainty_head as UH
+
+# the package exports the ops functions of the same names, which shadow
+# these submodules as attributes of repro_torch.kernels
+UH = importlib.import_module("repro_torch.kernels.uncertainty_head")
 
 KEYS = ("H", "SE", "MI", "p_max")
 

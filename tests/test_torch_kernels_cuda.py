@@ -8,6 +8,7 @@ which leaves the conftest out):
     PYTHONPATH=src python tests/test_torch_kernels_cuda.py
 """
 
+import importlib
 import sys
 
 import numpy as np
@@ -16,11 +17,15 @@ import torch
 
 from _torch_parity import assert_close, cuda_device  # noqa: F401
 from repro_torch.core.photonic import quantize_ste
-from repro_torch.kernels import bayes_matmul as BM
 from repro_torch.kernels import launches, ref
 from repro_torch.kernels import paged_attention as PA
-from repro_torch.kernels import photonic_conv as PC
-from repro_torch.kernels import uncertainty_head as UH
+
+# the package exports the ops functions of the same names, which shadow
+# these submodules as attributes of repro_torch.kernels
+BM = importlib.import_module("repro_torch.kernels.bayes_matmul")
+FA = importlib.import_module("repro_torch.kernels.flash_attention")
+PC = importlib.import_module("repro_torch.kernels.photonic_conv")
+UH = importlib.import_module("repro_torch.kernels.uncertainty_head")
 
 pytestmark = pytest.mark.needs_cuda
 
@@ -257,6 +262,142 @@ def test_cuda_paper_wrappers_refuse_bad_operands(cuda_device):
                                                         device=cuda_device))
     with pytest.raises(TypeError):
         PC.photonic_conv_sampled_cuda(xc.double(), mu9, mu9, 1)
+
+
+# ---------------------------------------------------------------------------
+# the LM-side kernels: LRT GEMMs, two-pass head, flash attention
+# ---------------------------------------------------------------------------
+
+def _lrt(seed, M, K, N, S):
+    x, mu, sg, _ = _gemm(seed, M, K, N)
+    xi = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (S, M, N)).astype(np.float32)).to(x.device)
+    return x, mu, sg, xi
+
+
+@pytest.mark.parametrize("M,K,N", [(33, 70, 17), (4, 1536, 1000),
+                                   (128, 1024, 300), (1, 9, 7), (9, 65, 129)])
+def test_cuda_lrt_matmul_matches_plain(cuda_device, M, K, N):
+    x, mu, sg, xi = _lrt(M + K, M, K, N, 1)
+    for xx in (x, x.to(torch.bfloat16)):
+        _rel_close(BM.lrt_matmul_cuda(xx, mu, sg, xi[0]),
+                   BM.lrt_matmul_plain(xx, mu, sg, xi[0]))
+
+
+@pytest.mark.parametrize("S", [1, 4, 10, 37])
+@pytest.mark.parametrize("M,K,N", [(33, 70, 17), (16, 171, 300)])
+def test_cuda_lrt_matmul_sampled_matches_plain(cuda_device, S, M, K, N):
+    x, mu, sg, xi = _lrt(S + M, M, K, N, S)
+    for kw in ({"xi": xi}, {"seed": 9}):
+        got = BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=S, **kw)
+        want = BM.lrt_matmul_sampled_plain(x, mu, sg, num_samples=S, **kw)
+        assert got.shape == (S, M, N)
+        _rel_close(got, want)
+
+
+def test_cuda_seeded_lrt_is_deterministic_and_counts_launches(cuda_device):
+    x, mu, sg, xi = _lrt(3, 20, 64, 90, 1)
+    launches.reset()
+    a = BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=10, seed=7)
+    b = BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=10, seed=7)
+    c = BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=10, seed=8)
+    BM.lrt_matmul_cuda(x, mu, sg, xi[0])
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    counts = launches.snapshot()
+    assert counts["lrt_matmul_sampled"] == 3 and counts["lrt_matmul"] == 1
+
+
+@pytest.mark.parametrize("M,V", [(4, 1000), (16, 513), (20, 300)])
+def test_cuda_two_pass_head_matches_plain(cuda_device, M, V):
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(M, M, 64, V, 10))
+    launches.reset()
+    for xx in (x, x.to(torch.bfloat16)):
+        got = UH.uncertainty_head_two_pass_cuda(xx, mu, sg, xi)
+        want = UH.uncertainty_head_two_pass_plain(xx, mu, sg, xi)
+        for k in KEYS:
+            assert_close(got[k], want[k].cpu(), atol=2e-5, msg=k)
+        assert torch.equal(got["pred"].cpu(), want["pred"].cpu())
+    assert launches.snapshot()["uncertainty_head_two_pass"] == 2
+    assert launches.snapshot()["uncertainty_head"] == 0
+
+
+def test_cuda_two_pass_head_nan_row_stays_in_its_row(cuda_device):
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(4, 4, 64, 700, 10))
+    x[1] = float("nan")
+    got = UH.uncertainty_head_two_pass_cuda(x, mu, sg, xi)
+    want = UH.uncertainty_head_two_pass_plain(x, mu, sg, xi)
+    for k in KEYS:
+        assert torch.isnan(got[k][1]), k
+        assert_close(got[k][[0, 2, 3]], want[k][[0, 2, 3]].cpu(), atol=2e-5,
+                     msg=k)
+
+
+def _attn(seed, B, Sq, Sk, H, Hkv, D, dtype, dev="cuda"):
+    r = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(r.standard_normal((B, S, h, D)).astype(
+        np.float32)).to(dev, dtype) for S, h in ((Sq, H), (Sk, Hkv),
+                                                   (Sk, Hkv)))
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,q_offset", [
+    (1, 32, 32, 4, 4, 16, True, 0),
+    (2, 70, 70, 6, 2, 16, True, 0),          # GQA, ragged S
+    (2, 64, 64, 8, 1, 32, False, 0),         # MQA, non-causal
+    (2, 200, 200, 12, 2, 128, True, 0),
+    (1, 64, 300, 12, 2, 128, True, 236),     # prefill continuation
+    (3, 1, 257, 12, 2, 128, True, 256),      # the decode window
+    (1, 100, 333, 4, 2, 128, False, 0),
+    (1, 40, 90, 2, 1, 200, True, 50),        # D 200 (the 256 tiles)
+    (1, 20, 20, 2, 2, 72, True, 0),          # D not a multiple of 64
+])
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Sk,
+                                            H, Hkv, D, causal, q_offset):
+    q, k, v = _attn(Sq + Sk + D, B, Sq, Sk, H, Hkv, D, dtype)
+    got = FA.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    q_offset=q_offset)
+    assert got.dtype == dtype and got.shape == (B, Sq, H, D)
+    # f32: sums in another order; bf16: one bf16 ulp of O(1) outputs
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert_close(got.float(), want.float().cpu(), atol=tol)
+
+
+def test_cuda_flash_attention_reads_strides_and_counts(cuda_device):
+    """q/k/v as (B, H, S, D) tensors seen through a transpose: the kernel
+    reads them by stride, as the contiguous copies give."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+               _attn(1, 2, 48, 48, 6, 2, 64, torch.float32))
+    assert not q.is_contiguous()
+    launches.reset()
+    got = FA.flash_attention_cuda(q, k, v, causal=True)
+    want = FA.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True)
+    assert torch.equal(got, want)
+    assert launches.snapshot()["flash_attention"] == 2
+
+
+def test_cuda_lm_wrappers_refuse_bad_operands(cuda_device):
+    x, mu, sg, xi = _lrt(1, 8, 16, 12, 3)
+    with pytest.raises(ValueError):
+        BM.lrt_matmul_cuda(x, mu, sg[:, :5], xi[0])
+    with pytest.raises(ValueError):
+        BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=0)
+    with pytest.raises(ValueError):
+        BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=3, xi=xi[:2])
+    hx, hmu, hsg, hxi = (t.to(cuda_device) for t in _head(1, 4, 16, 50, 3))
+    with pytest.raises(ValueError):
+        UH.uncertainty_head_two_pass_cuda(hx, hmu, hsg, hxi[:, :2])
+    q, k, v = _attn(2, 1, 8, 8, 4, 4, 264, torch.float32)
+    with pytest.raises(ValueError):                      # D > 256
+        FA.flash_attention_cuda(q, k, v)
+    q, k, v = _attn(2, 1, 8, 8, 6, 4, 32, torch.float32)
+    with pytest.raises(ValueError):                      # H % Hkv != 0
+        FA.flash_attention_cuda(q, k, v)
+    q, k, v = _attn(2, 1, 8, 8, 4, 2, 32, torch.float32)
+    with pytest.raises(TypeError):
+        FA.flash_attention_cuda(q.to(torch.bfloat16), k, v)
 
 
 if __name__ == "__main__":

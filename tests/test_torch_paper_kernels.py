@@ -2,6 +2,8 @@
 ``ops`` runs them on CPU tensors) against the JAX package's oracles and
 ops, on the same numpy inputs, plus the seeded streams' contracts."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,9 +13,12 @@ import torch
 from _torch_parity import assert_close, meshless_reference  # noqa: F401
 from repro.kernels import ops as JO
 from repro.kernels import ref as JR
-from repro_torch.kernels import bayes_matmul as BM
 from repro_torch.kernels import ops, ref, rng
-from repro_torch.kernels import photonic_conv as PC
+
+# the package exports the ops functions of the same names, which shadow
+# these submodules as attributes of repro_torch.kernels
+BM = importlib.import_module("repro_torch.kernels.bayes_matmul")
+PC = importlib.import_module("repro_torch.kernels.photonic_conv")
 
 ADC_STEP = 4.0 / 127
 
