@@ -16,7 +16,8 @@ Phases (any failure exits non-zero before the result line):
      seed, paged KV + kernel decode attention + chunked prefill + kernel
      entropy; the kernels' launch counts are zeroed before and read after.
   5. profile: a shorter serve of the same path under torch.profiler:
-     device busy and idle time, kernels by kind (reported).
+     device busy and idle time, kernels by kind (reported); the served
+     bf16 prefill must run the tensor-core kernel and not the SIMT one.
   6. compare: the same trace in operand-entropy mode through the kernel
      path and through the gather / batch-prefill reference (reported).
   7. paper: the machine primitive three ways (PRNG in the path, a stream
@@ -312,19 +313,32 @@ def check_decode(dev) -> dict:
 
 
 def check_prefill(dev) -> dict:
+    """The prefill kernel (bf16, D 128: the tensor-core kernel) at the four
+    chunk offsets of the serve trace's 256-token prompts and at a 37-token
+    last chunk, against its plain version and the gather + flash
+    reference; offsets 0 and 192 timed beside their bounds and SDPA.  The
+    SIMT kernel (f32, and bf16 at D 72) is held against the plain version
+    at the served chunk shape."""
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import layers as L
 
-    S, H, Hkv, D, BS, span = 64, 12, 2, 128, 16, 256
-    nblk = span // BS
+    H, Hkv, D, BS = 12, 2, 128, 16
     NB = 4 * 19
     g = torch.Generator(device=dev).manual_seed(4)
     k_pool = _pool(dev, g, NB, BS, Hkv, D)
     v_pool = _pool(dev, g, NB, BS, Hkv, D)
     perm = torch.randperm(NB, generator=torch.Generator().manual_seed(5))
-    row = perm[:nblk].to(torch.int32).reshape(1, nblk).to(dev)
+    full_row = perm[:256 // BS].to(torch.int32).reshape(1, -1).to(dev)
+    if PA.prefill_route(torch.bfloat16, D) != "mma":
+        fail("prefill attention: bf16 at D 128 must take the tensor-core "
+             "kernel")
+    tol = 2e-2                       # one bf16 ulp of O(1) outputs
     worst, timed = 0.0, {}
-    for offset in (0, 64, 192):
+    # (S, offset, span): a 256-token prompt's four 64-token chunks, and the
+    # 37-token last chunk of a 229-token prompt (rows cross replicas)
+    for S, offset, span in [(64, 0, 256), (64, 64, 256), (64, 128, 256),
+                            (64, 192, 256), (37, 192, 229)]:
+        row = full_row[:, :-(-span // BS)]
         q = torch.randn((1, S, H, D), generator=g,
                         device=dev).to(torch.bfloat16)
         for kc in (1024, 64):
@@ -337,44 +351,125 @@ def check_prefill(dev) -> dict:
                                     causal=True, kv_chunk=kc,
                                     q_offset=offset)
             torch.cuda.synchronize()
-            tol = 2e-2               # one bf16 ulp of O(1) outputs
             e = max(max_err(got, want), max_err(got, ref))
             worst = max(worst, e)
             if not e <= tol or not same_nan(got, want) \
                     or torch.isnan(got).any():
-                fail(f"prefill attention offset={offset} kv_chunk={kc}: "
-                     f"max |err| {e:.3g} > {tol}")
-            print(f"  prefill attention offset={offset} kv_chunk={kc}: ok "
-                  f"(max |err| {e:.3g})", flush=True)
-            if offset == 192 and kc == 1024:   # the serving path's last chunk
-                pairs = sum(min(offset + i + 1, span) for i in range(S))
-                nbytes = 2 * q.numel() * 2 + span * Hkv * D * 2 * 2
-                flops = 4.0 * pairs * H * D
-                b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-                # library yardstick: SDPA over the span gathered and
-                # expanded to the query heads beforehand (not timed)
-                kx, vx = (L.paged_gather(p, row)[:, :span]
-                          .repeat_interleave(H // Hkv, dim=2)
-                          .transpose(1, 2).contiguous()
-                          for p in (k_pool, v_pool))
-                qx = q.transpose(1, 2).contiguous()
-                mask = (torch.arange(span, device=dev)[None, :]
-                        <= offset + torch.arange(S, device=dev)[:, None])
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    qx, kx, vx, attn_mask=mask)
-                e_lib = max_err(got, lib().transpose(1, 2))
-                if not e_lib <= tol:
-                    fail(f"prefill attention: the SDPA yardstick differs by "
-                         f"{e_lib:.3g}")
-                timed = {
-                    "ms": device_ms(lambda: PA.paged_prefill_attention_cuda(
-                        q, k_pool, v_pool, row, offset, span, kc), 50),
-                    "plain_ms": time_ms(
-                        lambda: PA.paged_prefill_attention_plain(
-                            q, k_pool, v_pool, row, offset, span, kc), 5),
-                    "bound_ms": b_ms, "bound_by": b_by,
-                    "library_ms": device_ms(lib, 50)}
-    return dict(timed, max_abs_err=worst)
+                fail(f"prefill attention S={S} offset={offset} span={span} "
+                     f"kv_chunk={kc}: max |err| {e:.3g} > {tol} or NaN")
+            print(f"  prefill attention S={S} offset={offset} span={span} "
+                  f"kv_chunk={kc}: ok (max |err| {e:.3g})", flush=True)
+        if S != 64 or offset not in (0, 192):
+            continue
+        # the work this chunk needs: Q in, out, and K and V of the keys
+        # up to the last query position, each moved once
+        keys = min(offset + S, span)
+        pairs = sum(min(offset + i + 1, span) for i in range(S))
+        nbytes = 2 * q.numel() * 2 + keys * Hkv * D * 2 * 2
+        b_ms, b_by = bound(nbytes, 4.0 * pairs * H * D, BF16_FLOPS)
+        # library yardstick: SDPA over the span gathered and expanded to
+        # the query heads beforehand (not timed)
+        kx, vx = (L.paged_gather(p, row)[:, :span]
+                  .repeat_interleave(H // Hkv, dim=2)
+                  .transpose(1, 2).contiguous() for p in (k_pool, v_pool))
+        qx = q.transpose(1, 2).contiguous()
+        mask = (torch.arange(span, device=dev)[None, :]
+                <= offset + torch.arange(S, device=dev)[:, None])
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qx, kx, vx, attn_mask=mask)
+        e_lib = max_err(got, lib().transpose(1, 2))
+        if not e_lib <= tol:
+            fail(f"prefill attention: the SDPA yardstick differs by "
+                 f"{e_lib:.3g} at offset {offset}")
+        timed[offset] = {
+            "ms": device_ms(lambda: PA.paged_prefill_attention_cuda(
+                q, k_pool, v_pool, row, offset, span, 1024), 50),
+            "plain_ms": time_ms(lambda: PA.paged_prefill_attention_plain(
+                q, k_pool, v_pool, row, offset, span, 1024), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": device_ms(lib, 50)}
+    # the SIMT kernel, which f32 operands and bf16 head dims that are not a
+    # multiple of 16 take: f32 at the served chunk shape, bf16 at D 72
+    for dtype, Dx, tol_x in ((torch.float32, D, 2e-5),
+                             (torch.bfloat16, 72, 2e-2)):
+        if PA.prefill_route(dtype, Dx) != "simt":
+            fail(f"prefill attention: {dtype} at D {Dx} must take the SIMT "
+                 "kernel")
+        kx, vx = (_pool(dev, g, NB, BS, Hkv, Dx).to(dtype) for _ in "kv")
+        qx = torch.randn((1, 64, H, Dx), generator=g, device=dev).to(dtype)
+        for kc in (1024, 64):
+            got = PA.paged_prefill_attention_cuda(qx, kx, vx, full_row, 192,
+                                                  256, kc)
+            want = PA.paged_prefill_attention_plain(qx, kx, vx, full_row,
+                                                    192, 256, kc)
+            torch.cuda.synchronize()
+            e = max_err(got, want)
+            if not e <= tol_x or torch.isnan(got).any():
+                fail(f"prefill attention (SIMT) {dtype} D={Dx} "
+                     f"kv_chunk={kc}: max |err| {e:.3g} > {tol_x} or NaN")
+            print(f"  prefill attention (SIMT) {dtype} D={Dx} S=64 "
+                  f"offset=192 span=256 kv_chunk={kc}: ok (max |err| "
+                  f"{e:.3g})", flush=True)
+    for offset, t in timed.items():
+        print(f"  prefill attention timed, S 64 offset {offset} span 256: "
+              f"{t['ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}), SDPA {t['library_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.3f} ms", flush=True)
+    print(f"  {hmma_counts('paged_attention', 'paged_prefill_mma')}",
+          flush=True)
+    return dict(timed[192], max_abs_err=worst)
+
+
+def hmma_counts(source: str, kernel: str) -> str:
+    """HMMA (tensor-core) instructions in each instantiation of ``kernel``
+    in the built library's SASS, where the toolkit has cuobjdump."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return f"SASS of {kernel}: no cuobjdump in this toolkit"
+    sass = subprocess.run([tool, "-sass", str(build.library_path(source))],
+                          capture_output=True, text=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = kernel_name(line.split("Function :")[1].strip())
+            if kernel not in name:
+                name = None
+            else:
+                counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return "HMMA instructions in the SASS: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items())
+
+
+def kernel_name(mangled: str) -> str:
+    """``_ZN<n><anonymous namespace><m>paged_prefill_mmaILi128EE...`` ->
+    ``paged_prefill_mma<128>``: the kernels' names in the build logs and
+    the SASS (nvcc names each anonymous namespace uniquely)."""
+    import re
+
+    ns = re.match(r"_ZN(\d+)", mangled)
+    if not ns:
+        return mangled[:60]
+    pos = ns.end() + int(ns.group(1))
+    m = re.match(r"(\d+)", mangled[pos:])
+    if not m:
+        return mangled[:60]
+    start = pos + m.end()
+    name = mangled[start:start + int(m.group(1))]
+    tail = mangled[start + int(m.group(1)):]
+    t = re.match(r"IL[ij](\d+)E", tail)
+    if t:
+        return f"{name}<{t.group(1)}>"
+    for code, arg in (("I13__nv_bfloat16", "bf16"), ("If", "float")):
+        if tail.startswith(code):
+            return f"{name}<{arg}>"
+    return name
 
 
 # --------------------------------------------------------------------------
@@ -875,13 +970,20 @@ def profile_serve() -> str:
          "--gen-len", "16"]), "serve")
     r = t["out"]
     steps = r["spec_decode"]["full_model_calls"]
+    prefill = {k: v for k, v in t["by_name"].items() if "paged_prefill_" in k}
+    if not any("paged_prefill_mma<128>" in k for k in prefill):
+        fail(f"profile: the served prefill did not run the tensor-core "
+             f"kernel ({top(prefill, 4) or 'no prefill kernel'})")
+    if any("paged_prefill_simt<__nv_bfloat16>" in k for k in prefill):
+        fail("profile: the served bf16 prefill ran the SIMT kernel")
     return (f"profile, kernel path, {steps} decode steps + "
             f"{r['prefill_chunks']} prefill chunks: device busy "
             f"{t['busy_ms']:.2f} ms of a {t['window_ms']:.2f} ms window (idle "
             f"{1 - t['busy_ms'] / t['window_ms']:.1%}), {t['kernels']} "
             f"kernels, {t['syncs']} host syncs\n"
             f"  by kind: {top(t['by_kind'], len(t['by_kind']))}\n"
-            f"  top kernels: {top(t['by_name'], 8)}")
+            f"  top kernels: {top(t['by_name'], 8)}\n"
+            f"  prefill kernels: {top(prefill, 4)}")
 
 
 def compare_plain(kernel_run: dict, ref_run: dict) -> str:
@@ -1215,9 +1317,15 @@ def main():
           + ", ".join(f"{k} {v['seconds']:.1f}s" for k, v in report.items()),
           flush=True)
     for name, rep in report.items():
+        entry, spills = "?", ""
         for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = kernel_name(line.split("'")[1])
+            elif "spill" in line:
+                spills = line.strip()
+            elif "registers" in line:
+                regs = line.split(":", 1)[1].strip()
+                print(f"  ptxas {name} {entry}: {regs}; {spills}")
 
     t0 = time.perf_counter()
     print("kernels vs plain versions:", flush=True)

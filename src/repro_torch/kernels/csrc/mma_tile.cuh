@@ -1,0 +1,109 @@
+// Warp-level bf16 tensor-core tile helpers (sm_80 and later; built for
+// sm_90a): mma.sync m16n8k16, ldmatrix, 16-byte cp.async, the packing of
+// f32 C fragments into bf16 A fragments, and row reductions over a quad.
+//
+// Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix fragments for
+// mma.m16n8k16"), with g = lane / 4 (the lane's group) and t = lane % 4
+// (its place in the group, the "quad"):
+//   A, 16 x 16 row-major, four b32 of two bf16 each:
+//     a[0] = row g,     cols 2t, 2t+1       a[1] = row g + 8, cols 2t, 2t+1
+//     a[2] = row g,     cols 2t+8, 2t+9     a[3] = row g + 8, cols 2t+8, 2t+9
+//   B, 16 x 8 (k x n) with each column contiguous in k ("col"), two b32:
+//     b[0] = k rows 2t, 2t+1 of col g       b[1] = k rows 2t+8, 2t+9 of col g
+//   C and D, 16 x 8 f32, four floats:
+//     c[0], c[1] = row g,     cols 2t, 2t+1
+//     c[2], c[3] = row g + 8, cols 2t, 2t+1
+// In every b32 the lower 16 bits hold the element of the lower column (A)
+// or of the lower k row (B).  The four lanes of a quad hold the same rows
+// of a C fragment, so a row's max or sum is a reduction over the quad.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace mma_tile {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// d += a * b for one 16 x 8 x 16 tile, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 b16 matrices from shared memory.  Lanes 8j .. 8j + 7 pass the
+// (16-byte aligned) addresses of rows 0 .. 7 of matrix j; r[j] receives
+// row g, elements 2t and 2t + 1 of matrix j.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row_addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row_addr))
+      : "memory");
+}
+
+// The same, each matrix transposed: r[j] receives rows 2t and 2t + 1 of
+// column g of matrix j (as stored).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row_addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row_addr))
+      : "memory");
+}
+
+// (lo, hi) rounded to bf16 (to nearest even), lo in the lower 16 bits
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The C fragments of two 16 x 8 tiles side by side (columns 0-7 in c0,
+// 8-15 in c1) as the A fragment of that 16 x 16 block, rounded to bf16:
+// a product's result feeds the next product from registers.
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);  // row g,     cols 2t, 2t+1
+  a[1] = pack_bf16(c0[2], c0[3]);  // row g + 8, cols 2t, 2t+1
+  a[2] = pack_bf16(c1[0], c1[1]);  // row g,     cols 2t+8, 2t+9
+  a[3] = pack_bf16(c1[2], c1[3]);  // row g + 8, cols 2t+8, 2t+9
+}
+
+// max and sum over the four lanes of a quad (one row of a C fragment)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 16 bytes global -> shared, asynchronously (L2 only).  With fill false
+// the 16 bytes are zeroed and nothing is read from src.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool fill) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace mma_tile

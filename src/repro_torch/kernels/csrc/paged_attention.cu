@@ -24,28 +24,72 @@
 //   (one block per (slot, kv head) left 124 of 132 SMs idle and walked
 //   the blocks one after another).
 //
-// paged_prefill_kernel
-//   Replaces repro/kernels/paged_attention.py::paged_prefill_attention_kernel
-//   (body _paged_prefill_kernel).  Causal multi-query attention of one
-//   slot's prompt chunk (S queries at absolute positions offset + [0, S))
-//   over the leading `span` tokens of its table row; -1 entries read
-//   physical block 0 and are NOT masked, exactly like the gather reference.
-//   Grid (kv head, tile of 16 of the rep * S query rows); the TPU kernel's
-//   (rows, span) score scratch does not fit shared memory, so each block
-//   walks the keys in 16-token tiles.  The softmax is the reference's
-//   online recurrence per kv_chunk group with the same -inf guards: a
-//   first sweep over the group takes its row max, a second accumulates
-//   p = exp(s - m) and p @ V after rescaling by exp(m_old - m).  K is
-//   therefore read twice per group (from L2 at these sizes).  The output is
+// Prefill: both kernels replace
+//   repro/kernels/paged_attention.py::paged_prefill_attention_kernel (body
+//   _paged_prefill_kernel).  Causal multi-query attention of one slot's
+//   prompt chunk (S queries at absolute positions offset + [0, S)) over the
+//   leading `span` tokens of its table row; -1 entries read physical block
+//   0 and are NOT masked, exactly like the gather reference.  Query rows
+//   are packed per kv head, row r = replica * S + query, so the rep heads
+//   of a group share every K/V tile.  The softmax is online with the
+//   reference's -inf guards (m2s = 0 where m2 = -inf, p = 0 where
+//   s = -inf, corr = 0 where m = -inf), and the output is
 //   acc / max(l, 1e-20): a fully masked row gives 0, not NaN.
-//   Bound: Q, the span's K and V, and the output, each moved once.
 //
-// Both keep D <= 128 (decode: 4 dims per lane; prefill: one head-dim
-// column per thread, accumulators in registers) and rep <= 16.
+// paged_prefill_mma (bf16, D a multiple of 16)
+//   Bound at the served shape (S 64, span 256, H 12, Hkv 2, D 128): Q, the
+//   span's K and V and the output, each moved once, 0.66 MB, 0.000196 ms
+//   at the memory rate; about 50 MFLOP of products, 0.05 us at the bf16
+//   tensor-core rate.  The call is therefore latency-bound: its time is a
+//   chain of dependent loads, products and reductions.  What the design
+//   does about it:
+//   - a warp owns 16 query rows and a block PF_WARPS = 4 warps, so the
+//     served shape (384 rows per kv head, Hkv 2) runs 48 warps in 12
+//     blocks.  A tile's 32 KB copy, not its products, sets the time per
+//     tile: with 2 warps per block (24 blocks) a warp waited on its
+//     copies for longer than its products and softmax took, and the
+//     wait shrank with more warps sharing the copy.  4 warps measured
+//     fastest on an H100; 8 (6 blocks) were slower again;
+//   - keys come in tiles of 64, gathered through the block row with
+//     16-byte cp.async into shared memory (row pitch D + 8 bf16, so the
+//     eight rows of an ldmatrix fall on distinct banks), double-buffered:
+//     tile t + 1 is in flight while tile t is computed; keys past the
+//     span are zero-filled, never read;
+//   - Q.K^T and P.V run on the tensor cores (mma.sync m16n8k16 bf16, f32
+//     accumulators; mma_tile.cuh): the warp's Q fragment stays in
+//     registers for the whole walk, P is rounded to bf16 once and feeds
+//     P.V from registers, V comes through ldmatrix.trans;
+//   - one sweep with an online rescale per tile (the SIMT kernel sweeps
+//     twice per kv_chunk group); kv_chunk is a schedule of the TPU kernel
+//     and does not change the function, so this kernel ignores it;
+//   - a tile whose first key lies above the block's highest query
+//     position is neither loaded nor computed: under the guards it adds
+//     nothing.  At offset 0 and span 256 a block walks 1 tile of 4.
+//   The scale 1/sqrt(D) multiplies the f32 scores after the product, as
+//   in the TPU kernel.  The mask position and the output address are
+//   computed per row: rows of a warp cross a replica boundary when S is
+//   not a multiple of 16.
+//   The epilogue multiplies by one reciprocal a row: 64 divisions a
+//   thread took longer than a tile's products.
+//   ptxas -v on an H100 build (sm_90a, CUDA 12.8), registers per
+//   thread: D 128 226, D 112 211, D 96 168, D 80 157, D 64 128, D 48 122,
+//   D 32 96, D 16 80; no spills.  SASS: 128 HMMA at D 128 (64 for
+//   Q.K^T, 64 for P.V per tile).
+//
+// paged_prefill_simt (f32, or bf16 with D not a multiple of 16)
+//   Grid (kv head, tile of 16 query rows); each block walks the keys in
+//   16-token tiles, per kv_chunk group twice: a first sweep takes the
+//   group's row max, a second accumulates p = exp(s - m) and p @ V after
+//   rescaling by exp(m_old - m).  SIMT f32 arithmetic, one head-dim
+//   column per thread.
+//
+// All keep D <= 128 and rep <= 16.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -235,7 +279,7 @@ __device__ __forceinline__ void prefill_load(
 
 template <typename T>
 __global__ void __launch_bounds__(NTH)
-    paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+    paged_prefill_simt(const T* __restrict__ q, const T* __restrict__ kp,
                          const T* __restrict__ vp,
                          const int* __restrict__ row, int offset, int span,
                          int kc, T* __restrict__ out, int S, int H, int Hkv,
@@ -345,6 +389,222 @@ __global__ void __launch_bounds__(NTH)
   }
 }
 
+constexpr int PF_WARPS = 4;              // warps per block, 16 rows each
+constexpr int PF_ROWS = 16 * PF_WARPS;   // query rows per block
+constexpr int PF_KT = 64;                // keys per tile
+constexpr int PF_PAD = 8;                // bf16 of padding per smem row
+
+template <int D>
+constexpr size_t prefill_mma_smem() {  // 2 stages x (K, V) x PF_KT rows
+  return sizeof(__nv_bfloat16) * 2 * 2 * PF_KT * (D + PF_PAD);
+}
+
+template <int D>
+__global__ void __launch_bounds__(PF_WARPS * 32)
+    paged_prefill_mma(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ kp,
+                      const __nv_bfloat16* __restrict__ vp,
+                      const int* __restrict__ row, int offset, int span,
+                      __nv_bfloat16* __restrict__ out, int S, int H, int Hkv,
+                      int BS, float scale) {
+  using namespace mma_tile;
+  constexpr int P = D + PF_PAD;  // smem row pitch (bf16)
+  constexpr int KS = D / 16;     // k-steps of Q.K^T
+  constexpr int DN = D / 8;      // 8-wide n-tiles of the output
+  constexpr int CH = D / 8;      // 16-byte chunks of a key row
+  extern __shared__ __align__(16) __nv_bfloat16 kv_s[];  // [2][K, V][KT][P]
+  const int g = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;  // the lane's group and quad place
+  const int rep = H / Hkv, R = rep * S;
+  const int rb = blockIdx.y * PF_ROWS;      // the block's first row
+
+  // walk no tile whose first key lies above the block's highest position
+  const int last = min(rb + PF_ROWS, R) - 1;
+  const int qmax = offset + (last / S != rb / S ? S - 1 : last % S);
+  const int ntiles =
+      qmax < 0 ? 0 : min((span + PF_KT - 1) / PF_KT, qmax / PF_KT + 1);
+
+  // the block's threads share a tile's 16-byte copies, neighbouring
+  // threads on neighbouring chunks of a key row
+  auto load_tile = [&](int t) {
+    __nv_bfloat16* ks = kv_s + (t & 1) * 2 * PF_KT * P;
+    __nv_bfloat16* vs = ks + PF_KT * P;
+#pragma unroll
+    for (int j = 0; j < PF_KT * CH / (PF_WARPS * 32); ++j) {
+      const int i = tid + j * PF_WARPS * 32;
+      const int key = i / CH, c = i % CH;
+      const int pos = t * PF_KT + key;
+      const bool live = pos < span;  // past the span: zero-filled
+      size_t src = 0;
+      if (live) {
+        const int phys = max(row[pos / BS], 0);  // -1 reads block 0
+        src = (((size_t)phys * BS + pos % BS) * Hkv + g) * D + c * 8;
+      }
+      cp_async_16(ks + key * P + c * 8, kp + src, live);
+      cp_async_16(vs + key * P + c * 8, vp + src, live);
+    }
+    cp_async_commit();
+  };
+  if (ntiles > 0) load_tile(0);
+
+  // this lane's two rows (those of c[0..1] and of c[2..3]); Q fragments
+  // straight from global memory, zero past the last row
+  const int r_lo = rb + warp * 16 + gq, r_hi = r_lo + 8;
+  const __nv_bfloat16* q_lo =
+      r_lo < R ? q + ((size_t)(r_lo % S) * H + g * rep + r_lo / S) * D
+               : nullptr;
+  const __nv_bfloat16* q_hi =
+      r_hi < R ? q + ((size_t)(r_hi % S) * H + g * rep + r_hi / S) * D
+               : nullptr;
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c = kk * 16 + 2 * tq;
+    qf[kk][0] = q_lo ? *reinterpret_cast<const uint32_t*>(q_lo + c) : 0u;
+    qf[kk][1] = q_hi ? *reinterpret_cast<const uint32_t*>(q_hi + c) : 0u;
+    qf[kk][2] = q_lo ? *reinterpret_cast<const uint32_t*>(q_lo + c + 8) : 0u;
+    qf[kk][3] = q_hi ? *reinterpret_cast<const uint32_t*>(q_hi + c + 8) : 0u;
+  }
+  const int qp_lo = offset + r_lo % S, qp_hi = offset + r_hi % S;
+
+  float o[DN][4];
+#pragma unroll
+  for (int n = 0; n < DN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY;
+  float l_lo = 0.f, l_hi = 0.f;  // this lane's share of its rows' sums
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      load_tile(t + 1);  // into the other buffer, freed by the last barrier
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* ks = kv_s + (t & 1) * 2 * PF_KT * P;
+    const __nv_bfloat16* vs = ks + PF_KT * P;
+
+    // s = Q.K^T: 8 n-tiles of 8 keys; an x4 ldmatrix gives the B
+    // fragments of two n-tiles (K rows are B's columns)
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        const int key = jp * 16 + (lane & 7) + ((lane >> 4) << 3);
+        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4(b, ks + key * P + col);
+        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // scale, mask, and the tile's online softmax step with the guards
+    const int k0 = t * PF_KT;
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + 2 * tq + (e & 1);
+        const bool ok = kpos < span && kpos <= (e < 2 ? qp_lo : qp_hi);
+        s[j][e] = ok ? s[j][e] * scale : -INFINITY;
+      }
+      mx_lo = fmaxf(mx_lo, fmaxf(s[j][0], s[j][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[j][2], s[j][3]));
+    }
+    const float mn_lo = fmaxf(m_lo, quad_max(mx_lo));
+    const float mn_hi = fmaxf(m_hi, quad_max(mx_hi));
+    const float ms_lo = mn_lo == -INFINITY ? 0.f : mn_lo;
+    const float ms_hi = mn_hi == -INFINITY ? 0.f : mn_hi;
+    const float c_lo = m_lo == -INFINITY ? 0.f : __expf(m_lo - ms_lo);
+    const float c_hi = m_hi == -INFINITY ? 0.f : __expf(m_hi - ms_hi);
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[j][e];
+        const float p =
+            x == -INFINITY ? 0.f : __expf(x - (e < 2 ? ms_lo : ms_hi));
+        s[j][e] = p;
+        (e < 2 ? sum_lo : sum_hi) += p;
+      }
+    }
+    l_lo = l_lo * c_lo + sum_lo;
+    l_hi = l_hi * c_hi + sum_hi;
+    m_lo = mn_lo;
+    m_hi = mn_hi;
+#pragma unroll
+    for (int n = 0; n < DN; ++n) {
+      o[n][0] *= c_lo;
+      o[n][1] *= c_lo;
+      o[n][2] *= c_hi;
+      o[n][3] *= c_hi;
+    }
+
+    // o += P.V: P (rounded to bf16) from registers, 16 keys per k-step;
+    // an x4 ldmatrix.trans gives the B fragments of two output n-tiles
+#pragma unroll
+    for (int kk = 0; kk < PF_KT / 16; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t b[4];
+        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int col = dp * 16 + (lane >> 4) * 8;
+        ldmatrix_x4_trans(b, vs + key * P + col);
+        mma_bf16(o[2 * dp], a, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+
+  // acc / max(l, 1e-20), per row, as bf16 pairs (one reciprocal a row)
+  const float d_lo = 1.f / fmaxf(quad_sum(l_lo), 1e-20f);
+  const float d_hi = 1.f / fmaxf(quad_sum(l_hi), 1e-20f);
+  if (r_lo < R) {
+    __nv_bfloat16* dst =
+        out + ((size_t)(r_lo % S) * H + g * rep + r_lo / S) * D + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          pack_bf16(o[n][0] * d_lo, o[n][1] * d_lo);
+  }
+  if (r_hi < R) {
+    __nv_bfloat16* dst =
+        out + ((size_t)(r_hi % S) * H + g * rep + r_hi / S) * D + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < DN; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          pack_bf16(o[n][2] * d_hi, o[n][3] * d_hi);
+  }
+}
+
+template <int D>
+int launch_prefill_mma(const void* q, const void* kp, const void* vp,
+                       const int* row, int offset, int span, void* out, int S,
+                       int H, int Hkv, int BS, cudaStream_t st) {
+  constexpr size_t smem = prefill_mma_smem<D>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      paged_prefill_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int R = (H / Hkv) * S;
+  const dim3 grid(Hkv, (R + PF_ROWS - 1) / PF_ROWS);
+  paged_prefill_mma<D><<<grid, PF_WARPS * 32, smem, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kp,
+      (const __nv_bfloat16*)vp, row, offset, span, (__nv_bfloat16*)out, S, H,
+      Hkv, BS, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
 bool shapes_ok(int H, int Hkv, int D, int BS) {
   return Hkv > 0 && H % Hkv == 0 && H / Hkv <= MAXREP && D > 0 &&
          D <= MAXD && BS > 0;
@@ -387,27 +647,41 @@ extern "C" int repro_paged_decode(const void* q, const void* kp,
 }
 
 // q (1, S, H, D) at absolute positions offset + [0, S); pools (NB, BS, Hkv,
-// D); row (NBLK,) covering span tokens; out like q.
+// D); row (NBLK,) covering span tokens; out like q.  mma = 1 launches the
+// tensor-core kernel (bf16 and D % 16 == 0 only), mma = 0 the SIMT one.
 extern "C" int repro_paged_prefill(const void* q, const void* kp,
                                    const void* vp, const int* row, int offset,
                                    int span, int kv_chunk, void* out, int S,
                                    int H, int Hkv, int D, int BS, int NBLK,
-                                   int bf16, void* stream) {
+                                   int bf16, int mma, void* stream) {
   if (S < 1 || span < 1 || kv_chunk < 1 || NBLK * BS < span ||
-      !shapes_ok(H, Hkv, D, BS))
+      !shapes_ok(H, Hkv, D, BS) || (mma && (!bf16 || D % 16 != 0)))
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mma) {
+    switch (D) {
+#define PREFILL_MMA(d)                                                        \
+  case d:                                                                     \
+    return launch_prefill_mma<d>(q, kp, vp, row, offset, span, out, S, H,     \
+                                 Hkv, BS, st);
+      PREFILL_MMA(16) PREFILL_MMA(32) PREFILL_MMA(48) PREFILL_MMA(64)
+      PREFILL_MMA(80) PREFILL_MMA(96) PREFILL_MMA(112) PREFILL_MMA(128)
+#undef PREFILL_MMA
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   const int kc = kv_chunk < span ? kv_chunk : span;
   const int R = (H / Hkv) * S;
   const dim3 grid(Hkv, (R + QT - 1) / QT);
   const float scale = 1.0f / sqrtf((float)D);
-  cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
-    paged_prefill_kernel<__nv_bfloat16><<<grid, NTH, 0, st>>>(
+    paged_prefill_simt<__nv_bfloat16><<<grid, NTH, 0, st>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)kp,
         (const __nv_bfloat16*)vp, row, offset, span, kc, (__nv_bfloat16*)out,
         S, H, Hkv, D, BS, scale);
   else
-    paged_prefill_kernel<float><<<grid, NTH, 0, st>>>(
+    paged_prefill_simt<float><<<grid, NTH, 0, st>>>(
         (const float*)q, (const float*)kp, (const float*)vp, row, offset,
         span, kc, (float*)out, S, H, Hkv, D, BS, scale);
   return (int)cudaGetLastError();

@@ -16,15 +16,21 @@ table row maps its logical block j to a physical block (-1 = unmapped).
 * prefill: the S queries of one slot's prompt chunk at absolute
   positions ``offset + [0, S)``, causal, over the leading ``span`` tokens
   of its row; -1 entries read block 0 unmasked (the gather reference
-  does the same); the softmax is the reference's online recurrence per
-  ``kv_chunk`` group with its -inf guards, and the output is
-  ``acc / max(l, 1e-20)`` (a fully masked row gives 0).
+  does the same); the output is ``acc / max(l, 1e-20)`` (a fully masked
+  row gives 0).  Two kernels, chosen by dtype and head dim
+  (``prefill_route``): bf16 with ``D % 16 == 0`` runs the tensor-core
+  kernel (one sweep over 64-key tiles with an online softmax per tile,
+  tiles above each block's highest query position skipped); f32, and
+  bf16 at other head dims, run the SIMT kernel (the reference's
+  recurrence per ``kv_chunk`` group).  ``kv_chunk`` is a schedule and
+  does not change the function.
 
 Bitwise equality with the gather path is not a goal: the kernels and
 the plain versions below are held to it with f32 tolerances.  The plain
-versions follow the kernels' loops (runs of blocks with an online
-softmax, then the merge; group-wise max then accumulate) and are what ``ops.py`` runs for CPU
-tensors.
+versions follow the tensor-core and decode kernels' loops (runs of
+blocks with an online softmax, then the merge; 64-key tiles with the
+same skip and, for bf16, p rounded to bf16 before p @ V) and are what
+``ops.py`` runs for CPU tensors.
 """
 
 from __future__ import annotations
@@ -40,6 +46,10 @@ MAX_REP = 16
 MAX_HEAD_DIM = 128
 # decode kernel blocks to aim for: two per SM of a 132-SM H100
 SPLIT_TARGET = 264
+# the tensor-core prefill kernel: keys per tile, and query rows per block
+# (4 warps of 16 rows; csrc/paged_attention.cu PF_KT, PF_ROWS)
+PREFILL_KEY_TILE = 64
+PREFILL_BLOCK_ROWS = 64
 
 
 # ---------------------------------------------------------------------------
@@ -111,27 +121,62 @@ def paged_decode_attention_plain(q, k_pool, v_pool, block_table, cache_len,
     return out.to(q.dtype)
 
 
+def prefill_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which prefill kernel a CUDA call launches: ``"mma"`` (tensor cores)
+    for bf16 with a head dim that is a multiple of 16, else ``"simt"``."""
+    return "mma" if dtype == torch.bfloat16 and head_dim % 16 == 0 \
+        else "simt"
+
+
+def prefill_tiles(rows: int, S: int, offset: int, span: int,
+                  device=None) -> torch.Tensor:
+    """(rows,) number of 64-key tiles the tensor-core kernel walks for each
+    query row: its block of ``PREFILL_BLOCK_ROWS`` rows stops before the
+    first tile whose first key lies above the block's highest query
+    position ``offset + max(r % S)``."""
+    br, kt = PREFILL_BLOCK_ROWS, PREFILL_KEY_TILE
+    first = torch.arange(rows, device=device) // br * br
+    last = torch.clamp(first + br, max=rows) - 1
+    qmax = offset + torch.where(last // S != first // S, S - 1, last % S)
+    walked = torch.clamp(qmax // kt + 1, max=-(-span // kt))
+    return torch.where(qmax < 0, 0, walked)
+
+
 def paged_prefill_attention_plain(q, k_pool, v_pool, block_row, offset,
-                                  span: int, kv_chunk: int = 1024):
+                                  span: int, kv_chunk: int = 1024, *,
+                                  skip: bool = True):
     """q (1, S, H, D) at positions offset + [0, S); pools (NB, BS, Hkv,
-    D); block_row (1, NBLK) covering ``span`` tokens -> (1, S, H, D)."""
+    D); block_row (1, NBLK) covering ``span`` tokens -> (1, S, H, D).
+
+    Walks the tensor-core kernel's loop: 64-key tiles, an online softmax
+    step per tile with the reference's -inf guards, and for bf16 inputs p
+    rounded to bf16 before p @ V (the row sums keep the f32 p).  A row
+    takes no step for the tiles its block skips (``prefill_tiles``);
+    ``skip=False`` walks every tile, which gives the same output: a
+    skipped tile is fully masked for every row of its block.
+    ``kv_chunk`` is the TPU kernel's schedule and does not change the
+    function; it is accepted for the kernels' signature."""
+    del kv_chunk
     _, S, H, D = q.shape
     _, BS, Hkv, _ = k_pool.shape
     rep = H // Hkv
+    R = rep * S
     dev = q.device
     row = torch.clamp(block_row.reshape(-1).long(), min=0)
     off = int(offset)
-    kc = min(kv_chunk, span)
+    kt = PREFILL_KEY_TILE
     scale = 1.0 / math.sqrt(D)
+    p_bf16 = q.dtype == torch.bfloat16
     # rows flatten (replica, query) -> replica * S + query, per kv head
     qg = q[0].float().reshape(S, Hkv, rep, D).permute(1, 2, 0, 3)
-    qg = qg.reshape(Hkv, rep * S, D)
-    qpos = off + torch.arange(rep * S, device=dev) % S
-    m = torch.full((Hkv, rep * S), -math.inf, device=dev)
-    l = torch.zeros((Hkv, rep * S), device=dev)
-    acc = torch.zeros((Hkv, rep * S, D), device=dev)
-    for k_lo in range(0, span, kc):
-        kpos = torch.arange(k_lo, min(k_lo + kc, span), device=dev)
+    qg = qg.reshape(Hkv, R, D)
+    qpos = off + torch.arange(R, device=dev) % S
+    walked = prefill_tiles(R, S, off, span, dev)
+    m = torch.full((Hkv, R), -math.inf, device=dev)
+    l = torch.zeros((Hkv, R), device=dev)
+    acc = torch.zeros((Hkv, R, D), device=dev)
+    for t in range(-(-span // kt)):
+        kpos = torch.arange(t * kt, min(t * kt + kt, span), device=dev)
         phys = row[kpos // BS]
         kb = k_pool[phys, kpos % BS].float()            # (n, Hkv, D)
         vb = v_pool[phys, kpos % BS].float()
@@ -142,9 +187,15 @@ def paged_prefill_attention_plain(q, k_pool, v_pool, block_row, offset,
         m2s = torch.where(torch.isinf(m2), 0.0, m2)
         p = torch.where(torch.isinf(s), 0.0, torch.exp(s - m2s[..., None]))
         corr = torch.where(torch.isinf(m), 0.0, torch.exp(m - m2s))
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("grn,ngd->grd", p, vb)
-        m = m2
+        pv = p.to(torch.bfloat16).float() if p_bf16 else p
+        l2 = l * corr + p.sum(dim=-1)
+        acc2 = acc * corr[..., None] + torch.einsum("grn,ngd->grd", pv, vb)
+        if skip:
+            live = (t < walked)[None, :]
+            m, l = torch.where(live, m2, m), torch.where(live, l2, l)
+            acc = torch.where(live[..., None], acc2, acc)
+        else:
+            m, l, acc = m2, l2, acc2
     out = acc / torch.clamp(l, min=1e-20)[..., None]
     out = out.reshape(Hkv, rep, S, D).permute(2, 0, 1, 3).reshape(1, S, H, D)
     return out.to(q.dtype)
@@ -171,7 +222,8 @@ def _fns():
         p, i = ctypes.c_void_p, ctypes.c_int
         dec.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p]
         dec.restype = ctypes.c_int
-        pre.argtypes = [p, p, p, p, i, i, i, p, i, i, i, i, i, i, i, p]
+        pre.argtypes = [p, p, p, p, i, i, i, p, i, i, i, i, i, i, i, i,
+                        p]
         pre.restype = ctypes.c_int
     return dec, pre
 
@@ -232,6 +284,12 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, cache_len):
 
 def paged_prefill_attention_cuda(q, k_pool, v_pool, block_row, offset,
                                  span: int, kv_chunk: int = 1024):
+    """The prefill kernel on CUDA tensors.  Dispatch by dtype and shape,
+    not a fallback on failure: bf16 with a head dim that is a multiple of
+    16 launches the tensor-core kernel (``paged_prefill_mma``); f32, and
+    bf16 at other head dims, launch the SIMT kernel
+    (``paged_prefill_simt``).  Either launches or raises.  Head dims
+    above 128 and more than 16 query heads per kv head raise."""
     _check_attn(q, k_pool, v_pool, block_row, "paged_prefill_attention")
     one, S, H, D = q.shape
     _, BS, Hkv, _ = k_pool.shape
@@ -248,6 +306,7 @@ def paged_prefill_attention_cuda(q, k_pool, v_pool, block_row, offset,
                  block_row.data_ptr(), int(offset), int(span), int(kv_chunk),
                  out.data_ptr(), S, H, Hkv, D, BS, nblk,
                  int(q.dtype == torch.bfloat16),
+                 int(prefill_route(q.dtype, D) == "mma"),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill_attention kernel launch failed: "

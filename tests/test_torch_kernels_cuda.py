@@ -141,6 +141,97 @@ def test_cuda_prefill_matches_plain(cuda_device, kc):
     assert_close(got, want.cpu(), atol=2e-5)
 
 
+def _prefill_bf16(dev, seed, S, H, Hkv, D, BS, span, hole=None):
+    r = np.random.default_rng(seed)
+    nblk = -(-span // BS)
+    NB = nblk + 4
+    k, v = (torch.from_numpy(r.standard_normal((NB, BS, Hkv, D)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    q = torch.from_numpy(r.standard_normal((1, S, H, D)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    row = r.permutation(NB)[:nblk].astype(np.int32)[None]
+    if hole is not None:
+        row[0, hole] = -1       # an unmapped entry reads block 0, unmasked
+    return q, k, v, torch.from_numpy(row).to(dev)
+
+
+def _prefill_kernels(fn):
+    """Names of the prefill kernels ``fn`` launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if "paged_prefill_" in e.key}
+
+
+@pytest.mark.parametrize("kc", [1024, 64])
+@pytest.mark.parametrize("offset", [0, 64, 128, 192])
+def test_cuda_prefill_mma_matches_plain_at_the_served_shape(cuda_device,
+                                                            offset, kc):
+    """qwen2-1.5B's chunk (S 64, H 12, Hkv 2, D 128) at the four chunk
+    offsets of a 256-token prompt: bf16 outputs within one bf16 ulp of
+    O(1) values (atol 2e-2) of the plain version, no NaN."""
+    S, H, Hkv, D, BS, span = 64, 12, 2, 128, 16, 256
+    q, k, v, row = _prefill_bf16(cuda_device, offset + kc, S, H, Hkv, D, BS,
+                                 span)
+    got = PA.paged_prefill_attention_cuda(q, k, v, row, offset, span, kc)
+    want = PA.paged_prefill_attention_plain(q, k, v, row, offset, span, kc)
+    assert got.dtype == torch.bfloat16 and not torch.isnan(got).any()
+    assert_close(got.float(), want.float().cpu(), atol=2e-2)
+
+
+@pytest.mark.parametrize("S,H,Hkv,D,BS,offset,span,hole", [
+    (37, 12, 2, 128, 16, 192, 229, None),   # rows cross replicas; ragged
+    (64, 12, 2, 128, 16, 128, 256, 5),      # a -1 entry inside the span
+    (50, 32, 32, 96, 16, 30, 80, None),     # phi-3-vision's D 96, MHA
+    (33, 16, 1, 64, 16, 0, 40, None),       # rep 16
+])
+def test_cuda_prefill_mma_matches_plain(cuda_device, S, H, Hkv, D, BS,
+                                        offset, span, hole):
+    assert PA.prefill_route(torch.bfloat16, D) == "mma"
+    q, k, v, row = _prefill_bf16(cuda_device, S + D, S, H, Hkv, D, BS, span,
+                                 hole)
+    for kc in (1024, 64):
+        got = PA.paged_prefill_attention_cuda(q, k, v, row, offset, span,
+                                              kc)
+        want = PA.paged_prefill_attention_plain(q, k, v, row, offset, span,
+                                                kc)
+        assert not torch.isnan(got).any()
+        assert_close(got.float(), want.float().cpu(), atol=2e-2)
+
+
+def test_cuda_prefill_routes_by_dtype_and_head_dim(cuda_device):
+    """bf16 at D 128 launches the tensor-core kernel; bf16 at D 72 (not a
+    multiple of 16) launches the SIMT kernel and agrees all the same."""
+    q, k, v, row = _prefill_bf16(cuda_device, 1, 64, 12, 2, 128, 16, 256)
+    launches.reset()
+    names = _prefill_kernels(lambda: PA.paged_prefill_attention_cuda(
+        q, k, v, row, 192, 256))
+    assert launches.snapshot()["paged_prefill_attention"] == 1
+    assert any("paged_prefill_mma<128>" in n for n in names), names
+    assert not any("paged_prefill_simt" in n for n in names), names
+    assert PA.prefill_route(torch.bfloat16, 72) == "simt"
+    q, k, v, row = _prefill_bf16(cuda_device, 2, 20, 4, 2, 72, 16, 48)
+    names = _prefill_kernels(lambda: PA.paged_prefill_attention_cuda(
+        q, k, v, row, 16, 48))
+    assert any("paged_prefill_simt" in n for n in names), names
+    assert not any("paged_prefill_mma" in n for n in names), names
+    got = PA.paged_prefill_attention_cuda(q, k, v, row, 16, 48)
+    want = PA.paged_prefill_attention_plain(q, k, v, row, 16, 48)
+    assert_close(got.float(), want.float().cpu(), atol=2e-2)
+
+
+def test_cuda_prefill_refuses_what_it_cannot_take(cuda_device):
+    q, k, v, row = _prefill_bf16(cuda_device, 3, 8, 2, 1, 144, 16, 32)
+    with pytest.raises(ValueError):                      # D > 128
+        PA.paged_prefill_attention_cuda(q, k, v, row, 0, 32)
+    q, k, v, row = _prefill_bf16(cuda_device, 3, 8, 17, 1, 64, 16, 32)
+    with pytest.raises(ValueError):                      # rep > 16
+        PA.paged_prefill_attention_cuda(q, k, v, row, 0, 32)
+
+
 def test_cuda_wrappers_refuse_bad_operands(cuda_device):
     q, k, v, table, lens = (t.to(cuda_device) for t in _decode_case(
         1, 4, 1, 32, BS=16, MB=2, lens=(20, 3)))

@@ -92,6 +92,106 @@ def test_plain_prefill_matches_gather_reference(offset, span, kc):
     assert_close(got, want, atol=2e-6)
 
 
+def _prefill_case(seed, S, H, Hkv, D, BS, span, hole=None):
+    r = np.random.default_rng(seed)
+    nblk = -(-span // BS)
+    NB = nblk + 4
+    k = r.standard_normal((NB, BS, Hkv, D)).astype(np.float32)
+    v = r.standard_normal((NB, BS, Hkv, D)).astype(np.float32)
+    q = r.standard_normal((1, S, H, D)).astype(np.float32)
+    row = r.permutation(NB)[:nblk].astype(np.int32)[None]
+    if hole is not None:
+        row[0, hole] = -1       # an unmapped entry inside the span
+    return q, k, v, row
+
+
+# S, H, Hkv, D, BS, offset, span, index of a -1 table entry
+PREFILL_TILE_CASES = {
+    "S37_rows_cross_replicas": (37, 12, 2, 64, 16, 27, 100, None),
+    "span_not_a_multiple_of_64": (20, 4, 2, 64, 8, 130, 150, None),
+    "offset0_span256_skips_3_of_4": (64, 12, 2, 128, 16, 0, 256, None),
+    "unmapped_entry_in_span": (32, 4, 1, 64, 16, 96, 128, 2),
+    "rep1": (24, 4, 4, 64, 16, 40, 64, None),
+    "rep16": (9, 16, 1, 64, 16, 100, 130, None),
+    "served_offset192_D128": (64, 12, 2, 128, 16, 192, 256, None),
+}
+
+
+@pytest.mark.parametrize("kc", [1024, 16])
+@pytest.mark.parametrize("case", sorted(PREFILL_TILE_CASES))
+def test_plain_prefill_tile_walk_matches_gather_reference(case, kc):
+    """The plain version walks the tensor-core kernel's 64-key tiles with
+    its skip; at f32 it gives the JAX oracle's answer at every kv_chunk
+    (atol 2e-6: f32 sums in another order, O(1) outputs)."""
+    S, H, Hkv, D, BS, offset, span, hole = PREFILL_TILE_CASES[case]
+    q, k, v, row = _prefill_case(S + span + D, S, H, Hkv, D, BS, span, hole)
+    want = JO.paged_prefill_attention(
+        *map(jnp.asarray, (q, k, v, row)), jnp.int32(offset), span=span,
+        kv_chunk=kc, impl="ref")
+    got = PA.paged_prefill_attention_plain(
+        *map(torch.from_numpy, (q, k, v, row)), offset, span, kc)
+    assert_close(got, want, atol=2e-6)
+
+
+def test_plain_prefill_bf16_matches_gather_reference():
+    """bf16 operands: the JAX oracle runs in f32 on the same bf16 values;
+    the plain version rounds p to bf16 before p @ V and its output to
+    bf16 (atol 2e-2: one bf16 ulp of O(1) outputs)."""
+    S, H, Hkv, D, BS, offset, span, hole = \
+        PREFILL_TILE_CASES["served_offset192_D128"]
+    arrs = _prefill_case(5, S, H, Hkv, D, BS, span, hole=3)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs[:3])
+    row = torch.from_numpy(arrs[3])
+    want = JO.paged_prefill_attention(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+        jnp.asarray(arrs[3]), jnp.int32(offset), span=span, impl="ref")
+    got = PA.paged_prefill_attention_plain(q, k, v, row, offset, span)
+    assert got.dtype == torch.bfloat16
+    assert_close(got.float(), want, atol=2e-2)
+
+
+@pytest.mark.parametrize("case", ["S37_rows_cross_replicas",
+                                  "offset0_span256_skips_3_of_4",
+                                  "span_not_a_multiple_of_64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_prefill_skip_is_exact(case, dtype):
+    """Skipping the tiles above a block's highest query position gives
+    the very output of a walk that visits every tile."""
+    S, H, Hkv, D, BS, offset, span, hole = PREFILL_TILE_CASES[case]
+    q, k, v, row = (torch.from_numpy(a) for a in
+                    _prefill_case(1, S, H, Hkv, D, BS, span, hole))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    walked = PA.prefill_tiles((H // Hkv) * S, S, offset, span)
+    if case == "offset0_span256_skips_3_of_4":
+        assert walked.tolist() == [1] * (H // Hkv) * S
+    skipped = PA.paged_prefill_attention_plain(q, k, v, row, offset, span)
+    full = PA.paged_prefill_attention_plain(q, k, v, row, offset, span,
+                                            skip=False)
+    assert torch.equal(skipped, full)
+
+
+@pytest.mark.parametrize("rows,S,offset,span", [
+    (384, 64, 0, 256), (384, 64, 192, 256), (444, 37, 27, 100),
+    (140, 70, 0, 256), (24, 24, 40, 64), (16, 9, 100, 130), (5, 5, 0, 3)])
+def test_prefill_tiles_stop_above_each_block(rows, S, offset, span):
+    """Each row walks the tiles up to its block's highest query position,
+    with blocks of PREFILL_BLOCK_ROWS rows, and none past the span."""
+    br, kt = PA.PREFILL_BLOCK_ROWS, PA.PREFILL_KEY_TILE
+    want = []
+    for r in range(rows):
+        b0 = r // br * br
+        top = max(offset + i % S for i in range(b0, min(b0 + br, rows)))
+        want.append(sum(1 for t in range(-(-span // kt)) if t * kt <= top))
+    assert PA.prefill_tiles(rows, S, offset, span).tolist() == want
+
+
+def test_prefill_route_by_dtype_and_head_dim():
+    assert PA.prefill_route(torch.bfloat16, 128) == "mma"
+    assert PA.prefill_route(torch.bfloat16, 96) == "mma"
+    assert PA.prefill_route(torch.bfloat16, 72) == "simt"
+    assert PA.prefill_route(torch.float32, 128) == "simt"
+
+
 def test_kv_blocks_read_matches():
     for clen in range(0, 40, 3):
         for mapped in range(0, 8):
