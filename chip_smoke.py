@@ -10,7 +10,9 @@ Phases (any failure exits non-zero before the result line):
   3. kernels: each kernel against its plain PyTorch version on the card at
      its path's shapes, with the stated tolerances; the kernel's and the
      library yardstick's device times (CUDA graph replay), the plain
-     version's wall time, and the least time the card could take.
+     version's wall time, and the least time the card could take.  Flash
+     attention's and prefill attention's tensor-core and SIMT kernels are
+     each checked, the route of every case asserted.
   4. serve: qwen2-1.5B at full width (28 layers, d 1536, bf16 body, f32
      Bayesian head over V = 151936, S = 10 draws), random weights from a
      seed, paged KV + kernel decode attention + chunked prefill + kernel
@@ -799,10 +801,9 @@ def check_two_pass(dev) -> dict:
     return row
 
 
-def flash_case(dev, B, Sq, Sk, seed):
+def flash_case(dev, B, Sq, Sk, seed, D=FLASH_D, dtype=torch.bfloat16):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn((B, n, h, FLASH_D), generator=g, device=dev)
-            .to(torch.bfloat16)
+    return [torch.randn((B, n, h, D), generator=g, device=dev).to(dtype)
             for n, h in ((Sq, FLASH_H), (Sk, FLASH_HKV), (Sk, FLASH_HKV))]
 
 
@@ -829,14 +830,23 @@ def attention_pairs(Sq, Sk, q_offset, causal) -> int:
 
 
 def check_flash(dev) -> dict:
-    """The flash kernel against the plain version's f32 result at each
-    case, and SDPA beside it; the row is B 4, Sq = Sk = 2048, causal."""
+    """The tensor-core flash kernel (every case routes there) against the
+    plain version's f32 result at each case, and SDPA beside it; the row
+    is B 4, Sq = Sk = 2048, causal, whose profile must name
+    ``flash_fwd_mma<128>``.  The same inputs through the SIMT kernel (an
+    odd-stride view of q routes there) are timed beside it, and the SIMT
+    kernel is held against the plain version with f32 operands and with
+    bf16 at D 72."""
     FA = kernel_module("flash_attention")
     H, Hkv, D = FLASH_H, FLASH_HKV, FLASH_D
     worst, row = 0.0, {}
     for name, B, Sq, Sk, off, causal in FLASH_CASES:
         q, k, v = flash_case(dev, B, Sq, Sk, 16)
         kw = {"causal": causal, "q_offset": off}
+        if FA.flash_route(q.dtype, D, q, k, v) != "mma":
+            fail(f"flash attention {name}: bf16 at D {D} must take the "
+                 "tensor-core kernel")
+        chunks = FA.flash_split(B, Hkv, H // Hkv * Sq, Sk)
         got = FA.flash_attention_cuda(q, k, v, **kw)
         want = FA.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
         e = bf16_check(f"flash attention {name}", got, want)
@@ -865,14 +875,55 @@ def check_flash(dev) -> dict:
         calls = 5 if Sq * Sk >= 2 ** 21 else 20
         ms = device_ms(lambda: FA.flash_attention_cuda(q, k, v, **kw), calls)
         lib_ms = device_ms(lib, calls)
+        # the SIMT kernel on the same inputs: q seen with an odd S stride
+        wide = torch.zeros((B, Sq, H * D + 1), dtype=q.dtype, device=dev)
+        wide[..., :H * D] = q.reshape(B, Sq, H * D)
+        q_odd = wide[..., :H * D].unflatten(-1, (H, D))
+        if FA.flash_route(q.dtype, D, q_odd, k, v) != "simt":
+            fail(f"flash attention {name}: an odd-stride q must take the "
+                 "SIMT kernel")
+        simt_ms = device_ms(lambda: FA.flash_attention_cuda(q_odd, k, v,
+                                                            **kw), calls)
         print(f"  flash attention {name} (B {B}, Sq {Sq}, Sk {Sk}, q_offset "
-              f"{off}): ok (max |err| {e:.3g}; SDPA {e_lib:.3g}), {ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by}), SDPA {lib_ms:.4f} ms, "
+              f"{off}, {chunks} kv chunk{'s' if chunks > 1 else ''}): ok "
+              f"(max |err| {e:.3g}; SDPA {e_lib:.3g}), {ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), SDPA {lib_ms:.4f} ms, SIMT kernel "
+              f"{simt_ms:.4f} ms, "
               f"{4.0 * B * H * D * pairs / ms / 1e9:.2f} TFLOP/s", flush=True)
         if name == "causal 2048":
+            t = device_trace(lambda: FA.flash_attention_cuda(q, k, v, **kw),
+                             "flash")
+            names = [n for n in t["by_name"] if "flash_" in n]
+            if not any("flash_fwd_mma<128>" in n for n in names) or \
+                    any("simt" in n or "merge" in n for n in names):
+                fail(f"flash attention {name}: the profile names {names}, "
+                     "not flash_fwd_mma<128> alone")
+            print(f"  flash attention {name} profiled: {top(t['by_name'], 3)}",
+                  flush=True)
             row = {"ms": ms, "plain_ms": time_ms(
                 lambda: FA.flash_attention_plain(q, k, v, **kw), 1, 0),
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    # the SIMT kernel, which f32 operands and bf16 head dims the tensor
+    # cores do not take run: f32 at the prompt-256 case, bf16 at D 72
+    name, B, Sq, Sk, off, causal = FLASH_CASES[0]
+    kw = {"causal": causal, "q_offset": off}
+    for dtype, Dx in ((torch.float32, D), (torch.bfloat16, 72)):
+        q, k, v = flash_case(dev, B, Sq, Sk, 17, Dx, dtype)
+        if FA.flash_route(dtype, Dx, q, k, v) != "simt":
+            fail(f"flash attention: {dtype} at D {Dx} must take the SIMT "
+                 "kernel")
+        got = FA.flash_attention_cuda(q, k, v, **kw)
+        want = FA.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        **kw)
+        tag = f"flash attention (SIMT) {name} {dtype} D={Dx}"
+        if dtype == torch.float32:
+            e = max_err(got, want)
+            if not e <= 2e-5 or not torch.isfinite(got).all():
+                fail(f"{tag}: max |err| {e:.3g} > 2e-05 or not finite")
+        else:
+            e = bf16_check(tag, got, want)
+        print(f"  {tag}: ok (max |err| {e:.3g})", flush=True)
+    print(f"  {hmma_counts('flash_attention', 'flash_fwd_mma')}", flush=True)
     row["max_abs_err"] = worst
     return row
 

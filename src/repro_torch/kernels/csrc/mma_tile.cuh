@@ -1,6 +1,7 @@
 // Warp-level bf16 tensor-core tile helpers (sm_80 and later; built for
 // sm_90a): mma.sync m16n8k16, ldmatrix, 16-byte cp.async, the packing of
-// f32 C fragments into bf16 A fragments, and row reductions over a quad.
+// f32 C fragments into bf16 A fragments (rounded once, or split into three
+// bf16 parts), and row reductions over a quad.
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), with g = lane / 4 (the lane's group) and t = lane % 4
@@ -39,26 +40,36 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 
 // Four 8 x 8 b16 matrices from shared memory.  Lanes 8j .. 8j + 7 pass the
 // (16-byte aligned) addresses of rows 0 .. 7 of matrix j; r[j] receives
-// row g, elements 2t and 2t + 1 of matrix j.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* row_addr) {
+// row g, elements 2t and 2t + 1 of matrix j.  The address is a generic
+// pointer or a 32-bit shared-window address (smem_u32): a kernel that
+// keeps one 32-bit base a lane and adds constant offsets holds one
+// register where a generic pointer a tile takes two.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row_addr))
+      : "r"(addr)
       : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* row_addr) {
+  ldmatrix_x4(r, smem_u32(row_addr));
 }
 
 // The same, each matrix transposed: r[j] receives rows 2t and 2t + 1 of
 // column g of matrix j (as stored).
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* row_addr) {
+                                                  uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(row_addr))
+      : "r"(addr)
       : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row_addr) {
+  ldmatrix_x4_trans(r, smem_u32(row_addr));
 }
 
 // (lo, hi) rounded to bf16 (to nearest even), lo in the lower 16 bits
@@ -76,6 +87,35 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[1] = pack_bf16(c0[2], c0[3]);  // row g + 8, cols 2t, 2t+1
   a[2] = pack_bf16(c1[0], c1[1]);  // row g,     cols 2t+8, 2t+9
   a[3] = pack_bf16(c1[2], c1[3]);  // row g + 8, cols 2t+8, 2t+9
+}
+
+// (x, y) as three bf16 pairs, hi = bf16(x, y), mid = bf16 of what hi
+// leaves out, lo = bf16 of what hi and mid leave out: hi + mid + lo holds
+// each value to about 2^-24 of itself (two pairs hold it to 2^-16 only)
+__device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;  // exact in f32
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = pack_bf16(rx - mf.x, ry - mf.y);
+}
+
+// c_to_a with each value split into three bf16 parts (split3_bf16): the
+// products of one B fragment with all three A fragments, summed in f32,
+// give the product with the f32 values to about 2^-24
+__device__ __forceinline__ void c_to_a_split3(uint32_t (&hi)[4],
+                                              uint32_t (&mid)[4],
+                                              uint32_t (&lo)[4],
+                                              const float (&c0)[4],
+                                              const float (&c1)[4]) {
+  split3_bf16(c0[0], c0[1], hi[0], mid[0], lo[0]);  // row g,   cols 2t, 2t+1
+  split3_bf16(c0[2], c0[3], hi[1], mid[1], lo[1]);  // row g+8, cols 2t, 2t+1
+  split3_bf16(c1[0], c1[1], hi[2], mid[2], lo[2]);  // row g,   cols 2t+8, +9
+  split3_bf16(c1[2], c1[3], hi[3], mid[3], lo[3]);  // row g+8, cols 2t+8, +9
 }
 
 // max and sum over the four lanes of a quad (one row of a C fragment)

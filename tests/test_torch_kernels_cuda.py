@@ -442,6 +442,16 @@ def _attn(seed, B, Sq, Sk, H, Hkv, D, dtype, dev="cuda"):
     (1, 100, 333, 4, 2, 128, False, 0),
     (1, 40, 90, 2, 1, 200, True, 50),        # D 200 (the 256 tiles)
     (1, 20, 20, 2, 2, 72, True, 0),          # D not a multiple of 64
+    # bf16 at these takes the tensor-core kernel, with the kv split where
+    # the row blocks do not fill the card (f32 takes the SIMT kernel)
+    (1, 1, 2048, 12, 2, 128, True, 2047),    # Sq 1 against Sk 2048
+    (1, 64, 2048, 12, 2, 128, True, 1984),   # the continuation
+    (2, 37, 37, 12, 2, 128, True, 0),        # rows cross a replica
+    (1, 50, 300, 16, 1, 64, True, 250),      # Hkv 1, H 16 (rep 16)
+    (1, 40, 90, 4, 2, 64, True, 50),         # D 64
+    (2, 33, 140, 8, 2, 96, False, 0),        # D 96, non-causal
+    (1, 70, 200, 6, 3, 112, True, 130),      # D 112
+    (2, 40, 100, 6, 2, 128, True, -20),      # rows 0-19 see no key
 ])
 def test_cuda_flash_attention_matches_plain(cuda_device, dtype, B, Sq, Sk,
                                             H, Hkv, D, causal, q_offset):
@@ -467,6 +477,121 @@ def test_cuda_flash_attention_reads_strides_and_counts(cuda_device):
                                    v.contiguous(), causal=True)
     assert torch.equal(got, want)
     assert launches.snapshot()["flash_attention"] == 2
+
+
+_PROFILE_FLASH = """
+import importlib, json, sys, tempfile
+import torch
+from torch.profiler import ProfilerActivity, profile
+FA = importlib.import_module("repro_torch.kernels.flash_attention")
+names = {}
+for case in sys.argv[1:]:
+    dtype, D, Sq, Sk, off, odd = json.loads(case)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((4, n, h, D), device="cuda").to(dt)
+               for n, h in ((Sq, 12), (Sk, 2), (Sk, 2)))
+    if odd:   # q seen with an odd S stride
+        q = torch.cat([q.flatten(2), q[..., :1, :1].flatten(2)], -1)
+        q = q[..., :12 * D].unflatten(-1, (12, D))
+    FA.flash_attention_cuda(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        FA.flash_attention_cuda(q, k, v, q_offset=off)
+        torch.cuda.synchronize()
+    # the trace's kernel events carry the full names (key_averages may
+    # shorten a long one to "flash_fwd_...")
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(tmp + "/trace.json")
+        events = json.load(open(tmp + "/trace.json"))["traceEvents"]
+    names[case] = sorted(e["name"] for e in events
+                         if e.get("cat") == "kernel" and "flash_" in e["name"])
+print(json.dumps(names))
+"""
+
+
+def _flash_kernels(*cases):
+    """Names of the flash kernels one causal call launches for each case
+    (dtype name, D, Sq, Sk, q_offset, odd S stride), B 4, H 12, Hkv 2,
+    from torch.profiler in a fresh process: late in a long test process
+    the profiler was seen to record the launches but not the kernels."""
+    import json
+    import os
+    import subprocess
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [src, os.environ.get("PYTHONPATH")])))
+    args = [json.dumps(c) for c in cases]
+    out = subprocess.run([sys.executable, "-c", _PROFILE_FLASH, *args],
+                         env=env, capture_output=True, text=True, check=True)
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    return [names[a] for a in args]
+
+
+def test_cuda_flash_attention_routes_by_dtype_head_dim_and_stride(
+        cuda_device):
+    """By kernel name: bf16 at D 128 launches the tensor-core kernel alone
+    (no merge without a split); the decode window adds the merge; f32,
+    bf16 at D 72 and bf16 with an odd S stride launch the SIMT kernel."""
+    assert FA.flash_split(4, 2, 6 * 200, 200) == 1
+    assert FA.flash_split(4, 2, 6, 2048) > 1
+    mma, split, f32, d72, odd = _flash_kernels(
+        ("bfloat16", 128, 200, 200, 0, False),
+        ("bfloat16", 128, 1, 2048, 2047, False),
+        ("float32", 128, 200, 200, 0, False),
+        ("bfloat16", 72, 200, 200, 0, False),
+        ("bfloat16", 64, 40, 40, 0, True))
+    assert len(mma) == 1 and "flash_fwd_mma<128>" in mma[0], mma
+    assert len(split) == 2 and any("flash_fwd_mma<128>" in n
+                                   for n in split) \
+        and any("flash_merge" in n for n in split), split
+    for names in (f32, d72, odd):
+        assert len(names) == 1 and "flash_fwd_simt" in names[0], names
+
+
+def test_cuda_flash_attention_odd_stride_bf16_takes_simt(cuda_device):
+    """A bf16 view whose S stride is odd cannot take 16-byte copies: it
+    routes to the SIMT kernel and still matches the plain version."""
+    B, S, H, Hkv, D = 2, 40, 4, 2, 64
+    q, k, v = _attn(7, B, S, S, H, Hkv, D, torch.bfloat16)
+    wide = torch.zeros((B, S, H * D + 1), dtype=torch.bfloat16,
+                       device=cuda_device)
+    wide[..., :H * D] = q.reshape(B, S, H * D)
+    qv = wide[..., :H * D].unflatten(-1, (H, D))
+    assert qv.stride(1) % 2 == 1
+    assert FA.flash_route(torch.bfloat16, D, q, k, v) == "mma"
+    assert FA.flash_route(torch.bfloat16, D, qv, k, v) == "simt"
+    got = FA.flash_attention_cuda(qv, k, v, causal=True)
+    want = FA.flash_attention_plain(qv, k, v, causal=True)
+    assert_close(got.float(), want.float().cpu(), atol=2e-2)
+
+
+def test_cuda_flash_attention_split_call_counts_one_launch(cuda_device):
+    """The decode window splits over kv chunks and merges them: two
+    launches, one count, and no other kernel's count moves."""
+    q, k, v = _attn(8, 4, 1, 2048, 12, 2, 128, torch.bfloat16)
+    assert FA.flash_split(4, 2, 6, 2048) > 1
+    launches.reset()
+    got = FA.flash_attention_cuda(q, k, v, causal=True, q_offset=2047)
+    assert launches.snapshot()["flash_attention"] == 1
+    assert sum(launches.snapshot().values()) == 1
+    want = FA.flash_attention_plain(q, k, v, causal=True, q_offset=2047)
+    assert_close(got.float(), want.float().cpu(), atol=2e-2)
+
+
+def test_cuda_flash_attention_bf16_reads_strides(cuda_device):
+    """The tensor-core kernel reads a transposed (B, H, S, D) view by
+    stride, as the contiguous copies give."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in
+               _attn(9, 2, 100, 100, 6, 2, 64, torch.bfloat16))
+    assert not q.is_contiguous()
+    assert FA.flash_route(torch.bfloat16, 64, q, k, v) == "mma"
+    got = FA.flash_attention_cuda(q, k, v, causal=True)
+    want = FA.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True)
+    assert torch.equal(got, want)
 
 
 def test_cuda_lm_wrappers_refuse_bad_operands(cuda_device):
