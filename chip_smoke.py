@@ -58,10 +58,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # peak rates of one H100 SXM (NVIDIA data sheet, dense): memory, f32 on the
-# CUDA cores, bf16 on the tensor cores
+# CUDA cores, bf16 and TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 # 32-bit integer and special-function (log, sqrt, sin, cos, int->float)
 # rates: 64 and 16 operations per clock per SM (CUDA C++ Programming
 # Guide, arithmetic instruction throughput, compute capability 9.0) x 132
@@ -144,6 +145,24 @@ def bound(nbytes: float, flops: float, peak_flops: float,
                 philox_calls * PHILOX_INT_OPS / INT32_OPS,
                 philox_calls * PHILOX_SFU_OPS / SFU_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gemm_bound(nbytes: float, flops: float,
+               philox_calls: float = 0.0) -> tuple[float, str, str]:
+    """``bound`` of an f32-accurate GEMM: its flops take the lesser of f32
+    on the CUDA cores and three TF32 products on the tensor cores (each
+    operand split into two tf32 parts, hi*hi + hi*lo + lo*hi: the same
+    accuracy), whatever implements them.  Returns (ms, "bytes" or
+    "operations", what sets it)."""
+    gemm = {"3xTF32 tensor cores": 3 * flops / TF32_FLOPS,
+            "f32 CUDA cores": flops / F32_FLOPS}
+    kind = min(gemm, key=gemm.get)
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S, kind: gemm[kind],
+             "Philox int32": philox_calls * PHILOX_INT_OPS / INT32_OPS,
+             "Philox SFU": philox_calls * PHILOX_SFU_OPS / SFU_OPS}
+    what = max(terms, key=terms.get)   # "bytes" on a tie, as in bound
+    return (terms[what] * 1e3, "bytes" if what == "bytes" else "operations",
+            what)
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -451,7 +470,8 @@ def hmma_counts(source: str, kernel: str) -> str:
 
 def kernel_name(mangled: str) -> str:
     """``_ZN<n><anonymous namespace><m>paged_prefill_mmaILi128EE...`` ->
-    ``paged_prefill_mma<128>``: the kernels' names in the build logs and
+    ``paged_prefill_mma<128>`` (``...IfLi4EE...`` -> ``<float, 4>``): the
+    kernels' names in the build logs and
     the SASS (nvcc names each anonymous namespace uniquely)."""
     import re
 
@@ -470,7 +490,8 @@ def kernel_name(mangled: str) -> str:
         return f"{name}<{t.group(1)}>"
     for code, arg in (("I13__nv_bfloat16", "bf16"), ("If", "float")):
         if tail.startswith(code):
-            return f"{name}<{arg}>"
+            t = re.match(r"L[ij](\d+)E", tail[len(code):])
+            return f"{name}<{arg}, {t.group(1)}>" if t else f"{name}<{arg}>"
     return name
 
 
@@ -620,11 +641,11 @@ def check_bayes(dev) -> tuple[dict, dict]:
     eps_s = torch.randn((S, K, N), generator=g, device=dev)
     w = mu + sg * eps
     w_s = mu + sg * eps_s
-    b1 = bound((M * K + 3 * K * N + M * N) * 4, 2.0 * M * K * N + 2.0 * K * N,
-               F32_FLOPS)
-    b2 = bound((M * K + 2 * K * N + S * M * N) * 4,
-               2.0 * S * M * K * N + 2.0 * S * K * N, F32_FLOPS,
-               philox_calls=K * N * -(-S // 4))
+    b1 = gemm_bound((M * K + 3 * K * N + M * N) * 4,
+                    2.0 * M * K * N + 2.0 * K * N)
+    b2 = gemm_bound((M * K + 2 * K * N + S * M * N) * 4,
+                    2.0 * S * M * K * N + 2.0 * S * K * N,
+                    philox_calls=K * N * -(-S // 4))
     rows = (
         {"max_abs_err": max(e1, e1i),
          "ms": device_ms(lambda: BM.bayes_matmul_cuda(x, mu, sg, eps), 10),
@@ -640,9 +661,10 @@ def check_bayes(dev) -> tuple[dict, dict]:
          "library_ms": device_ms(lambda: torch.matmul(x, w_s), 10)})
     eps_ms = device_ms(lambda: BM.bayes_matmul_sampled_cuda(
         x, mu, sg, num_samples=S, eps=eps_s), 10)
-    for name, row in zip(("bayes_matmul", "bayes_matmul_sampled"), rows):
+    for name, row, b in zip(("bayes_matmul", "bayes_matmul_sampled"), rows,
+                            (b1, b2)):
         print(f"  {name}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
-              f"ms ({row['bound_by']}), plain {row['plain_ms']:.2f} ms, "
+              f"ms ({b[1]}: {b[2]}), plain {row['plain_ms']:.2f} ms, "
               f"torch.matmul {row['library_ms']:.4f} ms", flush=True)
     print(f"  bayes_matmul_sampled with the explicit (S, K, N) eps: "
           f"{eps_ms:.4f} ms", flush=True)
@@ -654,13 +676,12 @@ def check_bayes(dev) -> tuple[dict, dict]:
     t_eps = device_ms(lambda: BM.bayes_matmul_sampled_cuda(
         xi, mui, sgi, num_samples=S, eps=eps_i), 5)
     blocks = -(-Mi // 64)
-    bi = bound((Mi * Ki + 2 * Ki * Ni + S * Mi * Ni) * 4,
-               2.0 * S * Mi * Ki * Ni, F32_FLOPS,
-               philox_calls=Ki * Ni * -(-S // 4))
+    bi = gemm_bound((Mi * Ki + 2 * Ki * Ni + S * Mi * Ni) * 4,
+                    2.0 * S * Mi * Ki * Ni, philox_calls=Ki * Ni * -(-S // 4))
     redraw = blocks * Ki * Ni * -(-S // 4)
     print(f"  bayes_matmul_sampled im2col shape M={Mi} K={Ki} N={Ni}: "
           f"in-kernel {t_seed:.4f} ms, explicit eps {t_eps:.4f} ms, bound "
-          f"{bi[0]:.4f} ms ({bi[1]}); {blocks} row blocks redraw "
+          f"{bi[0]:.4f} ms ({bi[1]}: {bi[2]}); {blocks} row blocks redraw "
           f"{redraw:.3g} Philox calls = "
           f"{redraw * PHILOX_INT_OPS / INT32_OPS * 1e3:.4f} ms of integer "
           f"work at peak", flush=True)
@@ -675,6 +696,10 @@ def check_bayes(dev) -> tuple[dict, dict]:
 # serving path's 4 slots (bf16 hidden state)
 LRT_SHAPES = ((128, 1024, 4096, torch.float32),
               (4, 1536, 151936, torch.bfloat16))
+# ragged M, K and N on the tensor-core route, bf16 x
+LRT_RAGGED = (130, 1000, 4100, torch.bfloat16)
+# rows at which both LRT kernels are timed, around LRT_MMA_MIN_ROWS
+LRT_SWEEP_ROWS = (8, 9, 16, 32, 64)
 # qwen2-1.5B's attention widths (H 12, Hkv 2, D 128, bf16):
 # (name, B, Sq, Sk, q_offset, causal)
 FLASH_CASES = (("prompt 256", 4, 256, 256, 0, True),
@@ -697,45 +722,59 @@ def lrt_moments(x, mu, sg):
 
 
 def check_lrt(dev) -> tuple[dict, dict]:
-    """Both LRT entry points' kernel against its plain version at both
-    shapes (explicit xi, and the seeded stream for the S-sample GEMM),
-    within 1e-5 of max |y|; the seeded GEMM is a function of its seed and
-    its mean over S lies within std/sqrt(S) of the mean output.  The
-    table's rows are the bench_kernels shape."""
+    """Both LRT entry points' kernels against their plain version, within
+    1e-5 of max |y|: at both shapes of ``LRT_SHAPES`` (the route asserted:
+    the tensor-core kernel at M 128, the streaming kernel at the head's
+    M 4) and at a ragged bf16 case on the tensor-core route; explicit xi,
+    and the seeded stream, which must be a function of its seed whose mean
+    over S lies within std/sqrt(S) of the mean output.  At M 128 the
+    streaming kernel runs forced on the same inputs, checked and timed
+    beside the tensor-core kernel, whose profile must name
+    ``lrt_gemm_mma``.  The table's rows are the M 128 shape."""
     BM = kernel_module("bayes_matmul")
     S = 10
     worst1 = worst2 = 0.0
     rows = None
-    for M, K, N, dt in LRT_SHAPES:
+    for M, K, N, dt in (*LRT_SHAPES, LRT_RAGGED):
         x, mu, sg, g = lrt_case(dev, M, K, N, dt, seed=14)
         xi = torch.randn((M, N), generator=g, device=dev)
         xi_s = torch.randn((S, M, N), generator=g, device=dev)
         tag = f"M={M} K={K} N={N}"
+        route = BM.lrt_route(M, K, N, x, mu, sg, xi_s)
+        if route != ("stream" if M == 4 else "mma"):
+            fail(f"lrt {tag}: lrt_route gave {route!r}")
+        want1 = BM.lrt_matmul_plain(x, mu, sg, xi)
         e1 = rel_check(f"lrt_matmul {tag}", BM.lrt_matmul_cuda(x, mu, sg, xi),
-                       BM.lrt_matmul_plain(x, mu, sg, xi), tol=1e-5)
+                       want1, tol=1e-5)
         e2 = rel_check(f"lrt_matmul_sampled xi {tag}",
                        BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=S,
                                                   xi=xi_s),
                        BM.lrt_matmul_sampled_plain(x, mu, sg, num_samples=S,
                                                    xi=xi_s), tol=1e-5)
-        seeded = lambda seed: BM.lrt_matmul_sampled_cuda(  # noqa: E731
-            x, mu, sg, num_samples=S, seed=seed)
+        seeded = lambda seed, route=None: BM.lrt_matmul_sampled_cuda(  # noqa
+            x, mu, sg, num_samples=S, seed=seed, route=route)
         got = seeded(21)
-        e3 = rel_check(f"lrt_matmul_sampled seeded {tag}", got,
-                       BM.lrt_matmul_sampled_plain(x, mu, sg, num_samples=S,
-                                                   seed=21), tol=1e-5)
+        want_seeded = BM.lrt_matmul_sampled_plain(x, mu, sg, num_samples=S,
+                                                  seed=21)
+        e3 = rel_check(f"lrt_matmul_sampled seeded {tag}", got, want_seeded,
+                       tol=1e-5)
         if not torch.equal(got, seeded(21)) or torch.equal(got, seeded(22)):
             fail(f"lrt_matmul_sampled {tag}: not a function of the seed")
         note = moments_check(f"lrt_matmul_sampled {tag}", got,
                              *lrt_moments(x, mu, sg), S)
         worst1, worst2 = max(worst1, e1), max(worst2, e2, e3)
+        print(f"  LRT GEMMs {tag} x {dt}, {route} route: ok (max |err| "
+              f"{e1:.3g}, {e2:.3g}, {e3:.3g}; lrt_matmul's "
+              f"{e1 / float(want1.abs().max()):.3g} of max |y|; seeded "
+              f"{note})", flush=True)
+        if (M, K, N, dt) == LRT_RAGGED:
+            continue
         esize = x.element_size()
         calls = 10 if M == 128 else 3
-        b1 = bound(M * K * esize + (2 * K * N + 2 * M * N) * 4,
-                   4.0 * M * K * N, F32_FLOPS)
-        b2 = bound(M * K * esize + (2 * K * N + S * M * N) * 4,
-                   4.0 * M * K * N, F32_FLOPS,
-                   philox_calls=M * N * -(-S // 4))
+        b1 = gemm_bound(M * K * esize + (2 * K * N + 2 * M * N) * 4,
+                        4.0 * M * K * N)
+        b2 = gemm_bound(M * K * esize + (2 * K * N + S * M * N) * 4,
+                        4.0 * M * K * N, philox_calls=M * N * -(-S // 4))
         # library yardstick: the two cuBLAS f32 GEMMs on x^2 and sigma^2
         # formed beforehand
         x32 = x.float()
@@ -753,16 +792,97 @@ def check_lrt(dev) -> tuple[dict, dict]:
               "plain_ms": time_ms(lambda: BM.lrt_matmul_sampled_plain(
                   x, mu, sg, num_samples=S, seed=21), 1, 0),
               "bound_ms": b2[0], "bound_by": b2[1], "library_ms": lib_ms})
-        print(f"  LRT GEMMs {tag} x {dt}: ok (max |err| {e1:.3g}, {e2:.3g}, "
-              f"{e3:.3g}; seeded {note}); lrt_matmul {r[0]['ms']:.4f} ms, "
-              f"bound {b1[0]:.4f} ms ({b1[1]}), plain {r[0]['plain_ms']:.3f}"
-              f" ms; lrt_matmul_sampled S={S} {r[1]['ms']:.4f} ms, bound "
-              f"{b2[0]:.4f} ms ({b2[1]}), plain {r[1]['plain_ms']:.2f} ms; "
+        print(f"  LRT GEMMs {tag}: lrt_matmul {r[0]['ms']:.4f} ms, bound "
+              f"{b1[0]:.4f} ms ({b1[2]}), plain {r[0]['plain_ms']:.3f} ms; "
+              f"lrt_matmul_sampled S={S} {r[1]['ms']:.4f} ms, bound "
+              f"{b2[0]:.4f} ms ({b2[2]}), plain {r[1]['plain_ms']:.2f} ms; "
               f"two cuBLAS GEMMs {lib_ms:.4f} ms", flush=True)
-        if rows is None:
-            rows = r
+        if M != 128:
+            continue
+        # the streaming kernel, forced, on the same inputs
+        es1 = rel_check(f"lrt_matmul {tag} (stream)",
+                        BM.lrt_matmul_cuda(x, mu, sg, xi, route="stream"),
+                        want1, tol=1e-5)
+        es3 = rel_check(f"lrt_matmul_sampled seeded {tag} (stream)",
+                        seeded(21, "stream"), want_seeded, tol=1e-5)
+        t1 = device_ms(lambda: BM.lrt_matmul_cuda(x, mu, sg, xi,
+                                                  route="stream"), calls)
+        ts = device_ms(lambda: seeded(21, "stream"), calls)
+        print(f"  LRT GEMMs {tag}, stream route forced: ok (max |err| "
+              f"{es1:.3g}, {es3:.3g}); lrt_matmul {t1:.4f} ms, "
+              f"lrt_matmul_sampled S={S} {ts:.4f} ms", flush=True)
+        names = lrt_profile(M, K, N)
+        if names != ["lrt_gemm_mma<float, 4>"]:
+            fail(f"lrt_matmul {tag}: the profile names {names}, not "
+                 "lrt_gemm_mma<float, 4> alone")
+        print(f"  lrt_matmul {tag} profiled (fresh process): {names}",
+              flush=True)
+        rows = r
     rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst1, worst2
+    lrt_route_sweep(dev)
+    print(f"  {hmma_counts('bayes_matmul', 'lrt_gemm_mma')}", flush=True)
     return rows
+
+
+_PROFILE_LRT = """
+import importlib, json, sys, tempfile
+import torch
+from torch.profiler import ProfilerActivity, profile
+BM = importlib.import_module("repro_torch.kernels.bayes_matmul")
+M, K, N = map(int, sys.argv[1:4])
+x, mu, sg, xi = (torch.rand(s, device="cuda") for s in
+                 ((M, K), (K, N), (K, N), (M, N)))
+BM.lrt_matmul_cuda(x, mu, sg, xi)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    BM.lrt_matmul_cuda(x, mu, sg, xi)
+    torch.cuda.synchronize()
+with tempfile.TemporaryDirectory() as tmp:
+    prof.export_chrome_trace(tmp + "/trace.json")
+    events = json.load(open(tmp + "/trace.json"))["traceEvents"]
+print(json.dumps(sorted(e["name"] for e in events
+                        if e.get("cat") == "kernel")))
+"""
+
+
+def lrt_profile(M: int, K: int, N: int) -> list[str]:
+    """The kernels one ``lrt_matmul_cuda`` call with f32 operands of
+    (M, K, N) launches, by torch.profiler in a fresh process (a second
+    profiler session late in this one was seen to record the launches but
+    not the kernels), as ``name<args>``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(ROOT / "src"), os.environ.get("PYTHONPATH")])))
+    out = subprocess.run([sys.executable, "-c", _PROFILE_LRT, str(M), str(K),
+                          str(N)], env=env, capture_output=True, text=True)
+    if out.returncode:
+        fail(f"lrt profile: the child process failed:\n{out.stderr[-2000:]}")
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    return [n.split("::")[-1].split("(")[0] for n in names]
+
+
+def lrt_route_sweep(dev) -> None:
+    """Both LRT kernels, forced, at the rows around ``LRT_MMA_MIN_ROWS``
+    and at both widths of ``LRT_SHAPES``: the measurement the threshold is
+    set from (lrt_matmul's device time).  The tensor-core kernel is held
+    to the plain version at each point."""
+    BM = kernel_module("bayes_matmul")
+    for _, K, N, dt in LRT_SHAPES:
+        cells = []
+        for M in LRT_SWEEP_ROWS:
+            x, mu, sg, g = lrt_case(dev, M, K, N, dt, seed=20)
+            xi = torch.randn((M, N), generator=g, device=dev)
+            rel_check(f"lrt_matmul M={M} K={K} N={N} (mma, forced)",
+                      BM.lrt_matmul_cuda(x, mu, sg, xi, route="mma"),
+                      BM.lrt_matmul_plain(x, mu, sg, xi), tol=1e-5)
+            t = {r: device_ms(lambda: BM.lrt_matmul_cuda(x, mu, sg, xi,
+                                                         route=r), 3)
+                 for r in BM.LRT_ROUTES}
+            cells.append(f"M {M} stream {t['stream']:.4f} mma {t['mma']:.4f}")
+        print(f"  LRT route sweep, lrt_matmul K={K} N={N} {dt} (ms; "
+              f"LRT_MMA_MIN_ROWS {BM.LRT_MMA_MIN_ROWS}): " + ", ".join(cells),
+              flush=True)
 
 
 def check_two_pass(dev) -> dict:

@@ -23,16 +23,22 @@ the CUDA kernels and their plain PyTorch versions (counterpart of
 
 The weight-space kernels are f32 GEMMs on the CUDA cores (no tensor
 cores, no TF32); bf16 operands are converted to f32 here, before the
-launch.  The LRT kernel reads x as f32 or bf16 and mu/sigma as f32.  The
+launch.  The LRT GEMMs have two kernels, chosen by ``lrt_route`` from
+shape, type and alignment (never by failure): ``lrt_gemm_mma``, 3xTF32
+tensor-core tiles (each operand split as hi + lo in tf32, three products
+per GEMM), for at least ``LRT_MMA_MIN_ROWS`` rows; ``lrt_gemm_stream``, a
+thread per output column streaming mu and sigma, for everything else
+(the head's M 4).  Both read x as f32 or bf16 and mu/sigma as f32.  The
 single draw's plain version is ``ref.bayes_matmul``.  The sampled GEMM's
 plain version below follows the kernel's loop — W_s formed per (bk, bn)
 tile, the variates drawn per tile from the element's own counter, row
 blocks replayed — so masking and stream keying are checked on the CPU.
 Its tile sizes are arguments: the stream must not depend on them.  The
 LRT GEMMs' plain versions form the mean and variance GEMMs once and then
-draw the epilogue's variates per column tile, as the kernel does per
-column.  ``ops.py`` picks the kernel or the plain version by the tensor's
-device.
+draw the epilogue's variates per column tile, as the kernels do per
+column; ``split="tf32x3"`` (or ``"tf32"``, one pass) rounds the operands
+as the tensor-core kernel does.  ``ops.py`` picks the kernel or the plain
+version by the tensor's device.
 """
 
 from __future__ import annotations
@@ -44,7 +50,14 @@ import torch
 from repro_torch.kernels import build, launches, rng
 
 MAX_SAMPLES = 16     # the fused kernel keeps S accumulators per output
-MAX_LRT_SAMPLES = 1024   # the LRT kernel loops over S in its epilogue
+MAX_LRT_SAMPLES = 1024   # the LRT kernels loop over S in their epilogue
+# the least M that takes the tensor-core LRT kernel.  Its time is flat
+# below 32 rows (one 32-row tile); the streaming kernel's doubles where
+# its row block grows from 8 to 16 rows (M 9), and below that it is the
+# faster of the two at qwen2-1.5B's head width (chip_smoke.py's route
+# sweep times both at M 8, 9, 16, 32 and 64)
+LRT_MMA_MIN_ROWS = 9
+LRT_ROUTES = ("stream", "mma")   # the C entry point's route argument
 PLAIN_BK = 128       # the plain version's default tiles (any tile gives
 PLAIN_BN = 256       # the same variates; the kernel uses its own)
 
@@ -91,16 +104,55 @@ def bayes_matmul_sampled_plain(x: torch.Tensor, mu: torch.Tensor,
 # plain versions of the LRT GEMMs
 # ---------------------------------------------------------------------------
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to tf32 as ``cvt.rna.tf32.f32`` rounds: to 10
+    mantissa bits, to nearest with ties away from zero (half an ulp added
+    to the magnitude, the low 13 bits cleared); NaN and infinities kept."""
+    bits = v.contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & -0x2000
+    r = mag.view(torch.float32)
+    r = torch.where(bits < 0, -r, r)
+    return torch.where(torch.isfinite(v), r, v)
+
+
+def tf32_truncate(v: torch.Tensor) -> torch.Tensor:
+    """f32 values truncated to tf32 (the low 13 bits cleared), as a
+    tensor-core product reads an f32 operand; NaN and infinities kept."""
+    r = (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(v), r, v)
+
+
+def _split_matmul(a: torch.Tensor, b: torch.Tensor, split: str | None):
+    """a @ b in f32 (split None), or as the tensor-core kernel forms it:
+    one pass of tf32 operands (``"tf32"``), or three (``"tf32x3"``: each
+    operand as hi = tf32_round(v) plus lo = tf32_truncate(v - hi), summed
+    as lo@hi' + hi@lo' + hi@hi')."""
+    if split is None:
+        return a @ b
+    ah, bh = tf32_round(a), tf32_round(b)
+    if split == "tf32":
+        return ah @ bh
+    if split != "tf32x3":
+        raise ValueError(f"split must be None, 'tf32' or 'tf32x3', got "
+                         f"{split!r}")
+    al, bl = tf32_truncate(a - ah), tf32_truncate(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
 def lrt_matmul_sampled_plain(x: torch.Tensor, mu: torch.Tensor,
                              sigma: torch.Tensor, *, num_samples: int,
                              xi: torch.Tensor | None = None, seed: int = 0,
-                             bn: int = PLAIN_BN) -> torch.Tensor:
+                             bn: int = PLAIN_BN,
+                             split: str | None = None) -> torch.Tensor:
     """(S, M, N) f32: the mean and variance GEMMs once, then S outputs
     per column tile of ``bn``; xi=None draws each tile's variates from the
-    TAG_LRT stream keyed by seed."""
+    TAG_LRT stream keyed by seed.  ``split`` forms the two GEMMs from
+    tf32-rounded operands as the tensor-core kernel does (x*x and
+    sigma*sigma squared in f32 first); None is the f32 version."""
     x32 = x.float()
-    mean = x32 @ mu.float()
-    std = torch.sqrt(torch.clamp((x32 * x32) @ (sigma.float() ** 2),
+    sg = sigma.float()
+    mean = _split_matmul(x32, mu.float(), split)
+    std = torch.sqrt(torch.clamp(_split_matmul(x32 * x32, sg * sg, split),
                                  min=0.0))
     M, N = mean.shape
     dev = x.device
@@ -119,10 +171,11 @@ def lrt_matmul_sampled_plain(x: torch.Tensor, mu: torch.Tensor,
 
 
 def lrt_matmul_plain(x: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor,
-                     xi: torch.Tensor) -> torch.Tensor:
+                     xi: torch.Tensor, *,
+                     split: str | None = None) -> torch.Tensor:
     """One draw with an explicit (M, N) xi -> (M, N) f32."""
     return lrt_matmul_sampled_plain(x, mu, sigma, num_samples=1,
-                                    xi=xi[None])[0]
+                                    xi=xi[None], split=split)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -206,17 +259,34 @@ def bayes_matmul_sampled_cuda(x, mu, sigma, *, num_samples: int,
     return _launch("bayes_matmul_sampled", xs, S, seed, y, M, K, N)
 
 
+def lrt_route(M: int, K: int, N: int, x: torch.Tensor, mu: torch.Tensor,
+              sigma: torch.Tensor, xi: torch.Tensor | None = None) -> str:
+    """Which LRT kernel a CUDA call launches, from the operands as the
+    caller passes them: ``"mma"`` (3xTF32 tensor-core tiles) where M is at
+    least ``LRT_MMA_MIN_ROWS``, K a multiple of 4 for f32 x (of 8 for bf16
+    x), N a multiple of 4 and every operand starts on a 16-byte boundary
+    (what the kernel's 16-byte ``cp.async`` copies of whole rows need),
+    else ``"stream"``."""
+    if M < LRT_MMA_MIN_ROWS or K % (16 // x.element_size()) or N % 4:
+        return "stream"
+    if any(t.data_ptr() % 16 for t in (x, mu, sigma, xi) if t is not None):
+        return "stream"
+    return "mma"
+
+
 def _lrt_fn():
     fn = build.load("bayes_matmul").repro_lrt_matmul
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, i, ctypes.c_uint32, p, i, i, i, p]
+        fn.argtypes = [p, i, p, p, p, i, ctypes.c_uint32, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _lrt_launch(count: str, x, mu, sigma, xi, S: int, seed: int):
-    """Checks the operands and launches the LRT kernel -> (S, M, N) f32."""
+def _lrt_launch(count: str, x, mu, sigma, xi, S: int, seed: int,
+                route: str | None):
+    """Checks the operands and launches the LRT kernel of ``route`` (by
+    default ``lrt_route``'s) -> (S, M, N) f32."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"{count} needs CUDA tensors, got {dev}")
@@ -240,6 +310,10 @@ def _lrt_launch(count: str, x, mu, sigma, xi, S: int, seed: int):
                          f"got {S}")
     if not 0 <= seed < 2 ** 32:
         raise ValueError(f"seed must be 32-bit unsigned, got {seed}")
+    if route is None:
+        route = lrt_route(M, K, N, x, mu, sigma, xi)
+    elif route not in LRT_ROUTES:
+        raise ValueError(f"route must be one of {LRT_ROUTES}, got {route!r}")
     x, mu, sigma = (t.contiguous() for t in (x, mu, sigma))
     xi = xi.contiguous() if xi is not None else None
     y = torch.empty((S, M, N), dtype=torch.float32, device=dev)
@@ -248,23 +322,30 @@ def _lrt_launch(count: str, x, mu, sigma, xi, S: int, seed: int):
         rc = _lrt_fn()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                        mu.data_ptr(), sigma.data_ptr(),
                        xi.data_ptr() if xi is not None else None, S, seed,
-                       y.data_ptr(), M, K, N, stream)
+                       y.data_ptr(), M, K, N, LRT_ROUTES.index(route), stream)
     if rc != 0:
-        raise RuntimeError(f"{count} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{count} kernel launch failed ({route} route): "
+                           f"CUDA error {rc}")
     launches.COUNTS[count] += 1
     return y
 
 
-def lrt_matmul_cuda(x, mu, sigma, xi) -> torch.Tensor:
-    """One draw with an explicit (M, N) xi -> (M, N) f32."""
+def lrt_matmul_cuda(x, mu, sigma, xi, *, route: str | None = None
+                    ) -> torch.Tensor:
+    """One draw with an explicit (M, N) xi -> (M, N) f32.  ``route``
+    ("stream" or "mma") overrides ``lrt_route``, for tests and
+    ``chip_smoke.py`` only; "mma" on operands the kernel does not take
+    raises."""
     if xi is None or xi.dim() != 2:
         raise ValueError("lrt_matmul needs an explicit (M, N) xi")
-    return _lrt_launch("lrt_matmul", x, mu, sigma, xi[None], 1, 0)[0]
+    return _lrt_launch("lrt_matmul", x, mu, sigma, xi[None], 1, 0, route)[0]
 
 
 def lrt_matmul_sampled_cuda(x, mu, sigma, *, num_samples: int, xi=None,
-                            seed: int = 0) -> torch.Tensor:
+                            seed: int = 0,
+                            route: str | None = None) -> torch.Tensor:
     """S draws from one mean and one variance GEMM -> (S, M, N) f32; xi
-    (S, M, N) or None for the in-kernel TAG_LRT stream keyed by seed."""
+    (S, M, N) or None for the in-kernel TAG_LRT stream keyed by seed.
+    ``route`` as for ``lrt_matmul_cuda``."""
     return _lrt_launch("lrt_matmul_sampled", x, mu, sigma, xi, num_samples,
-                       seed)
+                       seed, route)

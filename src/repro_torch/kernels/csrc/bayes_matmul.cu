@@ -39,27 +39,79 @@
 // drawn once in device memory would trade that Philox work for S*K*N*4
 // bytes of reads per row block.
 //
-// The LRT GEMM (lrt_gemm below, one kernel behind both LRT entry points):
+// The LRT GEMM: two kernels behind both LRT entry points (replacing
+// lrt_matmul_kernel and lrt_matmul_fused_kernel, whose bodies
+// _lrt_mm_kernel and _lrt_mm_fused_kernel accumulate one mean and one
+// variance GEMM and apply the noise on the last K step):
 //   y_s = x@mu + sqrt(max((x*x)@sigma^2, 0)) * xi_s,  s < S (S = 1 with an
 //   explicit (M, N) xi for the single draw; xi (S, M, N) or the TAG_LRT
 //   Philox stream, counter (n, m, s / 4, TAG_LRT), for the S-sample GEMM).
 // The S samples share the two GEMMs and differ only in the epilogue, so
-// the kernel keeps two f32 accumulators per output (mean, variance), not
-// S, and S is a loop bound, not a template argument.  What bounds it: at
+// both kernels keep two f32 sums per output (mean, variance), not S, and
+// S is a loop bound.  The caller picks the kernel by shape, type and
+// alignment (bayes_matmul.py::lrt_route), never by failure.
+//
+// lrt_gemm_mma (M >= LRT_MMA_MIN_ROWS, 16-byte aligned operands, K % 4 == 0
+// for f32 x or K % 8 == 0 for bf16 x, N % 4 == 0).  What bounds it: at
+// bench_kernels' shape (M 128, K 1024, N 4096) the two GEMMs, 2.15 GFLOP
+// that must be f32-accurate (chip_smoke.py holds them to 1e-5 of max |y|):
+// 0.0321 ms on the CUDA cores at their peak, 0.0130 ms as three TF32
+// products on the tensor cores; the bytes take 0.0114 ms (lrt_matmul) and
+// 0.0164 ms with S = 10 outputs (lrt_matmul_sampled, bound by bytes).
+// Design: warp-level mma.sync m16n8k8 tf32 tiles, 3xTF32: every operand
+// value v is split into hi = tf32(v), rounded to nearest (ties away) by an
+// integer add and mask, and lo = v - hi, which the tensor core reads
+// truncated to tf32 (mma_tile.cuh::split_tf32); a product is hi*hi' +
+// hi*lo' + lo*hi' (one pass of tf32 holds it to 2^-11 only, about 3e-4 of
+// max |y| at K 1024).  cvt.rna.tf32.f32 is a sequence of several
+// instructions with NaN checks: with it on both parts, as first written,
+// the kernel took a quarter longer at M 128 (tools/lrt_variants.py).  x*x is
+// squared from the f32 value of x (converted from bf16 where x is bf16)
+// and sigma^2 = sd * sd in f32, both in registers, then split: no sigma^2
+// tensor exists.  Eight warps own 32 x 16 outputs each; a block is the
+// least of 32 x 128, 64 x 64 and 128 x 32 tiles that covers M in rows, so
+// a small M wastes no MMA work beyond its 32-row tile.  At M 128, N 4096:
+// 128 x 1 blocks of 128 x 32 (one an SM on 128 of the card's 132 SMs; mu
+// and sigma read once); at M 9-32 and the head's N 151936: 1,187 x 1
+// blocks of 32 x 128.  K advances in tiles of 32 through a ring of three
+// stages in dynamic shared memory, filled by 16-byte cp.async (the x tile
+// and the mu and sigma tiles; ragged M, K and N edges zero-filled by the
+// copy, stores masked).  Within each k8 step the k order is permuted
+// (logical k t and t + 4 sit in physical columns 2t and 2t + 1), the same
+// for A and B, so a lane's two A values of a row are one 8-byte or 4-byte
+// (bf16) shared load; the row strides are padded for that layout (x 40
+// floats or 40 bf16, mu/sigma BN + 4 floats), which leaves every fragment
+// load free of bank conflicts.  The tensor core adds in f32 with its own
+// rounding, so each k tile's three products (the two small ones first)
+// accumulate in a partial sum started at zero, and the partials are added
+// to the running sums by f32 adds on the CUDA cores: a sum over K never
+// runs through more than 12 tensor-core adds.  One accumulator for the
+// small and the big products, not two, keeps the registers at 64 sums a
+// thread (mean and variance, running and partial).  The epilogue takes
+// std = sqrtf(max(var, 0)) (NaN stays NaN) from the C fragments, parks
+// (mean, std) in the ring's shared memory, and walks the block's column
+// pairs in one loop that is not unrolled: one copy of the Philox code
+// (unrolled over a lane's eight column pairs, the draws ran 0.02 ms
+// slower at S 10), whole 128-byte rows stored a warp.  It draws or reads
+// xi four samples at a time and stores fmaf(std, z, mean) as float2, so
+// the S draws never touch device memory.
+//
+// lrt_gemm_stream (every other call; the head's M 4).  What bounds it: at
 // the head's shape (M 4, K 1536, N 151936) reading mu and sigma once,
-// 1.87 GB; at bench_kernels' shape (M 128, K 1024, N 4096) the two f32
-// GEMMs (2.15 GFLOP).  Design: as the head's pass 1, each thread owns one
-// output column and MR rows (4, 8 or 16, the least that covers M, so a
-// small M wastes no FMAs); x and x*x are staged in shared memory in K
-// chunks, and each thread streams its column of mu and sigma from device
-// memory once per row block, coalesced across the warp, squaring sigma in
-// the load (no sigma^2 tensor).  Ragged M, K and N are masked, not
-// padded; x may be float32 or bfloat16, mu and sigma are float32.
+// 1.87 GB.  Design: as the head's pass 1, each thread owns one output
+// column and MR rows (4, 8 or 16, the least that covers M, so a small M
+// wastes no FMAs); x and x*x are staged in shared memory in K chunks, and
+// each thread streams its column of mu and sigma from device memory once
+// per row block, coalesced across the warp, squaring sigma in the load:
+// 1,187 x 1 blocks of 128 threads (MR 4) at the head's shape.  Ragged M, K
+// and N are masked, not padded; x may be float32 or bfloat16, mu and sigma
+// are float32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "convert.cuh"
+#include "mma_tile.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -241,10 +293,10 @@ using repro::to_f32;
 
 template <typename XT, int MR>
 __global__ void __launch_bounds__(LT)
-    lrt_gemm(const XT* __restrict__ x, const float* __restrict__ mu,
-             const float* __restrict__ sg, const float* __restrict__ xi,
-             int S, uint32_t seed, float* __restrict__ y, int M, int K,
-             int N) {
+    lrt_gemm_stream(const XT* __restrict__ x, const float* __restrict__ mu,
+                    const float* __restrict__ sg, const float* __restrict__ xi,
+                    int S, uint32_t seed, float* __restrict__ y, int M, int K,
+                    int N) {
   __shared__ float4 xs[LKC][MR / 4];
   __shared__ float4 x2s[LKC][MR / 4];
   const int tid = threadIdx.x;
@@ -324,23 +376,275 @@ __global__ void __launch_bounds__(LT)
 }
 
 template <typename XT>
-int launch_lrt(const XT* x, const float* mu, const float* sigma,
-               const float* xi, int S, uint32_t seed, float* y, int M, int K,
-               int N, cudaStream_t st) {
+int launch_lrt_stream(const XT* x, const float* mu, const float* sigma,
+                      const float* xi, int S, uint32_t seed, float* y, int M,
+                      int K, int N, cudaStream_t st) {
   const int mr = M <= 4 ? 4 : M <= 8 ? 8 : 16;
   const dim3 grid((N + LT - 1) / LT, (M + mr - 1) / mr);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   if (mr == 4)
-    lrt_gemm<XT, 4><<<grid, LT, 0, st>>>(x, mu, sigma, xi, S, seed, y, M, K,
-                                         N);
+    lrt_gemm_stream<XT, 4><<<grid, LT, 0, st>>>(x, mu, sigma, xi, S, seed, y,
+                                                M, K, N);
   else if (mr == 8)
-    lrt_gemm<XT, 8><<<grid, LT, 0, st>>>(x, mu, sigma, xi, S, seed, y, M, K,
-                                         N);
+    lrt_gemm_stream<XT, 8><<<grid, LT, 0, st>>>(x, mu, sigma, xi, S, seed, y,
+                                                M, K, N);
   else
-    lrt_gemm<XT, 16><<<grid, LT, 0, st>>>(x, mu, sigma, xi, S, seed, y, M,
-                                          K, N);
+    lrt_gemm_stream<XT, 16><<<grid, LT, 0, st>>>(x, mu, sigma, xi, S, seed,
+                                                 y, M, K, N);
   return (int)cudaGetLastError();
 }
+
+constexpr int MM_BK = 32;               // K per stage
+constexpr int MM_STAGES = 3;            // cp.async ring
+constexpr int MM_NT = 256;              // 8 warps of 32 x 16 outputs each
+constexpr int MM_XLD = MM_BK + 8;       // x row stride, in elements of x
+
+// A block of WM warps along M and 8 / WM along N owns a (32 WM) x (128 /
+// WM) output tile; mu / sigma rows are padded to BN + 4 floats.
+template <int WM>
+struct MmaTile {
+  static constexpr int BM = 32 * WM, BN = 16 * (8 / WM), WLD = BN + 4;
+};
+
+template <typename XT, int WM>
+constexpr int mma_smem_bytes() {
+  using T = MmaTile<WM>;
+  return MM_STAGES *
+         (T::BM * MM_XLD * (int)sizeof(XT) + 2 * MM_BK * T::WLD * 4);
+}
+
+__device__ __forceinline__ float2 pair_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair_f32(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <typename XT, int WM>
+__global__ void __launch_bounds__(MM_NT, 1)
+    lrt_gemm_mma(const XT* __restrict__ x, const float* __restrict__ mu,
+                 const float* __restrict__ sg, const float* __restrict__ xi,
+                 int S, uint32_t seed, float* __restrict__ y, int M, int K,
+                 int N) {
+  using namespace mma_tile;
+  using T = MmaTile<WM>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int XE = 16 / (int)sizeof(XT);         // x elements a copy
+  constexpr int X_BYTES = T::BM * MM_XLD * (int)sizeof(XT);
+  constexpr int W_BYTES = MM_BK * T::WLD * 4;
+  constexpr int STAGE = X_BYTES + 2 * W_BYTES;
+  constexpr int X_CHUNKS = T::BM * MM_BK / XE;     // 16-byte copies a stage
+  constexpr int W_CHUNKS = MM_BK * T::BN / 4;      // each of mu, sigma
+  static_assert(T::BM * T::BN * 8 <= MM_STAGES * STAGE,
+                "the epilogue's (mean, std) tile fits the ring");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;  // 32-row band, 16-column band
+  const int n0 = blockIdx.x * T::BN, m0 = blockIdx.y * T::BM;
+  const int nkt = (K + MM_BK - 1) / MM_BK;
+
+  // one stage: x[m0:+BM, k0:+32], mu and sigma[k0:+32, n0:+BN]; 16-byte
+  // copies, zero-filled outside (K % XE == 0 and N % 4 == 0: a copy lies
+  // wholly inside or wholly outside)
+  auto load = [&](int st, int kt) {
+    unsigned char* base = smem + st * STAGE;
+    XT* xs = reinterpret_cast<XT*>(base);
+    float* ms = reinterpret_cast<float*>(base + X_BYTES);
+    float* ss = reinterpret_cast<float*>(base + X_BYTES + W_BYTES);
+    const int k0 = kt * MM_BK;
+#pragma unroll
+    for (int i = tid; i < X_CHUNKS; i += MM_NT) {
+      const int r = i / (MM_BK / XE), col = (i % (MM_BK / XE)) * XE;
+      const int m = m0 + r, k = k0 + col;
+      const bool ok = m < M && k < K;
+      cp_async_16(xs + r * MM_XLD + col, ok ? x + (size_t)m * K + k : x, ok);
+    }
+#pragma unroll
+    for (int i = tid; i < W_CHUNKS; i += MM_NT) {
+      const int r = i / (T::BN / 4), col = (i % (T::BN / 4)) * 4;
+      const int k = k0 + r, n = n0 + col;
+      const bool ok = k < K && n < N;
+      const size_t at = ok ? (size_t)k * N + n : 0;
+      cp_async_16(ms + r * T::WLD + col, mu + at, ok);
+      cp_async_16(ss + r * T::WLD + col, sg + at, ok);
+    }
+  };
+
+  float am[2][2][4], av[2][2][4];  // running sums: [m tile][n tile][C]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) am[i][j][e] = av[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < MM_STAGES - 1; ++st) {
+    if (st < nkt) load(st, st);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<MM_STAGES - 2>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt - 1
+    if (kt + MM_STAGES - 1 < nkt)
+      load((kt + MM_STAGES - 1) % MM_STAGES, kt + MM_STAGES - 1);
+    cp_async_commit();
+    const unsigned char* base = smem + (kt % MM_STAGES) * STAGE;
+    const XT* xs = reinterpret_cast<const XT*>(base);
+    const float* ms = reinterpret_cast<const float*>(base + X_BYTES);
+    const float* ss = reinterpret_cast<const float*>(base + X_BYTES + W_BYTES);
+    float pm[2][2][4], pv[2][2][4];  // this tile's partial sums
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pm[i][j][e] = pv[i][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < MM_BK; kk += 8) {
+      // A (x and x*x): a[h] = (row g + 8h, logical k t) at column kk + 2t,
+      // a[h + 2] = (row g + 8h, logical k t + 4) at column kk + 2t + 1
+      uint32_t xh[2][4], xl[2][4], qh[2][4], ql[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = wm * 32 + i * 16 + g + 8 * h;
+          const float2 v = pair_f32(xs + r * MM_XLD + kk + 2 * t);
+          split_tf32(v.x, xh[i][h], xl[i][h]);
+          split_tf32(v.y, xh[i][h + 2], xl[i][h + 2]);
+          split_tf32(__fmul_rn(v.x, v.x), qh[i][h], ql[i][h]);
+          split_tf32(__fmul_rn(v.y, v.y), qh[i][h + 2], ql[i][h + 2]);
+        }
+      // B (mu and sigma^2): b[h] = (logical k t + 4h, column g) at row
+      // kk + 2t + h
+      uint32_t wh[2][2], wl[2][2], sh[2][2], sl[2][2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = (kk + 2 * t + h) * T::WLD + wn * 16 + j * 8 + g;
+          const float sd = ss[at];  // squared unfused, as the plain version
+          split_tf32(ms[at], wh[j][h], wl[j][h]);
+          split_tf32(__fmul_rn(sd, sd), sh[j][h], sl[j][h]);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          mma_tf32(pm[i][j], xl[i], wh[j]);
+          mma_tf32(pm[i][j], xh[i], wl[j]);
+          mma_tf32(pm[i][j], xh[i], wh[j]);
+          mma_tf32(pv[i][j], ql[i], sh[j]);
+          mma_tf32(pv[i][j], qh[i], sl[j]);
+          mma_tf32(pv[i][j], qh[i], sh[j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          am[i][j][e] += pm[i][j][e];
+          av[i][j][e] += pv[i][j][e];
+        }
+  }
+
+  // the epilogue.  Each lane's C fragments (rows g and g + 8, columns 2t
+  // and 2t + 1 of each 16 x 8 tile) go to shared memory as (mean, std)
+  // pairs; then one loop over column pairs, not unrolled, draws or reads
+  // the S variates and stores: a single copy of the Philox code (the
+  // instruction cache holds it) and whole 128-byte rows a warp.
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+  float2* ep = reinterpret_cast<float2*>(smem);  // [BM][BN] (mean, std)
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = av[i][j][2 * h + c];
+          ep[(wm * 32 + i * 16 + g + 8 * h) * T::BN + wn * 16 + j * 8 +
+             2 * t + c] = make_float2(am[i][j][2 * h + c],
+                                      sqrtf(v < 0.f ? 0.f : v));  // NaN stays
+        }
+  __syncthreads();
+#pragma unroll 1
+  for (int idx = tid; idx < T::BM * T::BN / 2; idx += MM_NT) {
+    const int r = idx / (T::BN / 2), c = 2 * (idx % (T::BN / 2));
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;  // N even: n + 1 < N too
+    const float4 e = *reinterpret_cast<const float4*>(ep + r * T::BN + c);
+    for (int q = 0; 4 * q < S; ++q) {
+      float z0[4], z1[4];
+      if (xi) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float2 v = make_float2(0.f, 0.f);
+          if (4 * q + k < S)
+            v = pair_f32(xi + ((size_t)(4 * q + k) * M + m) * N + n);
+          z0[k] = v.x;
+          z1[k] = v.y;
+        }
+      } else {
+        const float4 a = repro::philox_normal4(
+            (uint32_t)n, (uint32_t)m, (uint32_t)q, TAG_LRT, seed);
+        const float4 b = repro::philox_normal4(
+            (uint32_t)(n + 1), (uint32_t)m, (uint32_t)q, TAG_LRT, seed);
+        z0[0] = a.x, z0[1] = a.y, z0[2] = a.z, z0[3] = a.w;
+        z1[0] = b.x, z1[1] = b.y, z1[2] = b.z, z1[3] = b.w;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * q + k < S)
+          *reinterpret_cast<float2*>(y + ((size_t)(4 * q + k) * M + m) * N +
+                                     n) =
+              make_float2(fmaf(e.y, z0[k], e.x), fmaf(e.w, z1[k], e.z));
+    }
+  }
+}
+
+template <typename XT, int WM>
+int launch_lrt_mma_tile(const XT* x, const float* mu, const float* sigma,
+                        const float* xi, int S, uint32_t seed, float* y,
+                        int M, int K, int N, cudaStream_t st) {
+  using T = MmaTile<WM>;
+  constexpr int smem = mma_smem_bytes<XT, WM>();
+  static bool attr_set = false;  // once per instantiation, before any capture
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lrt_gemm_mma<XT, WM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  lrt_gemm_mma<XT, WM><<<grid, MM_NT, smem, st>>>(x, mu, sigma, xi, S, seed,
+                                                   y, M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// the least block rows that cover M: 32 x 128, 64 x 64 or 128 x 32 tiles
+template <typename XT>
+int launch_lrt_mma(const XT* x, const float* mu, const float* sigma,
+                   const float* xi, int S, uint32_t seed, float* y, int M,
+                   int K, int N, cudaStream_t st) {
+  if (M <= 32)
+    return launch_lrt_mma_tile<XT, 1>(x, mu, sigma, xi, S, seed, y, M, K, N,
+                                      st);
+  if (M <= 64)
+    return launch_lrt_mma_tile<XT, 2>(x, mu, sigma, xi, S, seed, y, M, K, N,
+                                      st);
+  return launch_lrt_mma_tile<XT, 4>(x, mu, sigma, xi, S, seed, y, M, K, N,
+                                    st);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 bool bad_shape(int M, int K, int N) {
   return M < 1 || K < 1 || N < 1 || (N + BN2 - 1) / BN2 > 65535;
@@ -389,17 +693,33 @@ extern "C" int repro_bayes_matmul_sampled(const float* x, const float* mu,
 
 // The LRT GEMM: x (M, K) float32 (x_bf16 = 0) or bfloat16 (x_bf16 = 1),
 // mu/sigma (K, N) float32, y (S, M, N) float32, all contiguous; xi is
-// (S, M, N) or null (the in-kernel TAG_LRT stream keyed by seed).  Returns
-// cudaGetLastError() after the launch (0 = launched).
+// (S, M, N) or null (the in-kernel TAG_LRT stream keyed by seed).  route 1
+// runs lrt_gemm_mma and refuses (cudaErrorInvalidValue, nothing launched) a
+// call whose operands do not all start on a 16-byte boundary or whose K is
+// not a multiple of 4 (f32 x) or 8 (bf16 x) or N of 4; route 0 runs
+// lrt_gemm_stream.  Returns cudaGetLastError() after the launch (0 =
+// launched).
 extern "C" int repro_lrt_matmul(const void* x, int x_bf16, const float* mu,
                                 const float* sigma, const float* xi, int S,
                                 uint32_t seed, float* y, int M, int K, int N,
-                                void* stream) {
-  if (M < 1 || K < 1 || N < 1 || S < 1 || S > MAX_LRT_SAMPLES)
+                                int route, void* stream) {
+  if (M < 1 || K < 1 || N < 1 || S < 1 || S > MAX_LRT_SAMPLES ||
+      (route != 0 && route != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!aligned16(x) || !aligned16(mu) || !aligned16(sigma) ||
+        !aligned16(xi) || !aligned16(y) || K % (x_bf16 ? 8 : 4) || N % 4)
+      return (int)cudaErrorInvalidValue;
+    if (x_bf16)
+      return launch_lrt_mma((const __nv_bfloat16*)x, mu, sigma, xi, S, seed,
+                            y, M, K, N, st);
+    return launch_lrt_mma((const float*)x, mu, sigma, xi, S, seed, y, M, K, N,
+                          st);
+  }
   if (x_bf16)
-    return launch_lrt((const __nv_bfloat16*)x, mu, sigma, xi, S, seed, y, M,
-                      K, N, st);
-  return launch_lrt((const float*)x, mu, sigma, xi, S, seed, y, M, K, N, st);
+    return launch_lrt_stream((const __nv_bfloat16*)x, mu, sigma, xi, S, seed,
+                             y, M, K, N, st);
+  return launch_lrt_stream((const float*)x, mu, sigma, xi, S, seed, y, M, K,
+                           N, st);
 }

@@ -1,7 +1,8 @@
-// Warp-level bf16 tensor-core tile helpers (sm_80 and later; built for
-// sm_90a): mma.sync m16n8k16, ldmatrix, 16-byte cp.async, the packing of
-// f32 C fragments into bf16 A fragments (rounded once, or split into three
-// bf16 parts), and row reductions over a quad.
+// Warp-level tensor-core tile helpers (sm_80 and later; built for
+// sm_90a): bf16 mma.sync m16n8k16, ldmatrix, 16-byte cp.async, the packing
+// of f32 C fragments into bf16 A fragments (rounded once, or split into
+// three bf16 parts), row reductions over a quad, and tf32 mma.sync m16n8k8
+// with the split of an f32 value into two tf32 parts (3xTF32).
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), with g = lane / 4 (the lane's group) and t = lane % 4
@@ -116,6 +117,41 @@ __device__ __forceinline__ void c_to_a_split3(uint32_t (&hi)[4],
   split3_bf16(c0[2], c0[3], hi[1], mid[1], lo[1]);  // row g+8, cols 2t, 2t+1
   split3_bf16(c1[0], c1[1], hi[2], mid[2], lo[2]);  // row g,   cols 2t+8, +9
   split3_bf16(c1[2], c1[3], hi[3], mid[3], lo[3]);  // row g+8, cols 2t+8, +9
+}
+
+// Fragment layouts of mma.m16n8k8 with tf32 operands (PTX ISA, "Matrix
+// fragments for mma.m16n8k8"), g and t as above, one tf32 per b32:
+//   A, 16 x 8 row-major:  a[0] = (row g, col t)
+//                         a[1] = (row g + 8, col t)
+//                         a[2] = (row g, col t + 4)
+//                         a[3] = (row g + 8, col t + 4)
+//   B, 8 x 8 (k x n):     b[0] = (k t, col g)   b[1] = (k t + 4, col g)
+//   C and D: as for m16n8k16.
+// The products of tf32 values are exact in f32; the tensor core adds them
+// and the accumulator in f32.
+
+// d += a * b for one 16 x 8 x 8 tile of tf32 operands, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// v as hi + lo for 3xTF32.  hi is v rounded to tf32 (10 mantissa bits, to
+// nearest, ties away from zero: half an ulp added to the magnitude, the
+// low 13 bits cleared, as cvt.rna.tf32.f32 rounds); lo = v - hi, exact in
+// f32, goes to the tensor core whole: an mma reads a tf32 operand's top 19
+// bits, so it takes lo truncated to tf32.  Three instructions, where
+// cvt.rna.tf32.f32 is a sequence of several with its own NaN checks.  A
+// NaN v may wrap hi to a zero or an infinity, but lo = v - hi is NaN, so
+// every product with v is NaN.  hi*hi' + hi*lo' + lo*hi' holds a product
+// to about 2^-21 of itself, where hi*hi' alone holds it to 2^-11 only.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
 }
 
 // max and sum over the four lanes of a quad (one row of a C fragment)

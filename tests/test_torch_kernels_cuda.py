@@ -366,24 +366,51 @@ def _lrt(seed, M, K, N, S):
     return x, mu, sg, xi
 
 
+# route "auto" takes lrt_route's kernel: the tensor-core kernel at
+# (128, 1024, 300), (130, 1000, 4100) and (64, 72, 36), ragged edges
+# included; "stream" forces the streaming kernel at every shape
+@pytest.mark.parametrize("route", ["auto", "stream"])
 @pytest.mark.parametrize("M,K,N", [(33, 70, 17), (4, 1536, 1000),
-                                   (128, 1024, 300), (1, 9, 7), (9, 65, 129)])
-def test_cuda_lrt_matmul_matches_plain(cuda_device, M, K, N):
+                                   (128, 1024, 300), (1, 9, 7), (9, 65, 129),
+                                   (130, 1000, 4100), (64, 72, 36)])
+def test_cuda_lrt_matmul_matches_plain(cuda_device, route, M, K, N):
     x, mu, sg, xi = _lrt(M + K, M, K, N, 1)
+    r = None if route == "auto" else route
     for xx in (x, x.to(torch.bfloat16)):
-        _rel_close(BM.lrt_matmul_cuda(xx, mu, sg, xi[0]),
+        _rel_close(BM.lrt_matmul_cuda(xx, mu, sg, xi[0], route=r),
                    BM.lrt_matmul_plain(xx, mu, sg, xi[0]))
 
 
+@pytest.mark.parametrize("route", ["auto", "stream"])
 @pytest.mark.parametrize("S", [1, 4, 10, 37])
-@pytest.mark.parametrize("M,K,N", [(33, 70, 17), (16, 171, 300)])
-def test_cuda_lrt_matmul_sampled_matches_plain(cuda_device, S, M, K, N):
+@pytest.mark.parametrize("M,K,N", [(33, 70, 17), (16, 171, 300),
+                                   (130, 1000, 4100), (64, 72, 36)])
+def test_cuda_lrt_matmul_sampled_matches_plain(cuda_device, route, S, M, K,
+                                               N):
     x, mu, sg, xi = _lrt(S + M, M, K, N, S)
+    r = None if route == "auto" else route
     for kw in ({"xi": xi}, {"seed": 9}):
-        got = BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=S, **kw)
+        got = BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=S, route=r,
+                                         **kw)
         want = BM.lrt_matmul_sampled_plain(x, mu, sg, num_samples=S, **kw)
         assert got.shape == (S, M, N)
         _rel_close(got, want)
+
+
+def test_cuda_lrt_routes_agree_on_the_seeded_stream(cuda_device):
+    """Both kernels draw the TAG_LRT stream of a seed at the same
+    elements: the same seed gives the same samples within the rule, and
+    the tensor-core kernel matches the plain version of its own 3xTF32
+    arithmetic."""
+    x, mu, sg, _ = _lrt(5, 130, 1000, 4100, 1)
+    for xx in (x, x.to(torch.bfloat16)):
+        assert BM.lrt_route(130, 1000, 4100, xx, mu, sg) == "mma"
+        mma = BM.lrt_matmul_sampled_cuda(xx, mu, sg, num_samples=10, seed=3)
+        stream = BM.lrt_matmul_sampled_cuda(xx, mu, sg, num_samples=10,
+                                            seed=3, route="stream")
+        _rel_close(mma, stream, tol=1e-5)
+        _rel_close(mma, BM.lrt_matmul_sampled_plain(
+            xx, mu, sg, num_samples=10, seed=3, split="tf32x3"), tol=1e-5)
 
 
 def test_cuda_seeded_lrt_is_deterministic_and_counts_launches(cuda_device):
@@ -602,6 +629,24 @@ def test_cuda_lm_wrappers_refuse_bad_operands(cuda_device):
         BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=0)
     with pytest.raises(ValueError):
         BM.lrt_matmul_sampled_cuda(x, mu, sg, num_samples=3, xi=xi[:2])
+    with pytest.raises(ValueError):
+        BM.lrt_matmul_cuda(x, mu, sg, xi[0], route="wgmma")
+    # an operand one float off a 16-byte boundary: the route sends the
+    # call to the streaming kernel, and the tensor-core kernel, forced,
+    # refuses it (the wrapper raises) rather than fault
+    M, K, N = 64, 72, 36
+    x, mu, sg, xi = _lrt(2, M, K, N, 1)
+    flat = torch.zeros(M * K + 1, device=cuda_device)
+    xm = flat[1:].view(M, K)
+    xm.copy_(x)
+    assert BM.lrt_route(M, K, N, x, mu, sg, xi) == "mma"
+    assert BM.lrt_route(M, K, N, xm, mu, sg, xi) == "stream"
+    _rel_close(BM.lrt_matmul_cuda(xm, mu, sg, xi[0]),
+               BM.lrt_matmul_plain(x, mu, sg, xi[0]))
+    with pytest.raises(RuntimeError):
+        BM.lrt_matmul_cuda(xm, mu, sg, xi[0], route="mma")
+    with pytest.raises(RuntimeError):                    # K % 4 != 0
+        BM.lrt_matmul_cuda(x[:, :70], mu[:70], sg[:70], xi[0], route="mma")
     hx, hmu, hsg, hxi = (t.to(cuda_device) for t in _head(1, 4, 16, 50, 3))
     with pytest.raises(ValueError):
         UH.uncertainty_head_two_pass_cuda(hx, hmu, hsg, hxi[:, :2])
