@@ -10,9 +10,10 @@ Phases (any failure exits non-zero before the result line):
   3. kernels: each kernel against its plain PyTorch version on the card at
      its path's shapes, with the stated tolerances; the kernel's and the
      library yardstick's device times (CUDA graph replay), the plain
-     version's wall time, and the least time the card could take.  Flash
-     attention's and prefill attention's tensor-core and SIMT kernels are
-     each checked, the route of every case asserted.
+     version's wall time, and the least time the card could take.  The
+     tensor-core and SIMT kernels of flash attention, prefill attention,
+     the LRT GEMMs and the weight-space GEMMs are each checked, the route
+     of every case asserted, with route sweeps for the two GEMM families.
   4. serve: qwen2-1.5B at full width (28 layers, d 1536, bf16 body, f32
      Bayesian head over V = 151936, S = 10 draws), random weights from a
      seed, paged KV + kernel decode attention + chunked prefill + kernel
@@ -595,96 +596,177 @@ def gemm_case(dev, M, K, N, seed=6):
     return x, mu, sg, g
 
 
-def check_gemms(dev, M, K, N, S, r0, r1, seed) -> tuple[float, float]:
-    """Both GEMM kernels against their plain versions at one shape: the
-    single draw, the S-sample GEMM with an explicit (S, K, N) eps and with
-    the seeded stream; rows r0 and r1 (in different 64-row blocks) hold
-    the same x, so they must see the same W_s.  Returns the worst errors
-    of the single draw and of the sampled GEMM."""
+# the weight-space GEMMs' cases: bench_kernels' dense layer (one row block
+# of either kernel), a case with rows in two blocks of the tensor-core
+# kernel's tile, and the im2col conv of the paper phase (K 171: x rows off
+# 16-byte boundaries); (M, K, N, S, rows given the same x, or None)
+BAYES_CASES = ((128, 1024, 4096, 10, None),
+               (300, 1024, 512, 10, (3, 200)),
+               (800 * 14 * 14, 19 * 9, 32, 10, (5, 100_005)))
+# the route sweep: rows at S 10, and samples at M 128 (K 1024, N 4096)
+BAYES_SWEEP_ROWS = (8, 16, 32, 64, 128)
+BAYES_SWEEP_SAMPLES = (1, 4, 10, 16)
+
+
+def check_gemms(dev, M, K, N, S, rows, seed) -> dict:
+    """Both weight-space entry points against their plain versions at one
+    shape, through each kernel (the route's, asserted "mma", and the SIMT
+    kernel forced): the single draw, the S-sample GEMM with an explicit
+    (S, K, N) eps and with the seeded stream.  ``rows`` (r0, r1) hold the
+    same x and lie in different row blocks of each kernel's tile, so they
+    must see the same W_s.  Returns the worst errors by entry point."""
     BM = kernel_module("bayes_matmul")
     from repro_torch.kernels import ref
 
     x, mu, sg, g = gemm_case(dev, M, K, N, seed)
-    x[r1] = x[r0]
+    if rows:
+        x[rows[1]] = x[rows[0]]
     eps = torch.randn((K, N), generator=g, device=dev)
     eps_s = torch.randn((S, K, N), generator=g, device=dev)
-    e1 = rel_check(f"bayes_matmul M={M}", BM.bayes_matmul_cuda(
-        x, mu, sg, eps), ref.bayes_matmul(x, mu, sg, eps))
-    e2 = rel_check(f"bayes_matmul_sampled eps M={M}",
-                   BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=S,
-                                                eps=eps_s),
-                   BM.bayes_matmul_sampled_plain(x, mu, sg, num_samples=S,
-                                                 eps=eps_s))
-    got = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=S, seed=11)
-    e3 = rel_check(f"bayes_matmul_sampled seeded M={M}", got,
-                   BM.bayes_matmul_sampled_plain(x, mu, sg, num_samples=S,
-                                                 seed=11))
-    if not torch.equal(got[:, r0], got[:, r1]):
-        fail(f"bayes_matmul_sampled M={M}: identical rows {r0} and {r1} saw "
-             "different W_s")
-    print(f"  bayes GEMMs M={M} K={K} N={N} S={S}: ok (max |err| {e1:.3g}, "
-          f"{e2:.3g}, {e3:.3g}; rows {r0} and {r1} share W_s)", flush=True)
-    return e1, max(e2, e3)
+    for e, s in ((eps, 1), (eps_s, S), (None, S)):
+        route = BM.bayes_route(M, K, N, s, x, mu, sg, e)
+        if route != "mma":
+            fail(f"bayes GEMMs M={M} K={K} N={N}: bayes_route gave {route!r}")
+    want1 = ref.bayes_matmul(x, mu, sg, eps)
+    want2 = BM.bayes_matmul_sampled_plain(x, mu, sg, num_samples=S,
+                                          eps=eps_s)
+    want3 = BM.bayes_matmul_sampled_plain(x, mu, sg, num_samples=S, seed=11)
+    worst = {"bayes_matmul": 0.0, "bayes_matmul_sampled": 0.0}
+    for route in BM.BAYES_ROUTES[::-1]:
+        tag = f"M={M} K={K} N={N} ({route})"
+        e1 = rel_check(f"bayes_matmul {tag}", BM.bayes_matmul_cuda(
+            x, mu, sg, eps, route=route), want1)
+        e2 = rel_check(f"bayes_matmul_sampled eps {tag}",
+                       BM.bayes_matmul_sampled_cuda(
+                           x, mu, sg, num_samples=S, eps=eps_s, route=route),
+                       want2)
+        got = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=S, seed=11,
+                                           route=route)
+        e3 = rel_check(f"bayes_matmul_sampled seeded {tag}", got, want3)
+        note = "one row block"
+        if rows:
+            r0, r1 = rows
+            tile = BM.BAYES_TILE_ROWS[route]
+            if r0 // tile == r1 // tile:
+                fail(f"bayes {tag}: rows {r0} and {r1} share a {tile}-row "
+                     "block")
+            if not torch.equal(got[:, r0], got[:, r1]):
+                fail(f"bayes_matmul_sampled {tag}: identical rows {r0} and "
+                     f"{r1} saw different W_s")
+            note = (f"rows {r0} and {r1}, in {tile}-row blocks "
+                    f"{r0 // tile} and {r1 // tile}, share W_s")
+        ymax = float(want3.abs().max())
+        print(f"  bayes GEMMs {tag} S={S}: ok (max |err| {e1:.3g}, {e2:.3g}, "
+              f"{e3:.3g}; the seeded GEMM's {e3 / ymax:.3g} of max |y|; "
+              f"{note})", flush=True)
+        worst["bayes_matmul"] = max(worst["bayes_matmul"], e1)
+        worst["bayes_matmul_sampled"] = max(worst["bayes_matmul_sampled"],
+                                            e2, e3)
+    return worst
+
+
+def bayes_times(dev, M, K, N, S, seed) -> dict:
+    """Device times at one shape: each entry point through the tensor-core
+    kernel (route asserted), the SIMT kernel forced on the same inputs, and
+    ``torch.matmul`` on W formed beforehand; the bounds of both entry
+    points (the sampled GEMM's seeded draws counted once per variate)."""
+    BM = kernel_module("bayes_matmul")
+    x, mu, sg, g = gemm_case(dev, M, K, N, seed)
+    eps = torch.randn((K, N), generator=g, device=dev)
+    eps_s = torch.randn((S, K, N), generator=g, device=dev)
+    w, w_s = mu + sg * eps, mu + sg * eps_s
+    calls = 10 if M <= 4096 else 3
+    t = {"matmul": device_ms(lambda: torch.matmul(x, w), calls),
+         "matmul_s": device_ms(lambda: torch.matmul(x, w_s), calls)}
+    for r in BM.BAYES_ROUTES:
+        t[f"single {r}"] = device_ms(lambda: BM.bayes_matmul_cuda(
+            x, mu, sg, eps, route=r), calls)
+        t[f"seeded {r}"] = device_ms(lambda: BM.bayes_matmul_sampled_cuda(
+            x, mu, sg, num_samples=S, seed=3, route=r), calls)
+        t[f"eps {r}"] = device_ms(lambda: BM.bayes_matmul_sampled_cuda(
+            x, mu, sg, num_samples=S, eps=eps_s, route=r), calls)
+    t["b1"] = gemm_bound((M * K + 3 * K * N + M * N) * 4,
+                         2.0 * M * K * N + 2.0 * K * N)
+    t["b2"] = gemm_bound((M * K + 2 * K * N + S * M * N) * 4,
+                         2.0 * S * M * K * N + 2.0 * S * K * N,
+                         philox_calls=K * N * -(-S // 4))
+    tile = BM.BAYES_TILE_ROWS["mma"]
+    draws = -(-M // tile) * K * N * -(-S // 4)
+    print(f"  bayes GEMMs timed M={M} K={K} N={N} S={S} (ms): bayes_matmul "
+          f"mma {t['single mma']:.4f}, SIMT {t['single simt']:.4f}, "
+          f"torch.matmul {t['matmul']:.4f}, bound {t['b1'][0]:.4f} "
+          f"({t['b1'][2]}); bayes_matmul_sampled seeded mma "
+          f"{t['seeded mma']:.4f}, SIMT {t['seeded simt']:.4f}, explicit eps "
+          f"mma {t['eps mma']:.4f}, SIMT {t['eps simt']:.4f}, torch.matmul "
+          f"{t['matmul_s']:.4f}, bound {t['b2'][0]:.4f} ({t['b2'][2]}); "
+          f"the tensor-core kernel's {draws:.4g} Philox calls (each of "
+          f"{-(-M // tile)} row blocks draws its variates) take "
+          f"{draws * PHILOX_INT_OPS / INT32_OPS * 1e3:.4f} ms at the int32 "
+          "peak", flush=True)
+    return t
+
+
+def bayes_route_sweep(dev) -> None:
+    """Both weight-space kernels, forced, at the rows and sample counts
+    around ``BAYES_MMA_MIN_ROWS`` (K 1024, N 4096): the measurement the
+    threshold is set from (device ms of the seeded S-sample GEMM and of
+    the single draw).  The tensor-core kernel's seeded GEMM is held to the
+    plain version at each point."""
+    BM = kernel_module("bayes_matmul")
+    K, N = 1024, 4096
+    points = [(M, 10) for M in BAYES_SWEEP_ROWS] + [
+        (128, S) for S in BAYES_SWEEP_SAMPLES if S != 10]
+    cells = []
+    for M, S in points:
+        x, mu, sg, g = gemm_case(dev, M, K, N, seed=20)
+        eps = torch.randn((K, N), generator=g, device=dev)
+        seeded = lambda r: BM.bayes_matmul_sampled_cuda(  # noqa: E731
+            x, mu, sg, num_samples=S, seed=4, route=r)
+        rel_check(f"bayes_matmul_sampled M={M} S={S} (mma, forced)",
+                  seeded("mma"), BM.bayes_matmul_sampled_plain(
+                      x, mu, sg, num_samples=S, seed=4))
+        t = {r: device_ms(lambda: seeded(r), 3) for r in BM.BAYES_ROUTES}
+        cell = (f"M {M} S {S}: seeded simt {t['simt']:.4f} mma "
+                f"{t['mma']:.4f}")
+        if S == 10:
+            t1 = {r: device_ms(lambda: BM.bayes_matmul_cuda(
+                x, mu, sg, eps, route=r), 3) for r in BM.BAYES_ROUTES}
+            cell += f", one draw simt {t1['simt']:.4f} mma {t1['mma']:.4f}"
+        cells.append(cell)
+    print(f"  bayes route sweep K={K} N={N} (ms; BAYES_MMA_MIN_ROWS "
+          f"{BM.BAYES_MMA_MIN_ROWS}): " + "; ".join(cells), flush=True)
 
 
 def check_bayes(dev) -> tuple[dict, dict]:
-    BM = kernel_module("bayes_matmul")
+    """Both weight-space entry points: every case of ``BAYES_CASES``
+    through both kernels, timed at bench_kernels' shape (the table's rows)
+    and at the im2col shape, the route sweep, and the tensor-core kernel's
+    HMMA count."""
     from repro_torch.kernels import ref
 
-    M, K, N, S = 128, 1024, 4096, 10
-    e1, e2 = check_gemms(dev, M, K, N, S, 5, 77, seed=7)
-    # the im2col shape of the paper phase: 2,450 row blocks, ragged K
-    Mi, Ki, Ni = 800 * 14 * 14, 19 * 9, 32
-    e1i, e2i = check_gemms(dev, Mi, Ki, Ni, S, 5, 100_005, seed=9)
+    worst = {"bayes_matmul": 0.0, "bayes_matmul_sampled": 0.0}
+    for i, (M, K, N, S, rows) in enumerate(BAYES_CASES):
+        for k, e in check_gemms(dev, M, K, N, S, rows, seed=7 + i).items():
+            worst[k] = max(worst[k], e)
+    M, K, N, S, _ = BAYES_CASES[0]
+    t = bayes_times(dev, M, K, N, S, seed=6)
+    Mi, Ki, Ni, Si, _ = BAYES_CASES[-1]
+    bayes_times(dev, Mi, Ki, Ni, Si, seed=8)
+    BM = kernel_module("bayes_matmul")
     x, mu, sg, g = gemm_case(dev, M, K, N)
     eps = torch.randn((K, N), generator=g, device=dev)
-    eps_s = torch.randn((S, K, N), generator=g, device=dev)
-    w = mu + sg * eps
-    w_s = mu + sg * eps_s
-    b1 = gemm_bound((M * K + 3 * K * N + M * N) * 4,
-                    2.0 * M * K * N + 2.0 * K * N)
-    b2 = gemm_bound((M * K + 2 * K * N + S * M * N) * 4,
-                    2.0 * S * M * K * N + 2.0 * S * K * N,
-                    philox_calls=K * N * -(-S // 4))
     rows = (
-        {"max_abs_err": max(e1, e1i),
-         "ms": device_ms(lambda: BM.bayes_matmul_cuda(x, mu, sg, eps), 10),
+        {"max_abs_err": worst["bayes_matmul"], "ms": t["single mma"],
          "plain_ms": time_ms(lambda: ref.bayes_matmul(x, mu, sg, eps), 3),
-         "bound_ms": b1[0], "bound_by": b1[1],
-         "library_ms": device_ms(lambda: torch.matmul(x, w), 10)},
-        {"max_abs_err": max(e2, e2i),
-         "ms": device_ms(lambda: BM.bayes_matmul_sampled_cuda(
-             x, mu, sg, num_samples=S, seed=11), 10),
+         "bound_ms": t["b1"][0], "bound_by": t["b1"][1],
+         "library_ms": t["matmul"]},
+        {"max_abs_err": worst["bayes_matmul_sampled"], "ms": t["seeded mma"],
          "plain_ms": time_ms(lambda: BM.bayes_matmul_sampled_plain(
              x, mu, sg, num_samples=S, seed=11), 1, 0),
-         "bound_ms": b2[0], "bound_by": b2[1],
-         "library_ms": device_ms(lambda: torch.matmul(x, w_s), 10)})
-    eps_ms = device_ms(lambda: BM.bayes_matmul_sampled_cuda(
-        x, mu, sg, num_samples=S, eps=eps_s), 10)
-    for name, row, b in zip(("bayes_matmul", "bayes_matmul_sampled"), rows,
-                            (b1, b2)):
-        print(f"  {name}: {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} "
-              f"ms ({b[1]}: {b[2]}), plain {row['plain_ms']:.2f} ms, "
-              f"torch.matmul {row['library_ms']:.4f} ms", flush=True)
-    print(f"  bayes_matmul_sampled with the explicit (S, K, N) eps: "
-          f"{eps_ms:.4f} ms", flush=True)
-    # the im2col shape: 64-row blocks redraw every variate M/64 times
-    xi, mui, sgi, gi = gemm_case(dev, Mi, Ki, Ni, seed=8)
-    eps_i = torch.randn((S, Ki, Ni), generator=gi, device=dev)
-    t_seed = device_ms(lambda: BM.bayes_matmul_sampled_cuda(
-        xi, mui, sgi, num_samples=S, seed=3), 5)
-    t_eps = device_ms(lambda: BM.bayes_matmul_sampled_cuda(
-        xi, mui, sgi, num_samples=S, eps=eps_i), 5)
-    blocks = -(-Mi // 64)
-    bi = gemm_bound((Mi * Ki + 2 * Ki * Ni + S * Mi * Ni) * 4,
-                    2.0 * S * Mi * Ki * Ni, philox_calls=Ki * Ni * -(-S // 4))
-    redraw = blocks * Ki * Ni * -(-S // 4)
-    print(f"  bayes_matmul_sampled im2col shape M={Mi} K={Ki} N={Ni}: "
-          f"in-kernel {t_seed:.4f} ms, explicit eps {t_eps:.4f} ms, bound "
-          f"{bi[0]:.4f} ms ({bi[1]}: {bi[2]}); {blocks} row blocks redraw "
-          f"{redraw:.3g} Philox calls = "
-          f"{redraw * PHILOX_INT_OPS / INT32_OPS * 1e3:.4f} ms of integer "
-          f"work at peak", flush=True)
+         "bound_ms": t["b2"][0], "bound_by": t["b2"][1],
+         "library_ms": t["matmul_s"]})
+    bayes_route_sweep(dev)
+    print(f"  {hmma_counts('bayes_matmul', 'bayes_gemm_mma')}", flush=True)
     return rows
 
 

@@ -21,14 +21,22 @@ the CUDA kernels and their plain PyTorch versions (counterpart of
     (seed, 0) with one counter per (n, m, s // 4): the draw depends on the
     output element alone.
 
-The weight-space kernels are f32 GEMMs on the CUDA cores (no tensor
-cores, no TF32); bf16 operands are converted to f32 here, before the
-launch.  The LRT GEMMs have two kernels, chosen by ``lrt_route`` from
-shape, type and alignment (never by failure): ``lrt_gemm_mma``, 3xTF32
-tensor-core tiles (each operand split as hi + lo in tf32, three products
-per GEMM), for at least ``LRT_MMA_MIN_ROWS`` rows; ``lrt_gemm_stream``, a
-thread per output column streaming mu and sigma, for everything else
-(the head's M 4).  Both read x as f32 or bf16 and mu/sigma as f32.  The
+The weight-space GEMMs have two kernels, chosen by ``bayes_route`` from
+shape, S and alignment (never by failure): ``bayes_gemm_mma``, 3xTF32
+tensor-core tiles that form each W_s tile once per 128-row block and
+split each x fragment once for all S samples, for at least
+``BAYES_MMA_MIN_ROWS`` rows with N % 4 == 0 and 16-byte aligned mu,
+sigma and eps (any K: x rows that are not 16-byte aligned, the im2col's
+K 171, are copied 4 bytes at a time); the SIMT kernels, f32 FMAs on the
+CUDA cores, for everything else.  The single draw is the S = 1 instance
+of the sampled GEMM.  bf16 operands are converted to f32 here, before the
+launch, and the route is taken on the f32 operands the kernel reads.
+The LRT GEMMs have two kernels, chosen by ``lrt_route`` from shape, type
+and alignment (never by failure): ``lrt_gemm_mma``, 3xTF32 tensor-core
+tiles (each operand split as hi + lo in tf32, three products per GEMM),
+for at least ``LRT_MMA_MIN_ROWS`` rows; ``lrt_gemm_stream``, a thread
+per output column streaming mu and sigma, for everything else (the
+head's M 4).  Both read x as f32 or bf16 and mu/sigma as f32.  The
 single draw's plain version is ``ref.bayes_matmul``.  The sampled GEMM's
 plain version below follows the kernel's loop — W_s formed per (bk, bn)
 tile, the variates drawn per tile from the element's own counter, row
@@ -36,9 +44,9 @@ blocks replayed — so masking and stream keying are checked on the CPU.
 Its tile sizes are arguments: the stream must not depend on them.  The
 LRT GEMMs' plain versions form the mean and variance GEMMs once and then
 draw the epilogue's variates per column tile, as the kernels do per
-column; ``split="tf32x3"`` (or ``"tf32"``, one pass) rounds the operands
-as the tensor-core kernel does.  ``ops.py`` picks the kernel or the plain
-version by the tensor's device.
+column.  Every plain version takes ``split="tf32x3"`` (or ``"tf32"``,
+one pass) to form its products as the tensor-core kernels do.
+``ops.py`` picks the kernel or the plain version by the tensor's device.
 """
 
 from __future__ import annotations
@@ -49,7 +57,16 @@ import torch
 
 from repro_torch.kernels import build, launches, rng
 
-MAX_SAMPLES = 16     # the fused kernel keeps S accumulators per output
+MAX_SAMPLES = 16     # the fused kernels keep S accumulators per output
+# the least M that takes the tensor-core weight-space kernel.  Its time is
+# flat below 128 rows (one row block; the draws set it), and it was the
+# faster kernel at every point of chip_smoke.py's route sweep (both
+# kernels at M 8-128 with S 10, and at S 1-16 with M 128)
+BAYES_MMA_MIN_ROWS = 1
+BAYES_ROUTES = ("simt", "mma")   # the C entry points' route argument
+# rows of a block's output tile in each weight-space kernel: rows in
+# different blocks draw their W_s separately, and must see the same one
+BAYES_TILE_ROWS = {"simt": 64, "mma": 128}
 MAX_LRT_SAMPLES = 1024   # the LRT kernels loop over S in their epilogue
 # the least M that takes the tensor-core LRT kernel.  Its time is flat
 # below 32 rows (one 32-row tile); the streaming kernel's doubles where
@@ -70,11 +87,13 @@ def bayes_matmul_sampled_plain(x: torch.Tensor, mu: torch.Tensor,
                                sigma: torch.Tensor, *, num_samples: int,
                                eps: torch.Tensor | None = None,
                                seed: int = 0, bm: int | None = None,
-                               bk: int = PLAIN_BK,
-                               bn: int = PLAIN_BN) -> torch.Tensor:
+                               bk: int = PLAIN_BK, bn: int = PLAIN_BN,
+                               split: str | None = None) -> torch.Tensor:
     """(S, M, N) f32.  eps=None draws each tile's variates from the
     TAG_BAYES stream keyed by seed, once per row block of ``bm`` rows
-    (all rows by default), as the kernel does."""
+    (all rows by default), as the kernels do.  ``split`` forms each tile's
+    x @ W_s from tf32 parts as the tensor-core kernel does (see
+    ``_split_matmul``); None is the f32 version."""
     x, mu, sigma = x.float(), mu.float(), sigma.float()
     M, K = x.shape
     N = mu.shape[1]
@@ -96,7 +115,8 @@ def bayes_matmul_sampled_plain(x: torch.Tensor, mu: torch.Tensor,
                 else:
                     e = eps[:, k0:k1, n0:n1].float()
                 w = mu[None, k0:k1, n0:n1] + sigma[None, k0:k1, n0:n1] * e
-                y[:, m0:m1, n0:n1] += x[None, m0:m1, k0:k1] @ w
+                y[:, m0:m1, n0:n1] += _split_matmul(x[None, m0:m1, k0:k1],
+                                                    w, split)
     return y
 
 
@@ -186,7 +206,7 @@ def _fn(name: str):
     fn = getattr(build.load("bayes_matmul"), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, ctypes.c_uint32, p, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, ctypes.c_uint32, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -221,33 +241,64 @@ def _operands(x, mu, sigma, eps, eps_shape):
                      for t in (x, mu, sigma, eps)]
 
 
-def _launch(kernel, xs, S, seed, y, M, K, N):
+def bayes_route(M: int, K: int, N: int, S: int, x: torch.Tensor,
+                mu: torch.Tensor, sigma: torch.Tensor,
+                eps: torch.Tensor | None = None) -> str:
+    """Which weight-space kernel a CUDA call launches, from the f32
+    contiguous operands the kernel reads: ``"mma"`` (3xTF32 tensor-core
+    tiles) where M is at least ``BAYES_MMA_MIN_ROWS``, 1 <= S <=
+    ``MAX_SAMPLES``, N a multiple of 4 and mu, sigma and eps start on
+    16-byte boundaries (the kernel's 16-byte ``cp.async`` copies of their
+    rows), else ``"simt"``.  K and x's alignment do not route: x rows off
+    a 16-byte boundary are copied 4 bytes at a time."""
+    if M < BAYES_MMA_MIN_ROWS or not 1 <= S <= MAX_SAMPLES or N % 4:
+        return "simt"
+    if any(t.data_ptr() % 16 for t in (mu, sigma, eps) if t is not None):
+        return "simt"
+    return "mma"
+
+
+def _launch(kernel, xs, S, seed, y, M, K, N, route):
+    """Launches the kernel of ``route`` (by default ``bayes_route``'s)
+    behind entry point ``kernel`` and counts it."""
     x, mu, sigma, eps = xs
+    if route is None:
+        route = bayes_route(M, K, N, S, x, mu, sigma, eps)
+    elif route not in BAYES_ROUTES:
+        raise ValueError(f"route must be one of {BAYES_ROUTES}, got "
+                         f"{route!r}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _fn(f"repro_{kernel}")(
             x.data_ptr(), mu.data_ptr(), sigma.data_ptr(),
             eps.data_ptr() if eps is not None else None, S, seed,
-            y.data_ptr(), M, K, N, stream)
+            y.data_ptr(), M, K, N, BAYES_ROUTES.index(route), stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{kernel} kernel launch failed ({route} route): "
+                           f"CUDA error {rc}")
     launches.COUNTS[kernel] += 1
     return y
 
 
-def bayes_matmul_cuda(x, mu, sigma, eps) -> torch.Tensor:
-    """One draw with an explicit (K, N) eps -> (M, N) f32."""
+def bayes_matmul_cuda(x, mu, sigma, eps, *,
+                      route: str | None = None) -> torch.Tensor:
+    """One draw with an explicit (K, N) eps -> (M, N) f32.  ``route``
+    ("simt" or "mma") overrides ``bayes_route``, for tests and
+    ``chip_smoke.py`` only; "mma" on operands the kernel does not take
+    raises."""
     M, K, N, xs = _operands(x, mu, sigma, eps, lambda k, n: (k, n))
     if xs[3] is None:
         raise ValueError("bayes_matmul needs an explicit eps")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    return _launch("bayes_matmul", xs, 1, 0, y, M, K, N)
+    return _launch("bayes_matmul", xs, 1, 0, y, M, K, N, route)
 
 
 def bayes_matmul_sampled_cuda(x, mu, sigma, *, num_samples: int,
-                              eps=None, seed: int = 0) -> torch.Tensor:
-    """S draws in one pass -> (S, M, N) f32; eps (S, K, N) or
-    None for the in-kernel TAG_BAYES stream keyed by seed."""
+                              eps=None, seed: int = 0,
+                              route: str | None = None) -> torch.Tensor:
+    """S draws in one pass -> (S, M, N) f32; eps (S, K, N) or None for
+    the in-kernel TAG_BAYES stream keyed by seed.  ``route`` as for
+    ``bayes_matmul_cuda``."""
     S = num_samples
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"num_samples must be in [1, {MAX_SAMPLES}], got "
@@ -256,7 +307,7 @@ def bayes_matmul_sampled_cuda(x, mu, sigma, *, num_samples: int,
         raise ValueError(f"seed must be 32-bit unsigned, got {seed}")
     M, K, N, xs = _operands(x, mu, sigma, eps, lambda k, n: (S, k, n))
     y = torch.empty((S, M, N), dtype=torch.float32, device=x.device)
-    return _launch("bayes_matmul_sampled", xs, S, seed, y, M, K, N)
+    return _launch("bayes_matmul_sampled", xs, S, seed, y, M, K, N, route)
 
 
 def lrt_route(M: int, K: int, N: int, x: torch.Tensor, mu: torch.Tensor,

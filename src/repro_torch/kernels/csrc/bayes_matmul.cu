@@ -13,31 +13,71 @@
 //   bayes_matmul          y = x @ W,  W = mu + sigma * eps,  eps (K, N)
 //   bayes_matmul_sampled  y_s = x @ W_s, W_s = mu + sigma * eps_s, s < S,
 //                         eps (S, K, N) or the TAG_BAYES Philox stream
-// in float32 on the CUDA cores: no tensor cores, no TF32.  W is formed
-// with __fmul_rn / __fadd_rn, so it equals the plain version's W bit for
-// bit; the products accumulate with FMA in K order within a thread.
+// W is formed in f32 with __fmul_rn / __fadd_rn, so it equals the plain
+// version's W bit for bit.  The in-kernel variates are keyed by the weight
+// element alone, counter (n, k, s / 4, TAG_BAYES) with four normals per
+// Philox call, so every row block draws the SAME W_s (one sampled weight
+// matrix per sample, as repro/kernels/bayes_matmul.py:186-189 requires).
+// The single draw is the S = 1 instance of the sampled GEMM with an
+// explicit eps: a (K, N) eps has the layout of a (1, K, N) one.  Two kernel
+// families serve both entry points, chosen by the caller from shape, S and
+// alignment (bayes_matmul.py::bayes_route), never by failure.
 //
-// What bounds it: at the benchmark shape (M 128, K 1024, N 4096) the
-// single draw moves mu, sigma and eps (three K x N operands, 50 MB) for
-// 2*M*K*N flops: near the card's f32 line, so bytes and f32 operations
-// bound it about equally.  The sampled kernel reads mu/sigma ONCE for all
-// S samples (the TPU kernel's point) and forms every W_s tile in shared
-// memory from that one read, so its bound is the S-fold f32 work.
+// bayes_gemm_mma (M >= BAYES_MMA_MIN_ROWS, N % 4 == 0, mu, sigma and eps on
+// 16-byte boundaries; any K and any x).  What bounds it: at bench_kernels'
+// shape (M 128, K 1024, N 4096, S 10) the S products, 10.7 GFLOP that must
+// be f32-accurate (chip_smoke.py holds them to 1e-4 of max |y|): 0.160 ms on
+// the CUDA cores at their peak, 0.065 ms as three TF32 products on the
+// tensor cores; and the in-kernel draws, 12.6 M Philox calls when each
+// variate is drawn once, 0.075 ms at the int32 peak.  The single draw is
+// bound by reading mu, sigma and eps (50 MB, 0.0158 ms).  Design: a block
+// of 16 warps owns all S samples of a 128 x 16 output tile: 4 warps along
+// M (32 rows each) x 2 along N (8 columns each) x 2 over the samples (each
+// warp the first or the second half of them: S / 2 x 8 f32 sums a thread,
+// inside the 128 registers 512 threads may hold).  The single draw (the
+// NS 1 instance) takes 128 x 32 tiles, 4 warps along N, and five stages,
+// to keep more of mu, sigma and eps in flight.  128 rows are the JAX
+// kernel's bm: at M <= 128 there is one row block and every variate is
+// drawn exactly once; at the im2col shape (M 156,800) each of the 1,225 row
+// blocks draws its column block's variates again.  K advances in tiles of
+// 32 through a ring of cp.async stages (three; two at S > 12); slot j holds
+// x tile j and the mu, sigma and explicit eps tiles of tile j + 1: 16-byte
+// copies, and 4-byte copies of x where K % 4 != 0 or x is off a 16-byte
+// boundary (the im2col's K 171).  Ragged edges are zero-filled by the copy;
+// stores are masked.  Iteration j makes W_s of tile j + 1 into one of two
+// f32 buffers while the products of tile j read the other, one barrier an
+// iteration: each thread forms one weight element of all S samples (reads
+// its mu and sigma once, draws four samples per Philox call in a loop over
+// sample groups that is not unrolled, or reads eps, then W = mu + sd * z),
+// and each warp splits its x fragments into tf32 hi and lo
+// (mma_tile.cuh::split_tf32) once per k8 step for all its samples, loads
+// and splits each sample's B pair (one 8-byte word a lane), and issues
+// lo*hi, hi*lo, then hi*hi for every sample: no branch between samples, so
+// a warp past its share (S odd or S < NS) multiplies stale W_s slots whose
+// sums it never stores.  Half the warps of each scheduler form first and
+// multiply second, the others the other way round (3% at S 10,
+// tools/bayes_variants.py).  Within a k8 step the k order is permuted as
+// in lrt_gemm_mma (logical k t and t + 4 sit in physical columns 2t and
+// 2t + 1, for A and B alike), and the strides are padded (x 40 floats,
+// mu / sigma / eps BN + 4) so that no fragment load, W_s store or mu /
+// sigma / eps read conflicts in a bank.  The sums stay in the tensor core's f32
+// accumulators over all of K: per-k-tile partial sums, as lrt_gemm_mma
+// keeps, would double the sums a thread holds.
 //
-// Design: a block owns a (64 x 64) output tile (single draw) or a
-// (64 x 32) tile with all S samples (sampled: S <= 16 accumulators per
-// output, 8 outputs per thread, up to 128 accumulator registers).  K
-// advances in tiles of 16: the x tile is staged transposed, the W tiles
-// are formed while staging, then each thread accumulates its outputs.
-// Ragged M, K and N are masked (zero-filled W and x, masked stores).  The
-// in-kernel variates are keyed by the weight element alone, counter
-// (n, k, s / 4, TAG_BAYES) with four normals per Philox call, so every
-// row block draws the SAME W_s (one sampled weight matrix per sample, as
-// repro/kernels/bayes_matmul.py:186-189 requires).  The price: each of the ceil(M/64)
-// row blocks redraws the variates of its column block.  At the im2col
-// shape (M 156,800) that is 2,450 redraws of each variate; keeping W_s
-// drawn once in device memory would trade that Philox work for S*K*N*4
-// bytes of reads per row block.
+// What the card showed (tools/bayes_variants.py; PERF.md): the
+// time is the sum of the products (an HMMA.1688 tf32 takes about 8.5
+// cycles of its scheduler) and of every other instruction, the draws'
+// most of all; taking them in other warps (a forming and a multiplying
+// role), in the other order, or with the k8 steps not unrolled did not
+// make them overlap.
+//
+// bayes_gemm_simt_explicit / bayes_gemm_simt_sampled (every other call,
+// e.g. N % 4 != 0): f32 FMAs on the CUDA cores, bit-for-bit the same W.  A
+// block owns a 64 x 64 output tile (single draw) or a 64 x 32 tile with all
+// S samples (S accumulators per output, 8 outputs a thread); K advances in
+// tiles of 16: the x tile staged transposed, the W tiles formed while
+// staging, then each thread accumulates its outputs.  Each of the
+// ceil(M / 64) row blocks draws the variates of its column block again.
 //
 // The LRT GEMM: two kernels behind both LRT entry points (replacing
 // lrt_matmul_kernel and lrt_matmul_fused_kernel, whose bodies
@@ -138,9 +178,11 @@ __device__ __forceinline__ void stage_x(const float* __restrict__ x, int M,
 }
 
 __global__ void __launch_bounds__(NT)
-    mm_explicit(const float* __restrict__ x, const float* __restrict__ mu,
-                const float* __restrict__ sg, const float* __restrict__ eps,
-                float* __restrict__ y, int M, int K, int N) {
+    bayes_gemm_simt_explicit(const float* __restrict__ x,
+                             const float* __restrict__ mu,
+                             const float* __restrict__ sg,
+                             const float* __restrict__ eps,
+                             float* __restrict__ y, int M, int K, int N) {
   __shared__ float xs[BK][BM + 1];
   __shared__ __align__(16) float ws[BK][BN1];
   const int tid = threadIdx.x;
@@ -195,10 +237,12 @@ __global__ void __launch_bounds__(NT)
 
 template <int NS>
 __global__ void __launch_bounds__(NT)
-    mm_sampled(const float* __restrict__ x, const float* __restrict__ mu,
-               const float* __restrict__ sg, const float* __restrict__ eps,
-               int S, uint32_t seed, float* __restrict__ y, int M, int K,
-               int N) {
+    bayes_gemm_simt_sampled(const float* __restrict__ x,
+                            const float* __restrict__ mu,
+                            const float* __restrict__ sg,
+                            const float* __restrict__ eps, int S,
+                            uint32_t seed, float* __restrict__ y, int M,
+                            int K, int N) {
   __shared__ float xs[BK][BM + 1];
   __shared__ __align__(16) float ws[NS][BK][BN2];
   const int tid = threadIdx.x;
@@ -282,6 +326,306 @@ __global__ void __launch_bounds__(NT)
       }
     }
   }
+}
+
+// bayes_gemm_mma: 16 warps, 4 along M (32 rows each) x 4 more, which are
+// 2 along N (8 columns each) x 2 over the samples (each warp the products
+// of half of them), or at NS 1 4 along N; K tiles of 32 through a ring of
+// cp.async stages
+constexpr int BG_NT = 512;
+constexpr int BG_BM = 128;
+constexpr int BG_BK = 32;
+constexpr int BG_XLD = BG_BK + 8;   // x row stride, floats
+
+// the NS instance's tile and dynamic shared memory: STAGES ring slots,
+// slot j holding x tile j and the mu, sigma and eps tiles of k tile j + 1
+// (the two that iteration j reads), and two W_s buffers of NS f32 tiles.
+// The single draw (NS 1) is bound by bytes: it takes 32 columns a block
+// and five stages, so that a block keeps four tiles of mu, sigma and eps
+// in flight.
+template <int NS>
+struct BgTile {
+  static constexpr int SH = NS == 1 ? 1 : 2;      // sample groups
+  static constexpr int WN = 4 / SH;               // 8-column bands
+  static constexpr int BN = 8 * WN;               // columns a block
+  static constexpr int NH = (NS + SH - 1) / SH;   // samples a warp takes
+  static constexpr int WLD = BN + 4;  // mu / sigma / eps row stride, floats
+  static constexpr int STAGES = NS == 1 ? 5 : NS <= 12 ? 3 : 2;
+  static constexpr int X = BG_BM * BG_XLD * 4;
+  static constexpr int W = BG_BK * WLD * 4;            // each of mu, sigma
+  static constexpr int STAGE = X + (2 + NS) * W;       // + NS eps tiles
+  static constexpr int WS = NS * BG_BK * BN * 4;       // one W_s buffer
+  static constexpr int TOTAL = STAGES * STAGE + 2 * WS;
+};
+
+template <int NS>
+__global__ void __launch_bounds__(BG_NT, 1)
+    bayes_gemm_mma(const float* __restrict__ x, const float* __restrict__ mu,
+                   const float* __restrict__ sg, const float* __restrict__ eps,
+                   int S, uint32_t seed, float* __restrict__ y, int M, int K,
+                   int N, int x16) {
+  using namespace mma_tile;
+  using L = BgTile<NS>;
+  constexpr int ST = L::STAGES, BN = L::BN, WLD = L::WLD, NH = L::NH;
+  static_assert(L::TOTAL <= 232448, "one block's shared memory");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BG_BM;
+  const int nkt = (K + BG_BK - 1) / BG_BK;
+  // W_s as [s][k8 step][column][t] pairs (w(2t), w(2t + 1)) of f32: a
+  // lane's B fragment of one sample is one 8-byte word
+  float* wbuf = reinterpret_cast<float*>(smem + ST * L::STAGE);
+  constexpr int WS_SAMPLE = BG_BK * BN;      // floats a sample
+  constexpr int WS_FLOATS = NS * WS_SAMPLE;  // floats a buffer
+
+  // x[m0:+128, k0:+32] into slot st
+  auto load_x = [&](int st, int kt) {
+    float* xs = reinterpret_cast<float*>(smem + st * L::STAGE);
+    const int k0 = kt * BG_BK;
+    if (x16) {  // K % 4 == 0, x on a 16-byte boundary: whole 16-byte copies
+#pragma unroll
+      for (int i = tid; i < BG_BM * BG_BK / 4; i += BG_NT) {
+        const int r = i / (BG_BK / 4), c = (i % (BG_BK / 4)) * 4;
+        const int m = m0 + r, k = k0 + c;
+        const bool ok = m < M && k < K;
+        cp_async_16(xs + r * BG_XLD + c, ok ? x + (size_t)m * K + k : x, ok);
+      }
+    } else {
+#pragma unroll
+      for (int i = tid; i < BG_BM * BG_BK; i += BG_NT) {
+        const int r = i / BG_BK, c = i % BG_BK;
+        const int m = m0 + r, k = k0 + c;
+        const bool ok = m < M && k < K;
+        cp_async_4(xs + r * BG_XLD + c, ok ? x + (size_t)m * K + k : x, ok);
+      }
+    }
+  };
+  // mu, sigma and eps[s][k0:+32, n0:+BN] into slot st.  N % 4 == 0: a
+  // 16-byte copy of a row lies wholly inside or outside
+  auto load_w = [&](int st, int kt) {
+    float* ms = reinterpret_cast<float*>(smem + st * L::STAGE + L::X);
+    float* ss = ms + BG_BK * WLD;
+    float* es = ss + BG_BK * WLD;
+    const int k0 = kt * BG_BK;
+    if (tid < BG_BK * BN / 4) {
+      const int r = tid / (BN / 4), c = (tid % (BN / 4)) * 4;
+      const int k = k0 + r, n = n0 + c;
+      const bool ok = k < K && n < N;
+      const size_t at = ok ? (size_t)k * N + n : 0;
+      cp_async_16(ms + r * WLD + c, mu + at, ok);
+      cp_async_16(ss + r * WLD + c, sg + at, ok);
+    }
+    if (eps)
+#pragma unroll 1
+      for (int i = tid; i < S * BG_BK * BN / 4; i += BG_NT) {
+        const int s = i / (BG_BK * BN / 4), j = i % (BG_BK * BN / 4);
+        const int r = j / (BN / 4), c = (j % (BN / 4)) * 4;
+        const int k = k0 + r, n = n0 + c;
+        const bool ok = k < K && n < N;
+        const size_t at = ok ? ((size_t)s * K + k) * N + n : 0;
+        cp_async_16(es + (s * BG_BK + r) * WLD + c, eps + at, ok);
+      }
+  };
+  // ring slot j: x tile j and the w operands of k tile j + 1
+  auto load = [&](int j) {
+    if (j < nkt) load_x(j % ST, j);
+    if (j + 1 < nkt) load_w(j % ST, j + 1);
+  };
+
+  // W_s of all S samples for k tile kt, from the w operands in slot st,
+  // into buffer b.  The thread's elements: tile row fk = 8 kq + 2 ft + fp
+  // (logical k ft + 4 fp of k8 step kq), tile columns fn + 16 e, e < BN /
+  // 16; a warp's 32 stores of one element are contiguous.
+  const int fp = lane & 1, ft = (lane >> 1) & 3;
+  const int fn = (lane >> 3) + 4 * (warp & 3), fk = 8 * (warp >> 2) + 2 * ft
+                                                    + fp;
+  auto form = [&](int st, int kt, int b) {
+    const float* ms =
+        reinterpret_cast<const float*>(smem + st * L::STAGE + L::X);
+    const float* ss = ms + BG_BK * WLD;
+    const float* es = ss + BG_BK * WLD;
+    const int k = kt * BG_BK + fk;
+#pragma unroll 1
+    for (int c = fn; c < BN; c += 16) {
+      const int n = n0 + c;
+      const bool ok = k < K && n < N;
+      const float m = ms[fk * WLD + c], d = ss[fk * WLD + c];
+      float* dst = wbuf + b * WS_FLOATS + (((fk >> 3) * BN + c) * 4 + ft) * 2
+                   + fp;
+#pragma unroll 1
+      for (int q = 0; 4 * q < S; ++q) {
+        float z[4] = {0.f, 0.f, 0.f, 0.f};
+        if (eps) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (4 * q + j < S)
+              z[j] = es[((4 * q + j) * BG_BK + fk) * WLD + c];
+        } else if (ok) {
+          const float4 v = repro::philox_normal4(
+              (uint32_t)n, (uint32_t)k, (uint32_t)q, TAG_BAYES, seed);
+          z[0] = v.x, z[1] = v.y, z[2] = v.z, z[3] = v.w;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int s = 4 * q + j;
+          if (s >= S) break;
+          dst[s * WS_SAMPLE] = ok ? __fadd_rn(m, __fmul_rn(d, z[j])) : 0.f;
+        }
+      }
+    }
+  };
+
+  // the warp's outputs: rows wm * 32 + [0, 32), columns wn * 8 + [0, 8),
+  // samples s0 + [0, ns): with two sample groups the first half of the S
+  // samples for sh 0, the rest for sh 1
+  const int wm = warp & 3, wn = (warp >> 2) % L::WN, sh = (warp >> 2) / L::WN;
+  const int s0 = sh ? (S + 1) / 2 : 0;
+  const int ns = L::SH == 1 ? S : sh ? S / 2 : (S + 1) / 2;
+  float acc[NH][2][4];
+#pragma unroll
+  for (int j = 0; j < NH; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][i][e] = 0.f;
+
+  // the warp's products of k tile kt: x from slot st, W_s from buffer b.
+  // Every warp multiplies NH samples (those past its ns read W_s slots of
+  // samples s >= S, which hold stale values, and are never stored): no
+  // branch between the samples, so the products of all of them interleave.
+  auto mma = [&](int st, int b) {
+    const float* xs = reinterpret_cast<const float*>(smem + st * L::STAGE);
+    const float* wb = wbuf + b * WS_FLOATS + s0 * WS_SAMPLE +
+                      ((wn * 8 + g) * 4 + t) * 2;
+#pragma unroll
+    for (int kk = 0; kk < BG_BK / 8; ++kk) {
+      // A: a[h] = (row g + 8h, logical k t) at column 8 kk + 2t, a[h + 2] =
+      // (row g + 8h, logical k t + 4) at column 8 kk + 2t + 1; split once
+      // for all the warp's samples
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm * 32 + i * 16 + g + 8 * h;
+          const float2 v = *reinterpret_cast<const float2*>(
+              xs + row * BG_XLD + 8 * kk + 2 * t);
+          split_tf32(v.x, ah[i][h], al[i][h]);
+          split_tf32(v.y, ah[i][h + 2], al[i][h + 2]);
+        }
+      uint32_t bh[NH][2], bl[NH][2];
+#pragma unroll
+      for (int j = 0; j < NH; ++j) {
+        const float2 w = *reinterpret_cast<const float2*>(
+            wb + j * WS_SAMPLE + kk * BN * 8);
+        split_tf32(w.x, bh[j][0], bl[j][0]);
+        split_tf32(w.y, bh[j][1], bl[j][1]);
+      }
+      // the small products of every sample, then the big ones
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(acc[j][i], al[i], bh[j]);
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(acc[j][i], ah[i], bl[j]);
+#pragma unroll
+      for (int j = 0; j < NH; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_tf32(acc[j][i], ah[i], bh[j]);
+    }
+  };
+
+  // prologue: the w operands of tile 0 into the last slot (free until the
+  // first iteration loads it), slots 0 .. ST - 2, then W_s of tile 0
+  load_w(ST - 1, 0);
+  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < ST - 1; ++j) {
+    load(j);
+    cp_async_commit();
+  }
+  cp_async_wait<ST - 1>();
+  __syncthreads();
+  form(ST - 1, 0, 0);
+  // Iteration kt: W_s of tile kt + 1 and the products of tile kt, both
+  // from slot kt.  Half the warps of each scheduler (warps w, w + 4, w + 8
+  // and w + 12 share one) take them in the opposite order, so that the
+  // tensor cores and the other pipes work at once.
+  const bool form_first = warp & 4;
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // slot kt landed, W_s of tile kt formed; every warp
+                      // is done with slot kt - 1 and W_s buffer kt + 1
+    load(kt + ST - 1);
+    cp_async_commit();
+    const int st = kt % ST;
+#pragma unroll 1
+    for (int ph = 0; ph < 2; ++ph) {
+      if ((ph == 0) == form_first) {
+        if (kt + 1 < nkt) form(st, kt + 1, (kt + 1) & 1);
+      } else {
+        mma(st, kt & 1);
+      }
+    }
+  }
+
+  // C fragment: rows g and g + 8 of each 16-row tile, columns 2t and 2t + 1
+  const int n = n0 + wn * 8 + 2 * t;  // N % 4 == 0: n < N means n + 1 < N
+#pragma unroll
+  for (int j = 0; j < NH; ++j) {
+    if (j >= ns) break;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
+        if (m < M && n < N)
+          *reinterpret_cast<float2*>(y + ((size_t)(s0 + j) * M + m) * N + n) =
+              make_float2(acc[j][i][2 * h], acc[j][i][2 * h + 1]);
+      }
+  }
+}
+
+template <int NS>
+int launch_bayes_mma_ns(const float* x, const float* mu, const float* sigma,
+                        const float* eps, int S, uint32_t seed, float* y,
+                        int M, int K, int N, cudaStream_t st) {
+  constexpr int smem = BgTile<NS>::TOTAL, BN = BgTile<NS>::BN;
+  static bool attr_set = false;  // once per instantiation, before any capture
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bayes_gemm_mma<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const dim3 grid((N + BN - 1) / BN, (M + BG_BM - 1) / BG_BM);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const int x16 = ((uintptr_t)x & 15) == 0 && K % 4 == 0;
+  bayes_gemm_mma<NS><<<grid, BG_NT, smem, st>>>(x, mu, sigma, eps, S, seed,
+                                                y, M, K, N, x16);
+  return (int)cudaGetLastError();
+}
+
+// the least instance that holds S samples (S 10, the paper's, has its own)
+int launch_bayes_mma(const float* x, const float* mu, const float* sigma,
+                     const float* eps, int S, uint32_t seed, float* y, int M,
+                     int K, int N, cudaStream_t st) {
+  if (S == 1)
+    return launch_bayes_mma_ns<1>(x, mu, sigma, eps, S, seed, y, M, K, N, st);
+  if (S <= 4)
+    return launch_bayes_mma_ns<4>(x, mu, sigma, eps, S, seed, y, M, K, N, st);
+  if (S <= 8)
+    return launch_bayes_mma_ns<8>(x, mu, sigma, eps, S, seed, y, M, K, N, st);
+  if (S <= 10)
+    return launch_bayes_mma_ns<10>(x, mu, sigma, eps, S, seed, y, M, K, N,
+                                   st);
+  if (S <= 12)
+    return launch_bayes_mma_ns<12>(x, mu, sigma, eps, S, seed, y, M, K, N,
+                                   st);
+  return launch_bayes_mma_ns<16>(x, mu, sigma, eps, S, seed, y, M, K, N, st);
 }
 
 constexpr int LT = 128;            // LRT: columns per block, one per thread
@@ -650,45 +994,68 @@ bool bad_shape(int M, int K, int N) {
   return M < 1 || K < 1 || N < 1 || (N + BN2 - 1) / BN2 > 65535;
 }
 
+// route 1: bayes_gemm_mma, refused (nothing launched) unless N % 4 == 0 and
+// mu, sigma, eps and y start on 16-byte boundaries; route 0: the SIMT
+// kernel of the entry point (single: the explicit single draw)
+int bayes_gemm(const float* x, const float* mu, const float* sigma,
+               const float* eps, int S, uint32_t seed, float* y, int M,
+               int K, int N, bool single, int route, cudaStream_t st) {
+  if (bad_shape(M, K, N) || S < 1 || S > MAXS || (single && (!eps || S != 1))
+      || (route != 0 && route != 1))
+    return (int)cudaErrorInvalidValue;
+  if (route == 1) {
+    if (N % 4 || !aligned16(mu) || !aligned16(sigma) || !aligned16(eps) ||
+        !aligned16(y))
+      return (int)cudaErrorInvalidValue;
+    return launch_bayes_mma(x, mu, sigma, eps, S, seed, y, M, K, N, st);
+  }
+  if (single) {
+    const dim3 grid((M + BM - 1) / BM, (N + BN1 - 1) / BN1);
+    bayes_gemm_simt_explicit<<<grid, NT, 0, st>>>(x, mu, sigma, eps, y, M, K,
+                                                  N);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid((M + BM - 1) / BM, (N + BN2 - 1) / BN2);
+  if (S <= 4)
+    bayes_gemm_simt_sampled<4><<<grid, NT, 0, st>>>(x, mu, sigma, eps, S,
+                                                    seed, y, M, K, N);
+  else if (S <= 8)
+    bayes_gemm_simt_sampled<8><<<grid, NT, 0, st>>>(x, mu, sigma, eps, S,
+                                                    seed, y, M, K, N);
+  else if (S <= 12)
+    bayes_gemm_simt_sampled<12><<<grid, NT, 0, st>>>(x, mu, sigma, eps, S,
+                                                     seed, y, M, K, N);
+  else
+    bayes_gemm_simt_sampled<16><<<grid, NT, 0, st>>>(x, mu, sigma, eps, S,
+                                                     seed, y, M, K, N);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Both return cudaGetLastError() after the launch (0 = launched).  All
 // operands are contiguous float32: x (M, K), mu/sigma (K, N), y (M, N) or
-// (S, M, N); eps is (K, N) for the single draw and (S, K, N) or null (the
-// in-kernel stream keyed by seed) for the sampled kernel.
+// (S, M, N); eps is (K, N) for the single draw (S = 1) and (S, K, N) or
+// null (the in-kernel stream keyed by seed) for the sampled GEMM.  route 1
+// runs bayes_gemm_mma and refuses (cudaErrorInvalidValue, nothing
+// launched) a call with N % 4 != 0 or with mu, sigma, eps or y off a
+// 16-byte boundary; route 0 runs the entry point's SIMT kernel.
 extern "C" int repro_bayes_matmul(const float* x, const float* mu,
                                   const float* sigma, const float* eps,
                                   int S, uint32_t seed, float* y, int M,
-                                  int K, int N, void* stream) {
-  (void)S;
-  (void)seed;
-  if (bad_shape(M, K, N) || !eps) return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + BM - 1) / BM, (N + BN1 - 1) / BN1);
-  mm_explicit<<<grid, NT, 0, (cudaStream_t)stream>>>(x, mu, sigma, eps, y,
-                                                     M, K, N);
-  return (int)cudaGetLastError();
+                                  int K, int N, int route, void* stream) {
+  return bayes_gemm(x, mu, sigma, eps, S, seed, y, M, K, N, true, route,
+                    (cudaStream_t)stream);
 }
 
 extern "C" int repro_bayes_matmul_sampled(const float* x, const float* mu,
                                           const float* sigma,
                                           const float* eps, int S,
                                           uint32_t seed, float* y, int M,
-                                          int K, int N, void* stream) {
-  if (bad_shape(M, K, N) || S < 1 || S > MAXS)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + BM - 1) / BM, (N + BN2 - 1) / BN2);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (S <= 4)
-    mm_sampled<4><<<grid, NT, 0, st>>>(x, mu, sigma, eps, S, seed, y, M, K, N);
-  else if (S <= 8)
-    mm_sampled<8><<<grid, NT, 0, st>>>(x, mu, sigma, eps, S, seed, y, M, K, N);
-  else if (S <= 12)
-    mm_sampled<12><<<grid, NT, 0, st>>>(x, mu, sigma, eps, S, seed, y, M, K,
-                                        N);
-  else
-    mm_sampled<16><<<grid, NT, 0, st>>>(x, mu, sigma, eps, S, seed, y, M, K,
-                                        N);
-  return (int)cudaGetLastError();
+                                          int K, int N, int route,
+                                          void* stream) {
+  return bayes_gemm(x, mu, sigma, eps, S, seed, y, M, K, N, false, route,
+                    (cudaStream_t)stream);
 }
 
 // The LRT GEMM: x (M, K) float32 (x_bf16 = 0) or bfloat16 (x_bf16 = 1),

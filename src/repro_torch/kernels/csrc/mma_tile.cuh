@@ -1,8 +1,8 @@
 // Warp-level tensor-core tile helpers (sm_80 and later; built for
-// sm_90a): bf16 mma.sync m16n8k16, ldmatrix, 16-byte cp.async, the packing
-// of f32 C fragments into bf16 A fragments (rounded once, or split into
-// three bf16 parts), row reductions over a quad, and tf32 mma.sync m16n8k8
-// with the split of an f32 value into two tf32 parts (3xTF32).
+// sm_90a): bf16 mma.sync m16n8k16, ldmatrix, 16- and 4-byte cp.async, the
+// packing of f32 C fragments into bf16 A fragments (rounded once, or split
+// into three bf16 parts), row reductions over a quad, and tf32 mma.sync
+// m16n8k8 with the split of an f32 value into two tf32 parts (3xTF32).
 //
 // Fragment layouts of mma.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), with g = lane / 4 (the lane's group) and t = lane % 4
@@ -165,12 +165,21 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // 16 bytes global -> shared, asynchronously (L2 only).  With fill false
-// the 16 bytes are zeroed and nothing is read from src.
+// the 16 bytes are zeroed and nothing is read from src.  cp_async_4 copies
+// 4 bytes (through L1: the L2-only form takes 16 bytes alone), for rows
+// that are not 16-byte aligned.
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src,
                                             bool fill) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :
                : "r"(smem_u32(dst)), "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           bool fill) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(smem_u32(dst)), "l"(src), "r"(fill ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -288,39 +288,88 @@ def _rel_close(got, want, tol=1e-4):
     assert err <= tol * float(want.abs().max()), err
 
 
+def _bayes_route(route, M, K, N, S, x, mu, sg, eps=None):
+    """The kernel a case runs: the forced one, or ``bayes_route``'s, which
+    is asserted to be the tensor-core kernel wherever N % 4 == 0 (every
+    operand here lies on a 16-byte boundary)."""
+    if route != "auto":
+        return route
+    got = BM.bayes_route(M, K, N, S, x, mu, sg, eps)
+    want = "mma" if N % 4 == 0 and M >= BM.BAYES_MMA_MIN_ROWS else "simt"
+    assert got == want, (got, want)
+    return None
+
+
+# route "auto" takes bayes_route's kernel: the tensor-core kernel at
+# (128, 1024, 300), (200, 171, 32), (130, 1024, 260) and the im2col-like
+# (1000, 171, 32) (K % 4 != 0: x copied 4 bytes at a time); "simt" forces
+# the SIMT kernels at every shape
+@pytest.mark.parametrize("route", ["auto", "simt"])
 @pytest.mark.parametrize("M,K,N", [(33, 70, 17), (128, 1024, 300),
-                                   (1, 9, 7), (200, 171, 32)])
-def test_cuda_bayes_matmul_matches_plain(cuda_device, M, K, N):
+                                   (1, 9, 7), (200, 171, 32),
+                                   (130, 1024, 260), (1000, 171, 32)])
+def test_cuda_bayes_matmul_matches_plain(cuda_device, route, M, K, N):
     x, mu, sg, eps = _gemm(M + K, M, K, N)
-    _rel_close(BM.bayes_matmul_cuda(x, mu, sg, eps),
+    r = _bayes_route(route, M, K, N, 1, x, mu, sg, eps)
+    _rel_close(BM.bayes_matmul_cuda(x, mu, sg, eps, route=r),
                ref.bayes_matmul(x, mu, sg, eps))
     xb, mb, sb = (t.to(torch.bfloat16) for t in (x, mu, sg))
-    _rel_close(BM.bayes_matmul_cuda(xb, mb, sb, eps),
+    _rel_close(BM.bayes_matmul_cuda(xb, mb, sb, eps, route=r),
                ref.bayes_matmul(xb, mb, sb, eps))
 
 
+@pytest.mark.parametrize("route", ["auto", "simt"])
 @pytest.mark.parametrize("S", [1, 4, 10, 16])
-@pytest.mark.parametrize("M,K,N", [(33, 70, 17), (130, 171, 32)])
-def test_cuda_bayes_matmul_sampled_matches_plain(cuda_device, S, M, K, N):
+@pytest.mark.parametrize("M,K,N", [(33, 70, 17), (130, 171, 32),
+                                   (130, 1024, 260), (1000, 171, 32)])
+def test_cuda_bayes_matmul_sampled_matches_plain(cuda_device, route, S, M, K,
+                                                 N):
     x, mu, sg, eps = _gemm(S + M, M, K, N, S)
     for kw in ({"eps": eps}, {"seed": 9}):
-        got = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=S, **kw)
+        r = _bayes_route(route, M, K, N, S, x, mu, sg, kw.get("eps"))
+        got = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=S, route=r,
+                                           **kw)
         want = BM.bayes_matmul_sampled_plain(x, mu, sg, num_samples=S, **kw)
         assert got.shape == (S, M, N)
         _rel_close(got, want)
 
 
-def test_cuda_sampled_gemm_shares_w_across_row_blocks(cuda_device):
-    """Rows 3 and 100 lie in different 64-row blocks of the kernel: with
-    the same x row they must see the same W_s for every s."""
-    x, mu, sg, _ = _gemm(4, 130, 171, 40)
-    x[100] = x[3]
+def test_cuda_bayes_routes_agree_on_the_seeded_w(cuda_device):
+    """With x = I the seeded GEMM returns W_s itself: both kernels draw
+    the TAG_BAYES stream of a seed at the same weight elements, so they
+    give the same W_s within the rule, and the tensor-core kernel matches
+    the plain version of its own 3xTF32 arithmetic."""
+    K, N, S = 160, 260, 10
+    _, mu, sg, _ = _gemm(6, K, K, N)
+    eye = torch.eye(K, device=cuda_device)
+    assert BM.bayes_route(K, K, N, S, eye, mu, sg) == "mma"
+    mma = BM.bayes_matmul_sampled_cuda(eye, mu, sg, num_samples=S, seed=3)
+    simt = BM.bayes_matmul_sampled_cuda(eye, mu, sg, num_samples=S, seed=3,
+                                        route="simt")
+    _rel_close(mma, simt)
+    _rel_close(mma, BM.bayes_matmul_sampled_plain(
+        eye, mu, sg, num_samples=S, seed=3, split="tf32x3"))
+    assert not torch.equal(simt[0], simt[1])
+
+
+@pytest.mark.parametrize("route", ["mma", "simt"])
+def test_cuda_sampled_gemm_shares_w_across_row_blocks(cuda_device, route):
+    """Rows 3 and 200 lie in different row blocks of either kernel's tile
+    (128 rows on the tensor cores, 64 on the SIMT kernel): with the same x
+    row they must see the same W_s for every s."""
+    x, mu, sg, _ = _gemm(4, 300, 171, 40)
+    x[200] = x[3]
+    tile = BM.BAYES_TILE_ROWS[route]
+    assert 3 // tile != 200 // tile
+    assert BM.bayes_route(300, 171, 40, 10, x, mu, sg) == "mma"
     launches.reset()
-    y = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=10, seed=3)
-    y2 = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=10, seed=3)
+    y = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=10, seed=3,
+                                     route=route)
+    y2 = BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=10, seed=3,
+                                      route=route)
     assert launches.snapshot()["bayes_matmul_sampled"] == 2
     assert torch.equal(y, y2)
-    assert torch.equal(y[:, 3], y[:, 100])
+    assert torch.equal(y[:, 3], y[:, 200])
     assert not torch.equal(y[0, 3], y[1, 3])
 
 
@@ -346,6 +395,30 @@ def test_cuda_paper_wrappers_refuse_bad_operands(cuda_device):
         BM.bayes_matmul_cuda(x, mu, sg[:, :5], eps)
     with pytest.raises(ValueError):
         BM.bayes_matmul_sampled_cuda(x, mu, sg, num_samples=17)
+    with pytest.raises(ValueError):
+        BM.bayes_matmul_cuda(x, mu, sg, eps, route="wgmma")
+    # mu one float off a 16-byte boundary: the route sends the call to the
+    # SIMT kernel, and the tensor-core kernel, forced, refuses it (the
+    # wrapper raises) rather than fault; so does N % 4 != 0
+    M, K, N, S = 130, 64, 36, 4
+    x, mu, sg, eps = _gemm(2, M, K, N, S)
+    flat = torch.zeros(K * N + 1, device=cuda_device)
+    mum = flat[1:].view(K, N)
+    mum.copy_(mu)
+    assert BM.bayes_route(M, K, N, S, x, mu, sg, eps) == "mma"
+    assert BM.bayes_route(M, K, N, S, x, mum, sg, eps) == "simt"
+    _rel_close(BM.bayes_matmul_sampled_cuda(x, mum, sg, num_samples=S,
+                                            eps=eps),
+               BM.bayes_matmul_sampled_plain(x, mu, sg, num_samples=S,
+                                             eps=eps))
+    with pytest.raises(RuntimeError):
+        BM.bayes_matmul_sampled_cuda(x, mum, sg, num_samples=S, eps=eps,
+                                     route="mma")
+    with pytest.raises(RuntimeError):
+        BM.bayes_matmul_cuda(x, mum, sg, eps[0], route="mma")
+    with pytest.raises(RuntimeError):                    # N % 4 != 0
+        BM.bayes_matmul_sampled_cuda(x, mu[:, :34], sg[:, :34],
+                                     num_samples=S, seed=1, route="mma")
     xc = torch.zeros((2, 20), device=cuda_device)
     mu9 = torch.zeros(9, device=cuda_device)
     with pytest.raises(ValueError):
