@@ -11,16 +11,19 @@ Phases (any failure exits non-zero before the result line):
      its path's shapes, with the stated tolerances; the kernel's and the
      library yardstick's device times (CUDA graph replay), the plain
      version's wall time, and the least time the card could take.  The
-     tensor-core and SIMT kernels of flash attention, prefill attention,
-     the LRT GEMMs and the weight-space GEMMs are each checked, the route
-     of every case asserted, with route sweeps for the two GEMM families.
+     tensor-core and SIMT kernels of flash attention, decode and prefill
+     attention, the LRT GEMMs and the weight-space GEMMs are each
+     checked, the route of every case asserted, with route sweeps for the
+     two GEMM families and a split sweep for decode attention (whose
+     served case is also timed with the L2 cold).
   4. serve: qwen2-1.5B at full width (28 layers, d 1536, bf16 body, f32
      Bayesian head over V = 151936, S = 10 draws), random weights from a
      seed, paged KV + kernel decode attention + chunked prefill + kernel
      entropy; the kernels' launch counts are zeroed before and read after.
   5. profile: a shorter serve of the same path under torch.profiler:
      device busy and idle time, kernels by kind (reported); the served
-     bf16 prefill must run the tensor-core kernel and not the SIMT one.
+     bf16 prefill and decode must run their tensor-core kernels and not
+     the SIMT ones, the decode one launch a layer a step.
   6. compare: the same trace in operand-entropy mode through the kernel
      path and through the gather / batch-prefill reference (reported).
   7. paper: the machine primitive three ways (PRNG in the path, a stream
@@ -271,67 +274,165 @@ def _pool(dev, g, NB, BS, Hkv, D):
             .to(torch.bfloat16))
 
 
-def check_decode(dev) -> dict:
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.models import layers as L
-
-    B, H, Hkv, D, BS = 4, 12, 2, 128, 16
-    lens_l = [288, 150, 17, 0]           # staggered; slot 3 fully masked
-    MB = 19
+def decode_case(dev, lens_l, MB, seed, D=128, dtype=torch.bfloat16):
+    """qwen2-1.5B's decode attention widths (H 12, Hkv 2, BS 16): slots of
+    the given depths, each row's blocks shuffled through the pool with
+    -1 tails."""
+    B, H, Hkv, BS = len(lens_l), 12, 2, 16
     NB = B * MB
-    g = torch.Generator(device=dev).manual_seed(2)
-    k_pool = _pool(dev, g, NB, BS, Hkv, D)
-    v_pool = _pool(dev, g, NB, BS, Hkv, D)
-    q = torch.randn((B, 1, H, D), generator=g, device=dev).to(torch.bfloat16)
-    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(3))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k_pool, v_pool = (_pool(dev, g, NB, BS, Hkv, D).to(dtype) for _ in "kv")
+    q = torch.randn((B, 1, H, D), generator=g, device=dev).to(dtype)
+    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(seed))
     table = torch.full((B, MB), -1, dtype=torch.int32)
     for b, n in enumerate(lens_l):
         nb = -(-n // BS)
         table[b, :nb] = perm[b * MB:b * MB + nb].to(torch.int32)
-    table = table.to(dev)                # shuffled blocks, -1 tails
     lens = torch.tensor(lens_l, dtype=torch.int32, device=dev)
+    return q, k_pool, v_pool, table.to(dev), lens
+
+
+def decode_bound(q, lens_l, Hkv) -> tuple[float, str]:
+    """q in, out, and the cached keys' K and V, each moved once, and the
+    depths; the products of the cached keys."""
+    B, _, H, D = q.shape
+    elt = q.element_size()
+    cached = sum(lens_l)
+    nbytes = q.numel() * elt * 2 + cached * Hkv * D * elt * 2 + B * 4
+    return bound(nbytes, 4.0 * cached * H * D, BF16_FLOPS)
+
+
+def sdpa_call(q, k_pool, v_pool, table, lens):
+    """The library yardstick: SDPA over the slots' K/V gathered and
+    expanded to the query heads beforehand (that copy is not timed),
+    masked by the readable depth; fully masked slots are left out.
+    Returns (the call, the live slots)."""
+    from repro_torch.models import layers as L
+
+    H, Hkv = q.shape[2], k_pool.shape[2]
+    eff = L.mapped_span(table, k_pool.shape[1], lens)
+    live = torch.nonzero(eff > 0).flatten()
+    kx, vx = (L.paged_gather(p, table)[live].repeat_interleave(H // Hkv, dim=2)
+              .transpose(1, 2).contiguous() for p in (k_pool, v_pool))
+    qx = q[live].transpose(1, 2).contiguous()
+    mask = (torch.arange(kx.shape[2], device=q.device)[None, :]
+            < eff[live, None])[:, None, None, :]
+    return (lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qx, kx, vx, attn_mask=mask)), live
+
+
+def cold_ms(fn, calls: int = 20) -> float:
+    """Device time of ``fn`` with the L2 cold: a 128 MB buffer (2.5× the
+    50 MB L2) written before each call inside the graph, less the same
+    writes timed alone."""
+    flush = torch.empty((32 * 2 ** 20,), dtype=torch.float32, device="cuda")
+    both = device_ms(lambda: (flush.fill_(1.0), fn()), calls)
+    alone = device_ms(lambda: flush.fill_(1.0), calls)
+    return both - alone
+
+
+def check_decode(dev) -> dict:
+    """The decode kernels at qwen2-1.5B's widths.  The tensor-core kernel
+    (the served route: bf16, D 128) at the served case (4 slots, depths
+    288 / 150 / 17 / 0 over 19 blocks), at 64 slots and at 4 slots of
+    depth 4096 (MB 256), against the plain version and the gather
+    reference; the SIMT kernel forced on the same bf16 inputs and with
+    f32 operands.  Times of both kernels and SDPA beside the bound, the
+    served case with a cold L2 too, a sweep of the tiles a split and the
+    HMMA count."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import layers as L
+
+    Hkv, D = 2, 128
+    if PA.decode_route(torch.bfloat16, D) != "mma" \
+            or PA.decode_route(torch.float32, D) != "simt":
+        fail("decode attention: bf16 at D 128 must take the tensor-core "
+             "kernel and f32 the SIMT one")
+    rng = torch.Generator().manual_seed(9)
+    cases = {"served": ([288, 150, 17, 0], 19),
+             "64 slots": ([0] + torch.randint(1, 305, (63,), generator=rng)
+                          .tolist(), 19),
+             "depth 4096": ([4096, 4096, 4096, 4096], 256)}
+    # bf16 outputs of f32 sums taken in another order: one bf16 ulp
+    # (2^-8 relative) of O(1) values; f32 operands: 2e-5
+    tol = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+    worst, timed = 0.0, {}
+    for name, (lens_l, MB) in cases.items():
+        q, k_pool, v_pool, table, lens = decode_case(dev, lens_l, MB, 2)
+        eff = L.mapped_span(table, k_pool.shape[1], lens)
+        gather = L.decode_attention(q, L.paged_gather(k_pool, table),
+                                    L.paged_gather(v_pool, table), eff)
+        empty = torch.tensor([n == 0 for n in lens_l], device=dev)
+        outs = {}
+        for route in ("mma", "simt"):
+            got = outs[route] = PA.paged_decode_attention_cuda(
+                q, k_pool, v_pool, table, lens, route=route)
+            want = PA.paged_decode_attention_plain(q, k_pool, v_pool, table,
+                                                   lens, walk=route)
+            torch.cuda.synchronize()
+            e = max(max_err(got, want), max_err(got, gather))
+            nan_rows = torch.isnan(got).flatten(1)
+            if not e <= tol[q.dtype] or not same_nan(got, want) \
+                    or not same_nan(got, gather) \
+                    or not torch.equal(nan_rows.all(1), empty) \
+                    or not torch.equal(nan_rows.any(1), empty):
+                fail(f"decode attention ({route}) {name}: max |err| "
+                     f"{e:.3g} > {tol[q.dtype]} or NaN not exactly on the "
+                     f"empty slots")
+            if route == "mma":
+                worst = max(worst, e)
+            print(f"  decode attention ({route}) {name}: ok (max |err| "
+                  f"{e:.3g})", flush=True)
+        lib, live = sdpa_call(q, k_pool, v_pool, table, lens)
+        e_lib = max_err(outs["mma"][live], lib().transpose(1, 2))
+        if not e_lib <= tol[q.dtype]:
+            fail(f"decode attention {name}: the SDPA yardstick differs by "
+                 f"{e_lib:.3g}")
+        mma = lambda: PA.paged_decode_attention_cuda(  # noqa: E731
+            q, k_pool, v_pool, table, lens)
+        b_ms, b_by = decode_bound(q, lens_l, Hkv)
+        timed[name] = {
+            "ms": device_ms(mma, 100), "cold_ms": cold_ms(mma),
+            "simt_ms": device_ms(lambda: PA.paged_decode_attention_cuda(
+                q, k_pool, v_pool, table, lens, route="simt"), 100),
+            "library_ms": device_ms(lib, 100),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "tiles": PA.decode_tiles(len(lens_l), Hkv, MB, 16)}
+        if name == "served":
+            timed[name]["plain_ms"] = time_ms(
+                lambda: PA.paged_decode_attention_plain(
+                    q, k_pool, v_pool, table, lens), 5)
+        # the split sweep: the tensor-core kernel at each split size
+        table_tiles = -(-MB * 16 // PA.DECODE_KEY_TILE)
+        sweep = [t for t in (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32, 64)
+                 if t <= table_tiles]
+        print(f"  decode split sweep, {name} (tiles a split: ms; default "
+              f"{timed[name]['tiles']}): " + ", ".join(
+                  f"{t}: {device_ms(lambda: PA.paged_decode_attention_cuda(q, k_pool, v_pool, table, lens, tiles=t), 100):.4f}"  # noqa: E501
+                  for t in sweep), flush=True)
+    # the SIMT kernel with f32 operands at the served case
+    if PA.decode_route(torch.float32, D) != "simt":
+        fail("decode attention: f32 must take the SIMT kernel")
+    q, k_pool, v_pool, table, lens = decode_case(dev, cases["served"][0], 19,
+                                                 2, dtype=torch.float32)
     got = PA.paged_decode_attention_cuda(q, k_pool, v_pool, table, lens)
     want = PA.paged_decode_attention_plain(q, k_pool, v_pool, table, lens)
-    eff = L.mapped_span(table, BS, lens)
-    gather = L.decode_attention(q, L.paged_gather(k_pool, table),
-                                L.paged_gather(v_pool, table), eff)
-    # the library yardstick: SDPA over the slots' K/V gathered and expanded
-    # to the query heads beforehand (that copy is not timed), masked by the
-    # readable depth; the fully masked slot is left out
-    kx, vx = (L.paged_gather(p, table).repeat_interleave(H // Hkv, dim=2)
-              .transpose(1, 2).contiguous() for p in (k_pool, v_pool))
-    qx = q.transpose(1, 2).contiguous()
-    live = slice(0, 3)
-    mask = (torch.arange(kx.shape[2], device=dev)[None, :]
-            < eff[:, None])[live, None, None, :]
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qx[live], kx[live], vx[live], attn_mask=mask)
-    lib_out = lib().transpose(1, 2)
     torch.cuda.synchronize()
-    # bf16 outputs of f32 sums taken in another order: one bf16 ulp
-    # (2^-8 relative) of O(1) values
-    tol = 2e-2
-    e = max(max_err(got, want), max_err(got, gather))
-    if not e <= tol or not same_nan(got, want) or not same_nan(got, gather):
-        fail(f"decode attention: max |err| {e:.3g} > {tol} or NaN mismatch")
-    if not torch.isnan(got[3]).all() or torch.isnan(got[:3]).any():
-        fail("decode attention: NaN must mark exactly the masked slot")
-    e_lib = max_err(got[live], lib_out)
-    if not e_lib <= tol:
-        fail(f"decode attention: the SDPA yardstick differs by {e_lib:.3g}")
-    print(f"  decode attention: ok (max |err| {e:.3g}; SDPA {e_lib:.3g})",
+    e = max_err(got, want)
+    if not e <= tol[torch.float32] or not same_nan(got, want) \
+            or not torch.isnan(got[3]).all() or torch.isnan(got[:3]).any():
+        fail(f"decode attention (SIMT) f32: max |err| {e:.3g} > 2e-5 or "
+             "NaN not exactly on the empty slot")
+    print(f"  decode attention (simt) served f32: ok (max |err| {e:.3g})",
           flush=True)
-    cached = sum(lens_l)
-    nbytes = q.numel() * 2 * 2 + cached * Hkv * D * 2 * 2 + B * 4
-    flops = 4.0 * cached * H * D
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    return {"max_abs_err": e,
-            "ms": device_ms(lambda: PA.paged_decode_attention_cuda(
-                q, k_pool, v_pool, table, lens), 100),
-            "plain_ms": time_ms(lambda: PA.paged_decode_attention_plain(
-                q, k_pool, v_pool, table, lens), 5),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": device_ms(lib, 100)}
+    for name, t in timed.items():
+        print(f"  decode attention timed, {name}: mma {t['ms']:.4f} ms "
+              f"(L2 cold {t['cold_ms']:.4f}; {t['tiles']} tiles a split), "
+              f"SIMT {t['simt_ms']:.4f}, SDPA {t['library_ms']:.4f}, bound "
+              f"{t['bound_ms']:.6f} ms ({t['bound_by']})", flush=True)
+    print(f"  {hmma_counts('paged_attention', 'paged_decode_mma')}",
+          flush=True)
+    return dict(timed["served"], max_abs_err=worst)
 
 
 def check_prefill(dev) -> dict:
@@ -1229,6 +1330,13 @@ def profile_serve() -> str:
              f"kernel ({top(prefill, 4) or 'no prefill kernel'})")
     if any("paged_prefill_simt<__nv_bfloat16>" in k for k in prefill):
         fail("profile: the served bf16 prefill ran the SIMT kernel")
+    # the served decode: the tensor-core kernel alone, one launch a call
+    decode = {k: v for k, v in t["by_name"].items() if "paged_decode_" in k}
+    if list(decode) != [k for k in decode if "paged_decode_mma<128>" in k] \
+            or not decode \
+            or sum(v[1] for v in decode.values()) != 28 * steps:
+        fail(f"profile: the served decode did not run paged_decode_mma<128> "
+             f"alone, once a layer a step ({top(decode, 4) or 'none'})")
     return (f"profile, kernel path, {steps} decode steps + "
             f"{r['prefill_chunks']} prefill chunks: device busy "
             f"{t['busy_ms']:.2f} ms of a {t['window_ms']:.2f} ms window (idle "
@@ -1236,7 +1344,8 @@ def profile_serve() -> str:
             f"kernels, {t['syncs']} host syncs\n"
             f"  by kind: {top(t['by_kind'], len(t['by_kind']))}\n"
             f"  top kernels: {top(t['by_name'], 8)}\n"
-            f"  prefill kernels: {top(prefill, 4)}")
+            f"  prefill kernels: {top(prefill, 4)}\n"
+            f"  decode kernels: {top(decode, 4)}")
 
 
 def compare_plain(kernel_run: dict, ref_run: dict) -> str:

@@ -46,6 +46,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in [*PORT.rglob("*.py"),
+                                       *(ROOT / "tools").glob("*.py"),
                                        ROOT / "chip_smoke.py"]))
 def test_source_names_no_jax_or_repro_import(path):
     src = (ROOT / path).read_text()

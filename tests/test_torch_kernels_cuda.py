@@ -97,33 +97,158 @@ def test_cuda_head_is_deterministic_per_seed_and_counts_launches(
     assert launches.snapshot()["uncertainty_head"] == 3
 
 
+def _decode_route(route, dtype, D):
+    """The kernel a decode call takes: ``route`` forced, or for "auto"
+    ``decode_route``'s (bf16 with D % 16 == 0 on the tensor cores)."""
+    want = "mma" if dtype == torch.bfloat16 and D % 16 == 0 else "simt"
+    if route == "auto":
+        assert PA.decode_route(dtype, D) == want
+        return want
+    return route
+
+
+@pytest.mark.parametrize("route", ["auto", "simt"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H,Hkv,D", [(12, 2, 64), (12, 2, 128), (4, 4, 32)])
-def test_cuda_decode_matches_plain(cuda_device, dtype, H, Hkv, D):
+def test_cuda_decode_matches_plain(cuda_device, route, dtype, H, Hkv, D):
     q, k, v, table, lens = (t.to(cuda_device) for t in _decode_case(
         5, H, Hkv, D, BS=16, MB=4, lens=(60, 17, 1, 0)))
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    got = PA.paged_decode_attention_cuda(q, k, v, table, lens)
-    want = PA.paged_decode_attention_plain(q, k, v, table, lens)
+    took = _decode_route(route, dtype, D)
+    got = PA.paged_decode_attention_cuda(
+        q, k, v, table, lens, route=None if route == "auto" else route)
+    want = PA.paged_decode_attention_plain(q, k, v, table, lens, walk=took)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     assert_close(got.float(), want.float().cpu(), atol=tol, equal_nan=True)
     assert torch.isnan(got[3]).all() and not torch.isnan(got[:3]).any()
 
 
-def test_cuda_decode_multi_block_runs_match_plain(cuda_device):
+@pytest.mark.parametrize("route", ["auto", "simt"])
+def test_cuda_decode_multi_block_runs_match_plain(cuda_device, route):
     """64 slots: each split takes a run of several blocks (decode_split >
-    1), with holes, staggered depths and an empty slot among them."""
+    1) or several tiles a warp (decode_tiles > 4), with holes, staggered
+    depths and an empty slot among them."""
     lens = [int(n) for n in np.random.default_rng(9).integers(0, 300, 64)]
     lens[5] = 0
     q, k, v, table, ln = (t.to(cuda_device) for t in _decode_case(
         9, 12, 2, 128, BS=16, MB=19, lens=lens))
     table[7, 3] = -1                              # a hole below the depth
     assert PA.decode_split(64, 2, 19) > 1
+    assert PA.decode_tiles(64, 2, 19, 16) > PA.DECODE_WARPS
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-    got = PA.paged_decode_attention_cuda(q, k, v, table, ln)
-    want = PA.paged_decode_attention_plain(q, k, v, table, ln)
+    took = _decode_route(route, torch.bfloat16, 128)
+    got = PA.paged_decode_attention_cuda(
+        q, k, v, table, ln, route=None if route == "auto" else route)
+    want = PA.paged_decode_attention_plain(q, k, v, table, ln, walk=took)
     assert_close(got.float(), want.float().cpu(), atol=2e-2, equal_nan=True)
     assert torch.isnan(got[5]).all()
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("BS", [4, 16, 32])
+def test_cuda_decode_mma_split_sizes_match_plain(cuda_device, tiles, BS):
+    """The tensor-core kernel at 1 to 8 tiles a split (one to two tiles a
+    warp, splits merged by the last block), with tiles that cross blocks
+    (BS 4) and blocks that hold two tiles (BS 32), rep 16 and rep 1."""
+    for H, Hkv, D in ((16, 1, 64), (4, 4, 128)):
+        q, k, v, table, lens = (t.to(cuda_device) for t in _decode_case(
+            BS + tiles, H, Hkv, D, BS=BS, MB=640 // BS,
+            lens=(637, 300, 129, 16, 0)))
+        table[1, 2] = -1                          # a hole below the depth
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        got = PA.paged_decode_attention_cuda(q, k, v, table, lens,
+                                             tiles=tiles)
+        want = PA.paged_decode_attention_plain(q, k, v, table, lens,
+                                               walk="mma", tiles=tiles)
+        assert_close(got.float(), want.float().cpu(), atol=2e-2,
+                     equal_nan=True)
+        assert torch.isnan(got[4]).all() and not torch.isnan(got[:4]).any()
+
+
+def test_cuda_decode_mma_replays_in_a_cuda_graph(cuda_device):
+    """One call captured in a CUDA graph, new depths written into lens in
+    place between replays: each replay matches the plain version at its
+    depths, so the last block's counters are back at 0 after every run."""
+    depths = [(288, 150, 17, 0), (300, 0, 90, 33), (5, 299, 160, 1)]
+    q, k, v, table, lens = (t.to(cuda_device) for t in _decode_case(
+        11, 12, 2, 128, BS=16, MB=19, lens=depths[0]))
+    full = torch.from_numpy(np.random.default_rng(11).permutation(
+        table.numel()).astype(np.int32)).reshape(table.shape)
+    table = full.to(cuda_device)                  # every entry mapped
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    assert PA.decode_tiles(4, 2, 19, 16) < 19     # several splits merge
+    PA.paged_decode_attention_cuda(q, k, v, table, lens)   # warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = PA.paged_decode_attention_cuda(q, k, v, table, lens)
+    for d in depths[1:] + depths[:1]:
+        for _ in range(2):
+            lens.copy_(torch.tensor(d, dtype=torch.int32))
+            graph.replay()
+            want = PA.paged_decode_attention_plain(q, k, v, table, lens)
+            torch.cuda.synchronize()
+            assert_close(out.float(), want.float().cpu(), atol=2e-2,
+                         equal_nan=True)
+            empty = [b for b, n in enumerate(d) if n == 0]
+            assert all(torch.isnan(out[b]).all() for b in empty)
+
+
+_PROFILE_DECODE = """
+import json, sys, tempfile
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import paged_attention as PA
+names = {}
+for case in sys.argv[1:]:
+    dtype, D, route = json.loads(case)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn((4, 1, 12, D), generator=g, device="cuda").to(dt)
+    k, v = (torch.randn((76, 16, 2, D), generator=g, device="cuda").to(dt)
+            for _ in "kv")
+    table = torch.randperm(76, device="cuda").to(torch.int32).reshape(4, 19)
+    lens = torch.tensor([288, 150, 17, 0], dtype=torch.int32, device="cuda")
+    call = lambda: PA.paged_decode_attention_cuda(q, k, v, table, lens,
+                                                  route=route)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(tmp + "/trace.json")
+        events = json.load(open(tmp + "/trace.json"))["traceEvents"]
+    names[case] = sorted(e["name"] for e in events
+                         if e.get("cat") == "kernel")
+print(json.dumps(names))
+"""
+
+
+def test_cuda_decode_mma_is_one_launch(cuda_device):
+    """By kernel name in a torch.profiler trace (a fresh process, as for
+    flash attention): the served bf16 call launches paged_decode_mma<128>
+    and nothing else; the SIMT route launches its kernel and the merge."""
+    import json
+    import os
+    import subprocess
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [src, os.environ.get("PYTHONPATH")])))
+    cases = [json.dumps(c) for c in (("bfloat16", 128, None),
+                                     ("bfloat16", 128, "simt"),
+                                     ("float32", 64, None))]
+    out = subprocess.run([sys.executable, "-c", _PROFILE_DECODE, *cases],
+                         env=env, capture_output=True, text=True, check=True)
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    mma, simt, f32 = (names[c] for c in cases)
+    assert len(mma) == 1 and "paged_decode_mma<128>" in mma[0], mma
+    for n in (simt, f32):
+        assert len(n) == 2 and any("paged_decode_simt<" in x for x in n) \
+            and any("paged_decode_simt_merge" in x for x in n), n
 
 
 @pytest.mark.parametrize("kc", [1024, 16])
@@ -239,6 +364,21 @@ def test_cuda_wrappers_refuse_bad_operands(cuda_device):
         PA.paged_decode_attention_cuda(q, k, v, table.long(), lens)
     with pytest.raises(ValueError):
         PA.paged_decode_attention_cuda(q.cpu(), k, v, table, lens)
+    with pytest.raises(ValueError, match="mma decode route"):   # f32
+        PA.paged_decode_attention_cuda(q, k, v, table, lens, route="mma")
+    # the C entry point refuses a forced mma it cannot take: f32, D % 16
+    dec, _ = PA._fns()
+    part = torch.empty(4096, device=cuda_device)
+    count = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    for dtype, D, bf16 in ((torch.float32, 32, 0), (torch.bfloat16, 24, 1)):
+        qx = q[..., :D].contiguous().to(dtype)
+        kx, vx = (t[..., :D].contiguous().to(dtype) for t in (k, v))
+        out = torch.empty_like(qx)
+        rc = dec(qx.data_ptr(), kx.data_ptr(), vx.data_ptr(),
+                 table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                 part.data_ptr(), count.data_ptr(), 2, 4, 1, D, 16, 2, 1,
+                 bf16, 1, torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, (dtype, D, rc)            # cudaErrorInvalidValue
     x, mu, sg, _ = (t.to(cuda_device) for t in _head(1, 2, 16, 50, 2))
     with pytest.raises(ValueError):
         UH.uncertainty_head_cuda(x, mu, sg[:, :10], num_samples=2)
