@@ -15,7 +15,10 @@ Phases (any failure exits non-zero before the result line):
      attention, the LRT GEMMs and the weight-space GEMMs are each
      checked, the route of every case asserted, with route sweeps for the
      two GEMM families and a split sweep for decode attention (whose
-     served case is also timed with the L2 cold).
+     served case is also timed with the L2 cold).  The photonic convs
+     also print their conversion and MUFU counts from the SASS, and one
+     Philox call's instructions (a probe built beside the kernels), which
+     ``PHILOX_INT_OPS`` in every seeded row's bound is taken from.
   4. serve: qwen2-1.5B at full width (28 layers, d 1536, bf16 body, f32
      Bayesian head over V = 151936, S = 10 draws), random weights from a
      seed, paged KV + kernel decode attention + chunked prefill + kernel
@@ -73,10 +76,12 @@ TF32_FLOPS = 495e12
 # SMs x the 1,980 MHz boost clock (H100 SXM data sheet)
 INT32_OPS = 132 * 64 * 1.98e9
 SFU_OPS = 132 * 16 * 1.98e9
-# one Philox4x32-10 call and its four Box-Muller normals: 10 rounds of two
-# 32x32->64 products (4 integer multiplies), 4 xors and 2 key adds; then
+# one Philox4x32-10 call and its four Box-Muller normals: 39 integer-pipe
+# instructions in the sm_90a SASS (a round is two IMAD.WIDE.U32, each a
+# 32x32->64 product, and two LOP3 three-way xors; the key adds run once a
+# thread on the uniform datapath), as ``philox_sass`` prints them; then
 # 4 int->float conversions, 2 logs, 2 square roots, 2 sines, 2 cosines
-PHILOX_INT_OPS = 100
+PHILOX_INT_OPS = 39
 PHILOX_SFU_OPS = 12
 ADC_STEP = 4.0 / 127
 PAPER_KERNELS = ("photonic_conv", "photonic_conv_sampled", "bayes_matmul",
@@ -430,7 +435,7 @@ def check_decode(dev) -> dict:
               f"(L2 cold {t['cold_ms']:.4f}; {t['tiles']} tiles a split), "
               f"SIMT {t['simt_ms']:.4f}, SDPA {t['library_ms']:.4f}, bound "
               f"{t['bound_ms']:.6f} ms ({t['bound_by']})", flush=True)
-    print(f"  {hmma_counts('paged_attention', 'paged_decode_mma')}",
+    print(f"  {sass_counts('paged_attention', 'paged_decode_mma')}",
           flush=True)
     return dict(timed["served"], max_abs_err=worst)
 
@@ -538,36 +543,57 @@ def check_prefill(dev) -> dict:
               f"{t['ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
               f"({t['bound_by']}), SDPA {t['library_ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms", flush=True)
-    print(f"  {hmma_counts('paged_attention', 'paged_prefill_mma')}",
+    print(f"  {sass_counts('paged_attention', 'paged_prefill_mma')}",
           flush=True)
     return dict(timed[192], max_abs_err=worst)
 
 
-def hmma_counts(source: str, kernel: str) -> str:
-    """HMMA (tensor-core) instructions in each instantiation of ``kernel``
-    in the built library's SASS, where the toolkit has cuobjdump."""
+def sass_opcodes(binary: Path) -> dict[str, dict[str, int]]:
+    """{kernel name: {mnemonic: count}} of every function in the SASS of
+    a built library or cubin (the mnemonic with its modifiers, e.g.
+    IMAD.WIDE.U32; predicates dropped), where the toolkit has cuobjdump;
+    {} where it has none."""
+    import re
     import shutil
-
-    from repro_torch.kernels import build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        return f"SASS of {kernel}: no cuobjdump in this toolkit"
-    sass = subprocess.run([tool, "-sass", str(build.library_path(source))],
-                          capture_output=True, text=True).stdout
-    counts: dict[str, int] = {}
+        return {}
+    sass = subprocess.run([tool, "-sass", str(binary)], capture_output=True,
+                          text=True).stdout
+    counts: dict[str, dict[str, int]] = {}
     name = None
     for line in sass.splitlines():
         if "Function :" in line:
             name = kernel_name(line.split("Function :")[1].strip())
-            if kernel not in name:
-                name = None
-            else:
-                counts[name] = 0
-        elif name is not None and "HMMA" in line:
-            counts[name] += 1
-    return "HMMA instructions in the SASS: " + ", ".join(
-        f"{k} {v}" for k, v in counts.items())
+            counts[name] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)", line)
+        if name is not None and m:
+            op = m.group(1)
+            counts[name][op] = counts[name].get(op, 0) + 1
+    return counts
+
+
+def sass_counts(source: str, kernel: str, opcodes=("HMMA",)) -> str:
+    """The count of each of ``opcodes`` in each kernel of the built
+    library ``source`` whose name holds ``kernel``."""
+    from repro_torch.kernels import build
+
+    found = {k: v for k, v in sass_opcodes(
+        build.library_path(source)).items() if kernel in k}
+    if not found:
+        return f"SASS of {kernel}: no cuobjdump in this toolkit"
+    return "/".join(opcodes) + " instructions in the SASS: " + ", ".join(
+        f"{k} " + "/".join(str(opcode_count(v, o)) for o in opcodes)
+        for k, v in found.items())
+
+
+def opcode_count(mnemonics: dict[str, int], opcode: str) -> int:
+    """Instructions of ``opcode`` whatever their modifiers (HMMA counts
+    HMMA.16816.F32.BF16)."""
+    return sum(n for m, n in mnemonics.items() if m.split(".")[0] == opcode)
 
 
 def kernel_name(mangled: str) -> str:
@@ -656,8 +682,9 @@ def check_photonic(dev) -> tuple[dict, dict]:
         calls = 20 if T == 256 else 4
         b1 = bound((B * T + B * To * C + B * To) * 4, 4.0 * n_out * C,
                    F32_FLOPS)
+        # the stream's calls: exactly C normals an output, four a call
         b2 = bound((B * T + B * To) * 4, 4.0 * n_out * C, F32_FLOPS,
-                   philox_calls=n_out * -(-C // 4))
+                   philox_calls=n_out * C / 4)
         lib_ms = device_ms(lib, calls)
         for name, err, run, plain, (b_ms, b_by) in (
                 ("photonic_conv", e1,
@@ -675,7 +702,82 @@ def check_photonic(dev) -> tuple[dict, dict]:
                   f"{n_out / row['ms'] / 1e6:.3f} Gconv/s", flush=True)
             if T == 256:          # the paper phase's shape
                 rows[name] = row
+    print(f"  {sass_counts('photonic_conv', 'conv_', ('I2F', 'MUFU'))}",
+          flush=True)
+    print(f"  {philox_sass()}", flush=True)
     return rows["photonic_conv"], rows["photonic_conv_sampled"]
+
+
+# one and two chained Philox4x32-10 calls keyed as the seeded streams are
+# (key (seed, 0)), and one and two chained four-normal draws: each pair's
+# difference in the SASS is one call's instructions
+PHILOX_PROBE = r"""
+#include "philox.cuh"
+extern "C" __global__ void rounds1(uint4* v, uint32_t seed) {
+  v[threadIdx.x] = repro::philox4x32_10(v[threadIdx.x], seed, 0u);
+}
+extern "C" __global__ void rounds2(uint4* v, uint32_t seed) {
+  v[threadIdx.x] = repro::philox4x32_10(
+      repro::philox4x32_10(v[threadIdx.x], seed, 0u), seed, 0u);
+}
+extern "C" __global__ void normals1(float4* v, uint32_t seed) {
+  const uint4 c = reinterpret_cast<uint4*>(v)[threadIdx.x];
+  v[threadIdx.x] = repro::philox_normal4(c.x, c.y, c.z, c.w, seed);
+}
+extern "C" __global__ void normals2(float4* v, uint32_t seed) {
+  const uint4 c = reinterpret_cast<uint4*>(v)[threadIdx.x];
+  const float4 z = repro::philox_normal4(c.x, c.y, c.z, c.w, seed);
+  v[threadIdx.x] = repro::philox_normal4(
+      __float_as_uint(z.x), __float_as_uint(z.y), __float_as_uint(z.z),
+      __float_as_uint(z.w), seed);
+}
+"""
+# the per-thread integer datapath's opcodes (the uniform datapath's U*
+# instructions, such as the key adds, issue beside it)
+INT_OPCODES = ("IMAD", "IADD3", "LOP3", "SHF", "LEA", "PRMT", "ISETP",
+               "IMNMX", "SEL", "IABS", "IMUL")
+
+
+def philox_sass() -> str:
+    """One Philox4x32-10 call's instructions in the SASS (sm_90a, the
+    kernels' flags), from ``PHILOX_PROBE``: the integer-pipe instructions
+    of a call and of a round beside ``PHILOX_INT_OPS``, and the
+    conversions and special-function instructions of its four normals
+    (static counts: the draws' sincosf carries a slow path for large
+    arguments that 2 pi u never takes)."""
+    from repro_torch.kernels import build
+
+    out = ROOT / "build" / "philox_probe"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "probe.cu").write_text(PHILOX_PROBE)
+    cubin = out / "probe.cubin"
+    r = subprocess.run([build.nvcc(), "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                        "-cubin", "-I", str(build.CSRC), "-o", str(cubin),
+                        str(out / "probe.cu")], capture_output=True,
+                       text=True)
+    if r.returncode:
+        fail(f"Philox SASS probe: nvcc failed\n{r.stdout}{r.stderr}")
+    ops = sass_opcodes(cubin)
+    if not ops:
+        return "Philox SASS: no cuobjdump in this toolkit"
+
+    def one(name: str) -> dict[str, int]:
+        a, b = ops[f"{name}1"], ops[f"{name}2"]
+        d = {m: b.get(m, 0) - a.get(m, 0) for m in {*a, *b}}
+        return {m: n for m, n in sorted(d.items()) if n}
+
+    call, draw = one("rounds"), one("normals")
+    n_int = sum(opcode_count(call, o) for o in INT_OPCODES)
+    n_f32 = sum(opcode_count(draw, o) for o in ("FFMA", "FMUL", "FADD"))
+    return (f"Philox4x32-10 in the SASS, one call (two chained less one): "
+            f"{call}; {n_int} integer-pipe instructions, {n_int / 10:.1f} a "
+            f"round (the bounds count PHILOX_INT_OPS = {PHILOX_INT_OPS} a "
+            f"call); with its four normals (static counts): word->float "
+            f"I2FP.F32.U32 {draw.get('I2FP.F32.U32', 0)}, I2F "
+            f"{opcode_count(draw, 'I2F')}, MUFU {opcode_count(draw, 'MUFU')}"
+            f" (the bounds count PHILOX_SFU_OPS = {PHILOX_SFU_OPS}), f32 "
+            f"FFMA/FMUL/FADD {n_f32}")
 
 
 def rel_check(name: str, got, want, tol: float = 1e-4) -> float:
@@ -867,7 +969,7 @@ def check_bayes(dev) -> tuple[dict, dict]:
          "bound_ms": t["b2"][0], "bound_by": t["b2"][1],
          "library_ms": t["matmul_s"]})
     bayes_route_sweep(dev)
-    print(f"  {hmma_counts('bayes_matmul', 'bayes_gemm_mma')}", flush=True)
+    print(f"  {sass_counts('bayes_matmul', 'bayes_gemm_mma')}", flush=True)
     return rows
 
 
@@ -1003,7 +1105,7 @@ def check_lrt(dev) -> tuple[dict, dict]:
         rows = r
     rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst1, worst2
     lrt_route_sweep(dev)
-    print(f"  {hmma_counts('bayes_matmul', 'lrt_gemm_mma')}", flush=True)
+    print(f"  {sass_counts('bayes_matmul', 'lrt_gemm_mma')}", flush=True)
     return rows
 
 
@@ -1226,7 +1328,7 @@ def check_flash(dev) -> dict:
         else:
             e = bf16_check(tag, got, want)
         print(f"  {tag}: ok (max |err| {e:.3g})", flush=True)
-    print(f"  {hmma_counts('flash_attention', 'flash_fwd_mma')}", flush=True)
+    print(f"  {sass_counts('flash_attention', 'flash_fwd_mma')}", flush=True)
     row["max_abs_err"] = worst
     return row
 

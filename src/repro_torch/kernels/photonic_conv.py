@@ -16,9 +16,14 @@ on its own (no fused multiply-add), as the TPU kernel's loop does, so the
 kernel and the plain version agree bit for bit and a sum near an ADC
 level rounds the same way.  eps is either an explicit (B, To, C) operand
 (``photonic_conv_cuda``) or the TAG_CONV Philox stream of ``rng.py``
-keyed by (seed, 0) with one counter per (t, b, channel group)
-(``photonic_conv_sampled_cuda``), which never exists in memory.
-``ops.py`` picks the kernel or the plain version by the tensor's device.
+keyed by (seed, 0) (``photonic_conv_sampled_cuda``), which never exists
+in device memory: that stream is the (B, To, C) operand drawn four normals
+a Philox call in row-major order, so
+``photonic_conv_sampled(x, mu, sigma, seed)`` equals
+``photonic_conv(x, mu, sigma, rng.conv_normal(seed, ...))``.  Both kernels
+run one body (``csrc/photonic_conv.cu``): only how the block's eps tile
+is filled differs.  ``ops.py`` picks the kernel or the plain version by
+the tensor's device.
 """
 
 from __future__ import annotations
@@ -103,9 +108,11 @@ def _launch(kernel: str, x, mu, sigma, eps, seed, dac_bits, adc_bits,
     B, T = x.shape
     C = mu.shape[-1]
     To = T - C + 1
-    if not 1 <= C <= MAX_CHANNELS or To < 1 or not 1 <= B <= MAX_ROWS:
-        raise ValueError(f"need 1 <= C <= {MAX_CHANNELS}, T >= C and "
-                         f"1 <= B <= {MAX_ROWS}; got B={B}, T={T}, C={C}")
+    if not 1 <= C <= MAX_CHANNELS or To < 1 or not 1 <= B <= MAX_ROWS \
+            or To * C >= 2 ** 32:
+        raise ValueError(f"need 1 <= C <= {MAX_CHANNELS}, T >= C, "
+                         f"(T - C + 1) * C < 2^32 and 1 <= B <= {MAX_ROWS}; "
+                         f"got B={B}, T={T}, C={C}")
     if not 0 <= seed < 2 ** 32:
         raise ValueError(f"seed must be 32-bit unsigned, got {seed}")
     _check(x, "x", (B, T), dev)
@@ -139,6 +146,6 @@ def photonic_conv_cuda(x, mu, sigma, eps, *, dac_bits: int = 8,
 def photonic_conv_sampled_cuda(x, mu, sigma, seed: int, *, dac_bits: int = 8,
                                adc_bits: int = 8, in_range: float = 1.0,
                                out_range: float = 4.0) -> torch.Tensor:
-    """The kernel that draws eps in registers (TAG_CONV stream)."""
+    """The kernel that draws eps into shared memory (TAG_CONV stream)."""
     return _launch("photonic_conv_sampled", x, mu, sigma, None, seed,
                    dac_bits, adc_bits, in_range, out_range)

@@ -13,15 +13,21 @@ U[0, 1) by their top 24 bits, exactly as ``repro.kernels.rng`` does.
     (v, m, s, tag) for vocab column v, row m, sample s.  ONE normal per
     Philox call, Box-Muller's cosine output over words 0-1:
     ``sqrt(-2 log(1 - u1)) * cos(2 pi u2)``.
-  * weight space (``TAG_BAYES``) and per-symbol conv (``TAG_CONV``): key
-    (seed, 0); counter (n, k, s // 4, TAG_BAYES) for weight element
-    (k, n) and sample s, and (t, b, c // 4, TAG_CONV) for output symbol
-    t of row b and channel c.  These kernels are bound by Philox work,
-    so each call yields FOUR normals, both Box-Muller outputs of both
-    word pairs: index j = s % 4 (or c % 4) takes r0 cos, r0 sin, r1 cos,
-    r1 sin in that order, with (r0, theta0) from words 0-1 and
-    (r1, theta1) from words 2-3.  This is a contract: every seeded test
-    and every seeded result of these two streams depends on it.
+  * weight space (``TAG_BAYES``): key (seed, 0), counter
+    (n, k, s // 4, TAG_BAYES) for weight element (k, n) and sample s.
+    This kernel is bound by Philox work, so each call yields FOUR
+    normals, both Box-Muller outputs of both word pairs: index s % 4
+    takes r0 cos, r0 sin, r1 cos, r1 sin in that order, with
+    (r0, theta0) from words 0-1 and (r1, theta1) from words 2-3.
+  * per-symbol conv (``TAG_CONV``): key (seed, 0).  Row b's (To, C)
+    variates are drawn four a call in row-major order: normal
+    j = t * C + c (output symbol t, channel c) is element j % 4, in the
+    ``TAG_BAYES`` order, of the call with counter (j // 4, b, 0,
+    TAG_CONV).  So a row takes exactly To * C normals, ceil(To * C / 4)
+    calls, with none thrown away, and a variate depends on (seed, b, t,
+    c) and C alone, never on a kernel's block.
+    These two streams are a contract: every seeded test and every
+    seeded result of them depends on it.
   * output-space LRT GEMM (``TAG_LRT``): key (seed, 0), counter
     (n, m, s // 4, TAG_LRT) for output element (m, n) and sample s, four
     normals per call in the ``TAG_BAYES`` order.  The draw depends on the
@@ -150,12 +156,18 @@ def lrt_normal(seed: int, num_samples: int, m: torch.Tensor,
 def conv_normal(seed: int, b: torch.Tensor, t: torch.Tensor,
                 channels: int) -> torch.Tensor:
     """(len(b), len(t), C) per-symbol variates of the conv stream keyed by
-    seed, for rows ``b`` and output symbols ``t`` (int64 tensors)."""
-    g = _groups(channels, b.device)
-    w = philox4x32(t[None, :, None], b[:, None, None], g[None, None, :],
-                   TAG_CONV, seed, 0)
-    z = normals4(*w)                                   # (B, To, G, 4)
-    return z.reshape(len(b), len(t), -1)[..., :channels]
+    seed, for rows ``b`` and output symbols ``t`` (int64 tensors): normal
+    j = t * C + c of a row is element j % 4 of its call j // 4."""
+    C = channels
+    j = t[:, None] * C + torch.arange(C, dtype=torch.int64, device=t.device)
+    if j.numel() == 0 or len(b) == 0:
+        return torch.zeros((len(b), len(t), C), device=b.device)
+    q0 = int(j.min()) // 4          # the calls that hold t's normals
+    q = torch.arange(q0, int(j.max()) // 4 + 1, dtype=torch.int64,
+                     device=b.device)
+    w = philox4x32(q[None, :], b[:, None], 0, TAG_CONV, seed, 0)
+    z = normals4(*w).reshape(len(b), -1)               # (B, 4 * calls)
+    return z[:, j - 4 * q0]
 
 
 def element_normal(seed: int, step: int, v: torch.Tensor, m: torch.Tensor,

@@ -17,7 +17,7 @@ import torch
 
 from _torch_parity import assert_close, cuda_device  # noqa: F401
 from repro_torch.core.photonic import quantize_ste
-from repro_torch.kernels import launches, ref
+from repro_torch.kernels import launches, ref, rng
 from repro_torch.kernels import paged_attention as PA
 
 # the package exports the ops functions of the same names, which shadow
@@ -395,21 +395,101 @@ def _assert_adc_close(got, want):
                           rtol=1e-4)
 
 
-@pytest.mark.parametrize("B,T", [(3, 300), (16, 256), (1, 9), (5, 600)])
-def test_cuda_photonic_conv_matches_plain(cuda_device, B, T):
-    r = np.random.default_rng(B * T)
+def _conv(dev, B, T, C):
+    r = np.random.default_rng(B * T + C)
     x = torch.from_numpy(r.uniform(-1.5, 1.5, (B, T)).astype(
-        np.float32)).to(cuda_device)
-    mu = torch.linspace(-0.9, 0.9, 9, device=cuda_device)
+        np.float32)).to(dev)
+    mu = torch.linspace(-0.9, 0.9, C, device=dev)
     sg = 0.3 * mu.abs()
-    eps = torch.from_numpy(r.standard_normal((B, T - 8, 9)).astype(
-        np.float32)).to(cuda_device)
+    eps = torch.from_numpy(r.standard_normal((B, T - C + 1, C)).astype(
+        np.float32)).to(dev)
+    return x, mu, sg, eps
+
+
+# (B, T, C) at C 1, 4, 9 and 16: rows of one block and of several, and
+# rows whose To * C is not a multiple of 4 (T 9, 301 at C 9; 263 at C 1),
+# so that the row's last Philox call runs past its end
+@pytest.mark.parametrize("B,T,C", [
+    (3, 300, 9), (16, 256, 9), (1, 9, 9), (5, 600, 9), (4, 301, 9),
+    (2, 1000, 1), (3, 263, 1), (3, 262, 4), (2, 1100, 4), (2, 515, 16),
+    (3, 271, 16), (1, 16, 16)])
+def test_cuda_photonic_conv_matches_plain(cuda_device, B, T, C):
+    x, mu, sg, eps = _conv(cuda_device, B, T, C)
     got = PC.photonic_conv_cuda(x, mu, sg, eps)
     assert torch.equal(got, PC.photonic_conv_plain(x, mu, sg, eps))
     got = PC.photonic_conv_sampled_cuda(x, mu, sg, 17)
     _assert_adc_close(got, PC.photonic_conv_plain(x, mu, sg, seed=17))
     assert torch.equal(got, PC.photonic_conv_sampled_cuda(x, mu, sg, 17))
-    assert not torch.equal(got, PC.photonic_conv_sampled_cuda(x, mu, sg, 18))
+    # another seed draws another stream, and the kernel follows it
+    got18 = PC.photonic_conv_sampled_cuda(x, mu, sg, 18)
+    _assert_adc_close(got18, PC.photonic_conv_plain(x, mu, sg, seed=18))
+    if got.numel() > 1:     # a single output lands on one ADC level for
+        assert not torch.equal(got, got18)      # two seeds a few % of times
+
+
+@pytest.mark.parametrize("B,T,C", [(8, 256, 9), (3, 1000, 9), (2, 515, 16),
+                                   (4, 262, 4)])
+def test_cuda_sampled_conv_equals_explicit_on_the_conv_stream(
+        cuda_device, B, T, C):
+    """The seeded kernel draws the (B, To, C) operand that conv_normal
+    gives, so it equals the explicit kernel fed with that operand: bit for
+    bit, or one ADC step where the kernel's libm and PyTorch's CUDA ops
+    round a normal an ulp apart."""
+    x, mu, sg, _ = _conv(cuda_device, B, T, C)
+    To = T - C + 1
+    eps = rng.conv_normal(23, torch.arange(B, device=cuda_device),
+                              torch.arange(To, device=cuda_device), C)
+    _assert_adc_close(PC.photonic_conv_sampled_cuda(x, mu, sg, 23),
+                      PC.photonic_conv_cuda(x, mu, sg, eps))
+
+
+_PROFILE_CONV = """
+import importlib, json, tempfile
+import torch
+from torch.profiler import ProfilerActivity, profile
+PC = importlib.import_module("repro_torch.kernels.photonic_conv")
+x = torch.rand((64, 4096), device="cuda") * 2 - 1
+mu = torch.linspace(-0.5, 0.5, 9, device="cuda")
+sg = 0.2 * mu.abs()
+eps = torch.randn((64, 4088, 9), device="cuda")
+calls = {"explicit": lambda: PC.photonic_conv_cuda(x, mu, sg, eps),
+         "sampled": lambda: PC.photonic_conv_sampled_cuda(x, mu, sg, 3)}
+names = {}
+for case, call in calls.items():
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(tmp + "/trace.json")
+        events = json.load(open(tmp + "/trace.json"))["traceEvents"]
+    names[case] = sorted(e["name"] for e in events
+                         if e.get("cat") == "kernel")
+print(json.dumps(names))
+"""
+
+
+def test_cuda_photonic_conv_is_one_launch(cuda_device):
+    """By kernel name in a torch.profiler trace (a fresh process, as for
+    the attention kernels): one call of either entry point launches its
+    own kernel once and nothing else."""
+    import json
+    import os
+    import subprocess
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [src, os.environ.get("PYTHONPATH")])))
+    out = subprocess.run([sys.executable, "-c", _PROFILE_CONV], env=env,
+                         capture_output=True, text=True, check=True)
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names["explicit"]) == 1 \
+        and "conv_explicit" in names["explicit"][0], names
+    assert len(names["sampled"]) == 1 \
+        and "conv_sampled" in names["sampled"][0], names
 
 
 def _gemm(seed, M, K, N, S=None, dev="cuda"):

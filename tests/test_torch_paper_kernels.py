@@ -13,6 +13,7 @@ import torch
 from _torch_parity import assert_close, meshless_reference  # noqa: F401
 from repro.kernels import ops as JO
 from repro.kernels import ref as JR
+from repro.kernels.photonic_conv import photonic_conv_fused_kernel
 from repro_torch.kernels import ops, ref, rng
 
 # the package exports the ops functions of the same names, which shadow
@@ -115,13 +116,74 @@ def test_sampled_conv_determinism_and_mean():
 
 
 def test_conv_stream_is_keyed_by_element():
-    """A symbol's variates depend on (seed, b, t, c) alone: a sub-block of
-    rows and symbols draws exactly the slice of the full draw."""
+    """A symbol's variates depend on (seed, b, t, c) and C alone: a
+    sub-block of rows and symbols draws exactly the slice of the full draw
+    of the flat stream, starting mid-call or not (17 * 9 % 4 = 1)."""
     full = rng.conv_normal(5, torch.arange(6), torch.arange(50), 9)
     part = rng.conv_normal(5, torch.arange(2, 5), torch.arange(17, 40), 9)
     assert torch.equal(part, full[2:5, 17:40])
+    odd = rng.conv_normal(5, torch.tensor([4, 0]), torch.tensor([49, 3, 20]),
+                          9)
+    assert torch.equal(odd, full[[4, 0]][:, [49, 3, 20]])
     assert full.shape == (6, 50, 9)
     assert abs(float(full.mean())) < 0.1 and abs(float(full.std()) - 1) < 0.1
+
+
+@pytest.mark.parametrize("c", [1, 4, 9, 16])
+def test_conv_stream_draws_exactly_c_normals(c):
+    """Row b's (To, C) variates are the normals4 of calls 0 .. ceil(To C /
+    4) - 1 with counter (q, b, 0, TAG_CONV), flattened and cut to To C:
+    four normals a call, none skipped or reused."""
+    to, rows = 23, torch.tensor([0, 3, 70000])
+    got = rng.conv_normal(11, rows, torch.arange(to), c)
+    calls = -(-to * c // 4)
+    q = torch.arange(calls)
+    for i, b in enumerate(rows.tolist()):
+        w = rng.philox4x32(q, b, 0, rng.TAG_CONV, 11, 0)
+        want = rng.normals4(*w).reshape(-1)[:to * c].reshape(to, c)
+        assert torch.equal(got[i], want)
+    assert len(torch.unique(got)) == got.numel()
+
+
+@pytest.mark.parametrize("c", [4, 9])
+def test_conv_stream_moments(c):
+    """Mean 0, std 1, and no correlation between neighbouring taps that
+    share a call (r cos with r sin of one Box-Muller pair), each within
+    5 / sqrt(n) (the std's own spread is sqrt(2) / sqrt(n))."""
+    z = rng.conv_normal(2, torch.arange(64), torch.arange(500), c).double()
+    flat = z.reshape(64, -1)
+    n = flat.numel()
+    tol = 5 / np.sqrt(n)
+    assert abs(float(flat.mean())) < tol
+    assert abs(float(flat.std()) - 1) < 5 * np.sqrt(0.5 / n)
+    pairs = flat[:, :flat.shape[1] // 4 * 4].reshape(64, -1, 2, 2)
+    cos, sin = pairs[..., 0].reshape(-1), pairs[..., 1].reshape(-1)
+    corr = float((cos * sin).mean() / (cos.std() * sin.std()))
+    assert abs(corr) < 5 / np.sqrt(cos.numel())
+
+
+@pytest.mark.parametrize("b,t,c", [(8, 64, 9), (5, 40, 9), (8, 30, 4),
+                                   (1, 33, 16), (8, 18, 1)])
+def test_sampled_conv_matches_jax_on_the_conv_stream(b, t, c):
+    """The seeded plain version equals the JAX package's oracle and its
+    Pallas kernel (interpret mode) fed with the port's conv stream: equal
+    bit for bit, except at most 0.1% of outputs one ADC step apart (the
+    frameworks may sum the taps in another order)."""
+    x, mu, sg, _ = _conv_case(7 * b + t + c, b, t, c)
+    to = t - c + 1
+    eps = rng.conv_normal(21, torch.arange(b), torch.arange(to), c).numpy()
+    got = PC.photonic_conv_plain(_t(x), _t(mu), _t(sg), seed=21)
+    assert torch.equal(got, ref.photonic_conv_sampled(_t(x), _t(mu), _t(sg),
+                                                      21))
+    jx = [jnp.asarray(a) for a in (x, mu, sg, eps)]
+    for want in (JR.photonic_conv(*jx),
+                 photonic_conv_fused_kernel(*jx[:3], 21, eps=jx[3],
+                                            interpret=True)):
+        d = np.abs(got.numpy().astype(np.float64)
+                   - np.asarray(want, np.float64))
+        flips = d > 0
+        assert flips.sum() <= 0.001 * d.size, (flips.sum(), d.size)
+        np.testing.assert_allclose(d[flips], ADC_STEP, rtol=1e-4)
 
 
 # ---------------------------------------------------------------------------
