@@ -22,11 +22,24 @@ Phases (any failure exits non-zero before the result line):
   4. serve: qwen2-1.5B at full width (28 layers, d 1536, bf16 body, f32
      Bayesian head over V = 151936, S = 10 draws), random weights from a
      seed, paged KV + kernel decode attention + chunked prefill + kernel
-     entropy; the kernels' launch counts are zeroed before and read after.
-  5. profile: a shorter serve of the same path under torch.profiler:
-     device busy and idle time, kernels by kind (reported); the served
-     bf16 prefill and decode must run their tensor-core kernels and not
-     the SIMT ones, the decode one launch a layer a step.
+     entropy.  One engine, whose decode chunk is one CUDA graph replay
+     (its warm-up and capture time printed), serves the trace three
+     times; the kernels' launch counts are zeroed before each run and
+     read after it (a replay counts the launches its capture recorded);
+     decode ms a step and tok/s as median and range, beside the per-token
+     loop (``decode_loop_reference``) on the same prompts.  Then every
+     chunk of a serve run as the graph replays it against the eager chunk
+     (``steps.build_scan_decode``) on a copy of its carry, bit for bit,
+     on the kernel path with kernel entropy and on the gather path with
+     operand entropy.
+  5. profile: a shorter serve of the same path under torch.profiler,
+     in a fresh process (``--trace serve``; late in a long process the
+     profiler can drop kernels), the engine built before the window:
+     device busy and idle time,
+     kernels by kind and a decode step, host syncs by cause and a decode
+     step (reported); the served bf16 prefill and decode must run their
+     tensor-core kernels and not the SIMT ones, the decode one launch a
+     layer a step.
   6. compare: the same trace in operand-entropy mode through the kernel
      path and through the gather / batch-prefill reference (reported).
   7. paper: the machine primitive three ways (PRNG in the path, a stream
@@ -258,6 +271,7 @@ def check_head(dev) -> dict:
             fail(f"head M={M}: same seed is not bitwise deterministic")
         if torch.equal(a["H"], c["H"]):
             fail(f"head M={M}: different seeds gave the same H")
+        check_head_step(x, mu, sigma, S, M)
         if M == 4:   # the serving path's slot count
             run = lambda: UH.uncertainty_head_cuda(  # noqa: E731
                 x, mu, sigma, num_samples=S, seed=7, step=3)
@@ -267,11 +281,47 @@ def check_head(dev) -> dict:
             flops = 4.0 * M * K * V
             b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
             # no single PyTorch call computes the fused head: no library time
-            rows = {"ms": device_ms(run, 10),
+            rows = {"ms": device_ms(run, 10), "cold_ms": cold_ms(run),
                     "plain_ms": time_ms(plain, 1, 0),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            print(f"  head M=4 timed: {rows['ms']:.4f} ms (L2 cold "
+                  f"{rows['cold_ms']:.4f}), bound {b_ms:.4f} ({b_by})",
+                  flush=True)
     rows["max_abs_err"] = worst
     return rows
+
+
+def check_head_step(x, mu, sigma, S: int, M: int) -> None:
+    """The fused head's Philox step read from device memory: a call with
+    a one-element step tensor (eager, then replayed in a CUDA graph with
+    new steps written between replays) equals the call with the step as
+    an int, bit for bit, at each step."""
+    UH = kernel_module("uncertainty_head")
+    st = torch.zeros((1,), dtype=torch.int32, device=x.device)
+
+    def call():
+        return UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, seed=7,
+                                        step=st, step_offset=2)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for step in (0, 1, 41, 2 ** 31 - 3):
+        st.fill_(step)
+        eager = call()
+        graph.replay()
+        want = UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, seed=7,
+                                        step=step + 2)
+        for name, got in (("eager", eager), ("replayed", out)):
+            if not all(torch.equal(got[k].view(torch.int32),
+                                   want[k].view(torch.int32)) for k in want):
+                fail(f"head M={M}: the {name} call at device step {step} "
+                     "differs from the int step")
+    print(f"  head M={M} device step: eager and replayed calls equal the "
+          "int step bit for bit (steps 0, 1, 41, 2^31 - 3; offset 2)",
+          flush=True)
 
 
 def _pool(dev, g, NB, BS, Hkv, D):
@@ -1337,13 +1387,150 @@ def check_flash(dev) -> dict:
 # phases 4-6: serving at full width
 # --------------------------------------------------------------------------
 
-def serve_full(extra: list[str]) -> dict:
-    from repro_torch.launch.serve import build_parser, serve
+KERNEL_PATH = ["--decode-attn", "kernel", "--prefill", "chunked"]
+GATHER_PATH = ["--decode-attn", "gather", "--prefill", "batch"]
+SERVE_RUNS = 3
+
+
+def serve_args(extra: list[str]):
+    from repro_torch.launch.serve import build_parser
 
     args = build_parser().parse_args(SERVE_FLAGS + extra)
     args.reduced = False                  # full width, from Python
+    return args
+
+
+def build_serve(extra: list[str]):
+    """``(args, (engine, cfg))``: the engine at full width, its decode
+    chunk captured as a CUDA graph (set-up: nothing here is counted)."""
+    from repro_torch.launch.serve import build_engine
+
+    args = serve_args(extra)
+    return args, build_engine(args)
+
+
+def serve_full(extra: list[str], built=None) -> dict:
+    from repro_torch.launch.serve import serve
+
+    args = serve_args(extra)
     torch.cuda.synchronize()
-    return serve(args)
+    return serve(args, built)
+
+
+def spread(values: list[float], fmt: str = ".2f") -> str:
+    v = sorted(values)
+    return (f"median {v[len(v) // 2]:{fmt}} (range {v[0]:{fmt}}-"
+            f"{v[-1]:{fmt}})")
+
+
+def serve_phase(launches) -> dict:
+    """Phase 4: the kernel path (kernel entropy) served SERVE_RUNS times
+    by one engine, the launch counts zeroed just before each run and
+    checked just after it; decode ms a step and tok/s as median and
+    range; then the per-token loop (``decode_loop_reference``) on the
+    same prompts in batches of the slot count.  Returns the first run's
+    counts."""
+    from repro_torch.core.entropy import KernelEntropy
+    from repro_torch.launch.engine.runner import decode_loop_reference
+    from repro_torch.launch.serve import make_requests
+
+    t0 = time.perf_counter()
+    args, built = build_serve(KERNEL_PATH + ["--entropy", "kernel"])
+    engine, cfg = built
+    runner = engine.runner
+    print(f"serve engine built in {time.perf_counter() - t0:.1f}s; decode "
+          f"chunk graph warm-up + capture {runner.capture_s:.3f}s, "
+          f"{runner.graph_key}, launches a replay {runner.captured}",
+          flush=True)
+    counts, ms, tps, first = None, [], [], None
+    for i in range(SERVE_RUNS):
+        launches.reset()
+        r = serve_full([], built)
+        got = launches.snapshot()
+        check_serve(r, got)
+        counts = counts or got
+        # one engine, its carry reset in place between runs: the same
+        # tokens and MI every run (the head stream is keyed by seed, step)
+        seen = [(q.tokens, q.MI) for q in r["requests"]]
+        if first is not None and seen != first:
+            fail(f"serve run {i + 1} differs from run 1 on the same engine")
+        first = first or seen
+        steps = r["spec_decode"]["full_model_calls"]
+        ms.append(r["decode_s"] / steps * 1e3)
+        tps.append(r["decode_tok_per_s"])
+        print(f"serve run {i + 1}: {r['gen_tokens']} tokens, decode "
+              f"{r['decode_tok_per_s']:.1f} tok/s, e2e "
+              f"{r['e2e_tok_per_s']:.1f} tok/s, {r['prefill_chunks']} "
+              f"prefill chunks, {steps} decode steps ({ms[-1]:.2f} ms "
+              f"each), latency p50 {r['latency_p50_s']:.2f}s p99 "
+              f"{r['latency_p99_s']:.2f}s, launches {got}", flush=True)
+    print(f"serve qwen2-1.5b full width, {SERVE_RUNS} runs of one graphed "
+          f"engine: decode ms a step {spread(ms)}, decode tok/s "
+          f"{spread(tps, '.1f')}", flush=True)
+    prompts = [q.prompt for q in make_requests(args, cfg)]
+    toks = secs = 0.0
+    for b in range(0, len(prompts), args.slots):
+        ref = decode_loop_reference(
+            engine.params, engine.cfg, prompts[b:b + args.slots],
+            args.gen_len, entropy=KernelEntropy(seed=args.seed))
+        if not torch.isfinite(torch.from_numpy(ref["MI"])).all():
+            fail("per-token loop: non-finite MI")
+        toks += ref["token"].size
+        secs += ref["decode_s"]
+    print(f"per-token loop (decode_loop_reference, eager, one host sync a "
+          f"token, dense cache, batches of {args.slots}) on the same "
+          f"prompts: {toks / secs:.1f} decode tok/s", flush=True)
+    return counts
+
+
+def check_graph_chunks(extra: list[str], label: str) -> str:
+    """Every decode chunk of a serve run at full width as the graph
+    replays it against the eager chunk (``steps.build_scan_decode``
+    called directly) on a copy of the carry the replay started from:
+    tokens, H, SE, MI and p_max bit for bit, and the carry after."""
+    from repro_torch.core.entropy import KernelEntropy
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.serve import make_requests
+
+    args, (engine, cfg) = build_serve(extra)
+    runner = engine.runner
+    eager = S.build_scan_decode(
+        engine.cfg, entropy=KernelEntropy(seed=args.seed)
+        if args.entropy == "kernel" else None, chunk=args.chunk,
+        mi_threshold=args.mi_threshold, se_threshold=args.se_threshold)
+    graphed = runner.scan
+    chunks = [0]
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def checked(tok, cache, step0, active, flags):
+        copy = [tok.clone(), {k: v.clone() for k, v in cache.items()},
+                active.clone(), {k: v.clone() for k, v in flags.items()}]
+        out = graphed(tok, cache, step0, active, flags)
+        ys = torch.empty_like(runner.ys)
+        step = torch.full((1,), step0, dtype=torch.int32, device=tok.device)
+        e_tok, e_cache, e_flags, ys = eager(engine.params, copy[0], copy[1],
+                                            step, copy[2], copy[3], ys)
+        rows = [S.OUTPUTS.index(k) for k in ("token", "H", "SE", "MI",
+                                             "p_max")]
+        same = torch.equal(bits(out[3][:, rows]), bits(ys[:, rows])) \
+            and torch.equal(out[0], e_tok) \
+            and torch.equal(cache["len"], e_cache["len"]) \
+            and all(torch.equal(flags[k], e_flags[k]) for k in flags)
+        if not same:
+            fail(f"graph vs eager ({label}): chunk {chunks[0]} at step "
+                 f"{step0} differs")
+        chunks[0] += 1
+        return out
+
+    runner.scan = checked
+    r = engine.run(make_requests(args, cfg))
+    if chunks[0] == 0 or r["chunks_run"] != chunks[0]:
+        fail(f"graph vs eager ({label}): {chunks[0]} chunks compared")
+    return (f"graph vs eager chunk ({label}): {chunks[0]} chunks of "
+            f"{args.chunk} steps bit for bit (tokens, H, SE, MI, p_max, "
+            f"carry)")
 
 
 def check_serve(r: dict, counts: dict) -> None:
@@ -1404,11 +1591,23 @@ def device_trace(fn, name: str) -> dict:
             acc = table.setdefault(key, [0.0, 0])
             acc[0] += dur
             acc[1] += 1
-    syncs = sum(1 for e in events if e.get("cat") == "cuda_runtime"
-                and "Synchronize" in e.get("name", ""))
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
+    syncs = [e for e in runtime if "Synchronize" in e.get("name", "")]
+    # each sync's cause: the innermost host op around it on its thread
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    causes: dict[str, int] = {}
+    for e in syncs:
+        around = [o for o in ops if o.get("tid") == e.get("tid")
+                  and o["ts"] <= e["ts"] <= o["ts"] + o.get("dur", 0)]
+        inner = min(around, key=lambda o: o.get("dur", 0), default=None)
+        cause = f"{inner['name'] if inner else 'no op'} -> {e['name']}"
+        causes[cause] = causes.get(cause, 0) + 1
+    graphs = sum(1 for e in runtime if "GraphLaunch" in e.get("name", ""))
     return {"out": out, "busy_ms": busy / 1e3,
             "window_ms": (end - kern[0][0]) / 1e3, "kernels": len(kern),
-            "syncs": syncs, "by_kind": by_kind, "by_name": by_name}
+            "syncs": len(syncs), "sync_causes": causes,
+            "graph_launches": graphs, "by_kind": by_kind,
+            "by_name": by_name}
 
 
 def top(table: dict, n: int) -> str:
@@ -1416,16 +1615,58 @@ def top(table: dict, n: int) -> str:
                      sorted(table.items(), key=lambda kv: -kv[1][0])[:n])
 
 
+PROFILE_SERVE = KERNEL_PATH + ["--entropy", "kernel", "--num-requests", "4",
+                               "--prompt-len", "64", "--gen-len", "16"]
+
+
+def traced(kind: str) -> dict:
+    """``trace_main(kind)`` run in a fresh process (``python3
+    chip_smoke.py --trace KIND``): late in a long process torch.profiler
+    can drop a window's kernels, in part or all of them."""
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--trace", kind], capture_output=True, text=True)
+    if out.returncode != 0:
+        fail(f"trace {kind} in a fresh process failed:\n"
+             f"{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def trace_main(kind: str) -> dict:
+    """A ``device_trace`` summary, without its output: ``serve``, the
+    short kernel-path serve (the engine and its graph built before the
+    window), or ``bnn_machine`` / ``bnn_mean``, the BNN's MC prediction
+    on 800 images after one untraced call."""
+    dev = torch.device("cuda")
+    if kind == "serve":
+        _, built = build_serve(PROFILE_SERVE)
+        t = device_trace(lambda: serve_full(PROFILE_SERVE, built), kind)
+        r = t.pop("out")
+        return t | {"steps": r["spec_decode"]["full_model_calls"],
+                    "prefill_chunks": r["prefill_chunks"],
+                    "chunks_run": r["chunks_run"]}
+    if kind in ("bnn_machine", "bnn_mean"):
+        from repro_torch.models import bnn_cnn as B
+
+        cfg, _, params, x_id, _ = bnn_case(dev)
+        mode = kind[len("bnn_"):]
+        B.mc_predict(params, cfg, x_id,
+                     torch.Generator(device=dev).manual_seed(100), mode)
+        gen = torch.Generator(device=dev).manual_seed(100)
+        t = device_trace(lambda: B.mc_predict(params, cfg, x_id, gen, mode),
+                         kind)
+        del t["out"]
+        return t
+    fail(f"unknown trace {kind!r}")
+
+
 def profile_serve() -> str:
     """A short kernel-path serve under torch.profiler (1 prefill chunk per
-    request, 2 decode chunks each): device time by kind of kernel, and how
-    much of the traced window the device sits idle."""
-    t = device_trace(lambda: serve_full(
-        ["--decode-attn", "kernel", "--prefill", "chunked", "--entropy",
-         "kernel", "--num-requests", "4", "--prompt-len", "64",
-         "--gen-len", "16"]), "serve")
-    r = t["out"]
-    steps = r["spec_decode"]["full_model_calls"]
+    request, 2 decode chunks each; the engine and its graph built before
+    the window): device time by kind of kernel, how much of the traced
+    window the device sits idle, and the host syncs by cause."""
+    t = traced("serve")
+    steps = t["steps"]
     prefill = {k: v for k, v in t["by_name"].items() if "paged_prefill_" in k}
     if not any("paged_prefill_mma<128>" in k for k in prefill):
         fail(f"profile: the served prefill did not run the tensor-core "
@@ -1439,11 +1680,17 @@ def profile_serve() -> str:
             or sum(v[1] for v in decode.values()) != 28 * steps:
         fail(f"profile: the served decode did not run paged_decode_mma<128> "
              f"alone, once a layer a step ({top(decode, 4) or 'none'})")
-    return (f"profile, kernel path, {steps} decode steps + "
-            f"{r['prefill_chunks']} prefill chunks: device busy "
+    causes = ", ".join(f"{k} {n}" for k, n in sorted(
+        t["sync_causes"].items(), key=lambda kv: -kv[1]))
+    return (f"profile (a fresh process), kernel path, {steps} decode steps "
+            f"+ {t['prefill_chunks']} prefill chunks ({t['chunks_run']} decode "
+            f"chunks, {t['graph_launches']} graph launches): device busy "
             f"{t['busy_ms']:.2f} ms of a {t['window_ms']:.2f} ms window (idle "
             f"{1 - t['busy_ms'] / t['window_ms']:.1%}), {t['kernels']} "
-            f"kernels, {t['syncs']} host syncs\n"
+            f"kernels ({t['kernels'] / steps:.1f} a decode step), "
+            f"{t['syncs']} host syncs ({t['syncs'] / steps:.2f} a decode "
+            f"step)\n"
+            f"  host syncs by cause: {causes}\n"
             f"  by kind: {top(t['by_kind'], len(t['by_kind']))}\n"
             f"  top kernels: {top(t['by_name'], 8)}\n"
             f"  prefill kernels: {top(prefill, 4)}\n"
@@ -1590,10 +1837,11 @@ def paper_layers(dev, counts: dict) -> None:
           f"(im2col included), max |err| vs F.conv2d {e1:.3g}", flush=True)
 
 
-def paper_bnn(dev) -> None:
+def bnn_case(dev):
+    """The blood-cell BNN from seed 0: (cfg, CPU params, device params,
+    800 in-distribution and 800 OOD images on the device)."""
     import numpy as np
     from repro_torch.configs.registry import get_bnn_config
-    from repro_torch.core.uncertainty import auroc, predictive_moments
     from repro_torch.data.synthetic import blood_cells, blood_cells_ood
     from repro_torch.models import bnn_cnn as B
 
@@ -1607,10 +1855,17 @@ def paper_bnn(dev) -> None:
 
     cfg = get_bnn_config("bloodcell")
     pc = B.init_params(torch.Generator().manual_seed(0), cfg)
-    params = to(pc, dev)
     rng = np.random.default_rng(0)
     x_id = torch.from_numpy(blood_cells(rng, 800)[0]).to(dev)
     x_ood = torch.from_numpy(blood_cells_ood(rng, 800)[0]).to(dev)
+    return cfg, pc, to(pc, dev), x_id, x_ood
+
+
+def paper_bnn(dev) -> None:
+    from repro_torch.core.uncertainty import auroc, predictive_moments
+    from repro_torch.models import bnn_cnn as B
+
+    cfg, pc, params, x_id, x_ood = bnn_case(dev)
 
     # the card against the CPU on a small input: mean mode, and machine
     # mode with the same Gamma draws fed to both
@@ -1659,10 +1914,8 @@ def paper_bnn(dev) -> None:
               f"{t[4] * 1e3:.1f}) = {1600 / t[2]:.1f} images/s; OOD AUROC of "
               f"MI {a:.3f} (reported only: the weights are untrained)",
               flush=True)
-        gen = torch.Generator(device=dev).manual_seed(100)
-        tr = device_trace(lambda: B.mc_predict(params, cfg, x_id, gen, mode),
-                          f"bnn_{mode}")
-        print(f"    traced, 800 images: device busy {tr['busy_ms']:.2f} ms "
+        tr = traced(f"bnn_{mode}")
+        print(f"    traced (a fresh process), 800 images: device busy {tr['busy_ms']:.2f} ms "
               f"of a {tr['window_ms']:.2f} ms window, {tr['kernels']} "
               f"kernels, {tr['syncs']} host syncs; top kernels: "
               f"{top(tr['by_name'], 4)}", flush=True)
@@ -1769,6 +2022,10 @@ def main():
     import repro_torch  # noqa: F401  (pins the precision flags)
     from repro_torch.kernels import build, launches
 
+    if sys.argv[1:2] == ["--trace"]:
+        print(json.dumps(trace_main(sys.argv[2])), flush=True)
+        return
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -1805,29 +2062,24 @@ def main():
     print(f"phase kernels: {time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
-    launches.reset()
-    r = serve_full(["--decode-attn", "kernel", "--prefill", "chunked",
-                    "--entropy", "kernel"])
-    counts = launches.snapshot()
-    check_serve(r, counts)
-    steps = r["spec_decode"]["full_model_calls"]
-    print(f"serve qwen2-1.5b full width: {r['gen_tokens']} tokens, decode "
-          f"{r['decode_tok_per_s']:.1f} tok/s, e2e {r['e2e_tok_per_s']:.1f} "
-          f"tok/s, {r['prefill_chunks']} prefill chunks, {steps} decode "
-          f"steps ({r['decode_s'] / steps * 1e3:.2f} ms each), latency p50 "
-          f"{r['latency_p50_s']:.2f}s p99 {r['latency_p99_s']:.2f}s, "
-          f"launches {counts}", flush=True)
+    counts = serve_phase(launches)
     print(f"phase serve: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    print(check_graph_chunks(KERNEL_PATH + ["--entropy", "kernel"],
+                             "kernel path, kernel entropy"), flush=True)
+    print(check_graph_chunks(GATHER_PATH + ["--entropy", "operand"],
+                             "gather path, operand entropy"), flush=True)
+    print(f"phase graph vs eager: {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     t0 = time.perf_counter()
     print(profile_serve(), flush=True)
     print(f"phase profile: {time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
-    a = serve_full(["--decode-attn", "kernel", "--prefill", "chunked",
-                    "--entropy", "operand"])
-    b = serve_full(["--decode-attn", "gather", "--prefill", "batch",
-                    "--entropy", "operand"])
+    a = serve_full(KERNEL_PATH + ["--entropy", "operand"])
+    b = serve_full(GATHER_PATH + ["--entropy", "operand"])
     print(compare_plain(a, b), flush=True)
     print(f"phase compare: {time.perf_counter() - t0:.1f}s", flush=True)
 

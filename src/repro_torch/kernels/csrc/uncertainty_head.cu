@@ -102,6 +102,23 @@ __device__ __forceinline__ bool better(float b, int i, float best, int bi) {
   return b > best || (b == best && i < bi) || (isnan(b) && !isnan(best));
 }
 
+// The head stream's step: *step_at + step_off, read from device memory so
+// that a CUDA graph replays the launch at the step written there before
+// the replay (a captured chunk passes one step tensor and offsets 0, 1,
+// ...; a host int is the offset over a zero).  Unread with an explicit xi.
+// A volatile load stays where it is written: pass 1 reads the step after
+// its streaming loop.  Loaded above that loop, the step made the head 11%
+// slower at M 4 (1.168 against 1.054 ms; tools/head_ab.py, H100 at
+// 700 W).
+__device__ __forceinline__ uint32_t stream_step(const float* xi,
+                                                const uint32_t* step_at,
+                                                uint32_t step_off) {
+  if (xi) return 0u;
+  uint32_t step;
+  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(step) : "l"(step_at));
+  return step + step_off;
+}
+
 __device__ __forceinline__ float variate(const float* __restrict__ xi,
                                          uint32_t seed, uint32_t step, int S,
                                          int M, int V, int s, int m, int v) {
@@ -110,12 +127,17 @@ __device__ __forceinline__ float variate(const float* __restrict__ xi,
                                    (uint32_t)s, TAG_KERNEL);
 }
 
+// At least 6 blocks an SM: 80 registers a thread with or without it, but
+// with it ptxas schedules the streaming loop so that the head takes 1.036
+// ms at M 4 against 1.052 without (with the step a launch argument:
+// 1.027; tools/head_ab.py, H100 at 700 W, in turns within one run).
 template <typename XT>
-__global__ void __launch_bounds__(TV)
+__global__ void __launch_bounds__(TV, 6)
     head_pass1(const XT* __restrict__ x, int M, int K,
                const float* __restrict__ mu, const float* __restrict__ sg,
                int V, const float* __restrict__ xi, int S, uint32_t seed,
-               uint32_t step, float* __restrict__ mean_out,
+               const uint32_t* __restrict__ step_at, uint32_t step_off,
+               float* __restrict__ mean_out,
                float* __restrict__ std_out, float* __restrict__ logits_out,
                float* __restrict__ part, int NT) {
   __shared__ float4 xs[KC][MR / 4];
@@ -170,6 +192,7 @@ __global__ void __launch_bounds__(TV)
     }
   }
 
+  const uint32_t step = stream_step(xi, step_at, step_off);
   const int warp = tid >> 5, lane = tid & 31;
   const size_t plane = (size_t)S * M * NT;
 #pragma unroll
@@ -232,9 +255,10 @@ __global__ void __launch_bounds__(NRED)
 __global__ void __launch_bounds__(TV)
     head_pass2(const float* __restrict__ mean, const float* __restrict__ sd,
                const float* __restrict__ logits, int M, int V,
-               const float* __restrict__ xi, int S,
-               uint32_t seed, uint32_t step, const float* __restrict__ stats,
-               float* __restrict__ part2, int NT) {
+               const float* __restrict__ xi, int S, uint32_t seed,
+               const uint32_t* __restrict__ step_at, uint32_t step_off,
+               const float* __restrict__ stats, float* __restrict__ part2,
+               int NT) {
   __shared__ float smx[MAXS], sz[MAXS];
   __shared__ float rh[TV / 32], rb[TV / 32];
   __shared__ int ri[TV / 32];
@@ -243,6 +267,7 @@ __global__ void __launch_bounds__(TV)
   const int v = tile * TV + tid;
   const int m0 = blockIdx.y * MR;
   const bool col_ok = v < V;
+  const uint32_t step = stream_step(xi, step_at, step_off);
   const int warp = tid >> 5, lane = tid & 31;
   const int SM = S * M;
   const size_t plane = (size_t)M * NT;
@@ -382,29 +407,30 @@ __global__ void __launch_bounds__(NRED)
 // two-pass head (the (S, M, V) logits scratch, xi required).
 int launch_head(const void* x, int x_bf16, int M, int K, const float* mu,
                 const float* sigma, int V, const float* xi, int S,
-                uint32_t seed, uint32_t step, int tile, float* mean, float* sd,
+                uint32_t seed, const uint32_t* step_at, uint32_t step_off,
+                int tile, float* mean, float* sd,
                 float* logits, float* part1, float* stats, float* part2,
                 float* H, float* SE, float* MI, float* pmax, int* pred,
                 cudaStream_t st) {
   if (tile != TV || M < 1 || K < 1 || V < 1 || V >= (1 << 24) || S < 1 ||
-      S > MAXS || (logits && !xi))
+      S > MAXS || (logits && !xi) || (!xi && !step_at))
     return (int)cudaErrorInvalidValue;
   const int NT = (V + TV - 1) / TV;
   const dim3 grid(NT, (M + MR - 1) / MR);
   if (x_bf16)
     head_pass1<__nv_bfloat16><<<grid, TV, 0, st>>>(
-        (const __nv_bfloat16*)x, M, K, mu, sigma, V, xi, S, seed, step, mean,
-        sd, logits, part1, NT);
+        (const __nv_bfloat16*)x, M, K, mu, sigma, V, xi, S, seed, step_at,
+        step_off, mean, sd, logits, part1, NT);
   else
     head_pass1<float><<<grid, TV, 0, st>>>((const float*)x, M, K, mu, sigma,
-                                           V, xi, S, seed, step, mean, sd,
-                                           logits, part1, NT);
+                                           V, xi, S, seed, step_at, step_off,
+                                           mean, sd, logits, part1, NT);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   head_merge<<<S * M, NRED, 0, st>>>(part1, S * M, NT, stats);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  head_pass2<<<grid, TV, 0, st>>>(mean, sd, logits, M, V, xi, S, seed, step,
-                                  stats, part2, NT);
+  head_pass2<<<grid, TV, 0, st>>>(mean, sd, logits, M, V, xi, S, seed,
+                                  step_at, step_off, stats, part2, NT);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   head_final<<<M, NRED, 0, st>>>(part2, stats, M, S, NT, H, SE, MI, pmax,
                                  pred);
@@ -419,17 +445,18 @@ int launch_head(const void* x, int x_bf16, int M, int K, const float* mu,
 // head's logits S*M*V.
 //
 // The fused head: xi may be null, the variates are then drawn in-kernel
-// from Philox keyed by (seed, step).
+// from Philox keyed by (seed, step), step = *step_at + step_off read on
+// the device (step_at a device uint32 / int32, required without xi).
 extern "C" int repro_uncertainty_head(
     const void* x, int x_bf16, int M, int K, const float* mu,
     const float* sigma, int V, const float* xi, int S, uint32_t seed,
-    uint32_t step, int tile, float* mean, float* sd, float* part1,
-    float* stats, float* part2, float* H, float* SE, float* MI, float* pmax,
-    int* pred, void* stream) {
+    const uint32_t* step_at, uint32_t step_off, int tile, float* mean,
+    float* sd, float* part1, float* stats, float* part2, float* H, float* SE,
+    float* MI, float* pmax, int* pred, void* stream) {
   if (!mean || !sd) return (int)cudaErrorInvalidValue;
-  return launch_head(x, x_bf16, M, K, mu, sigma, V, xi, S, seed, step, tile,
-                     mean, sd, nullptr, part1, stats, part2, H, SE, MI, pmax,
-                     pred, (cudaStream_t)stream);
+  return launch_head(x, x_bf16, M, K, mu, sigma, V, xi, S, seed, step_at,
+                     step_off, tile, mean, sd, nullptr, part1, stats, part2,
+                     H, SE, MI, pmax, pred, (cudaStream_t)stream);
 }
 
 // The two-pass head: xi (S, M, V) is required.
@@ -439,7 +466,7 @@ extern "C" int repro_uncertainty_head_two_pass(
     float* logits, float* part1, float* stats, float* part2, float* H,
     float* SE, float* MI, float* pmax, int* pred, void* stream) {
   if (!logits) return (int)cudaErrorInvalidValue;
-  return launch_head(x, x_bf16, M, K, mu, sigma, V, xi, S, 0u, 0u, tile,
-                     nullptr, nullptr, logits, part1, stats, part2, H, SE,
-                     MI, pmax, pred, (cudaStream_t)stream);
+  return launch_head(x, x_bf16, M, K, mu, sigma, V, xi, S, 0u, nullptr, 0u,
+                     tile, nullptr, nullptr, logits, part1, stats, part2, H,
+                     SE, MI, pmax, pred, (cudaStream_t)stream);
 }

@@ -40,12 +40,17 @@ def uncertainty_head(x, mu, sigma, xi) -> dict[str, torch.Tensor]:
     return fn(x, mu, sigma, xi)
 
 
-def uncertainty_head_sampled(x, mu, sigma, seed: int, step: int,
-                             num_samples: int = 10) -> dict[str, torch.Tensor]:
+def uncertainty_head_sampled(x, mu, sigma, seed: int, step,
+                             num_samples: int = 10, step_offset: int = 0
+                             ) -> dict[str, torch.Tensor]:
     """Seeded fused head: the variates come from the Philox stream keyed
-    by (seed, step), drawn in the kernel and never stored."""
+    by (seed, step + step_offset), drawn in the kernel and never stored.
+    ``step`` is an int or a one-element int32 tensor on x's device, which
+    the kernel reads in device memory (a CUDA graph replays the call at
+    the step written there)."""
     fn = UH.uncertainty_head_cuda if _on_cuda(x) else UH.uncertainty_head_plain
-    return fn(x, mu, sigma, num_samples=num_samples, seed=seed, step=step)
+    return fn(x, mu, sigma, num_samples=num_samples, seed=seed, step=step,
+              step_offset=step_offset)
 
 
 def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):

@@ -81,7 +81,11 @@ def philox4x32(c0, c1, c2, c3, k0, k1) -> tuple[torch.Tensor, ...]:
     tensors, each in [0, 2^32)).  Returns the four output words as int64."""
     dev = next((w.device for w in (c0, c1, c2, c3, k0, k1)
                 if isinstance(w, torch.Tensor)), None)
-    c = [torch.as_tensor(w, dtype=torch.int64, device=dev)
+    # an int word is filled on the device: torch.as_tensor of a Python int
+    # on a CUDA device is a host copy that synchronises (and cannot be
+    # captured in a CUDA graph)
+    c = [w.to(torch.int64) if isinstance(w, torch.Tensor)
+         else torch.full((), w, dtype=torch.int64, device=dev)
          for w in (c0, c1, c2, c3)]
     c0, c1, c2, c3 = torch.broadcast_tensors(*c)
     k0 = k0 & _MASK

@@ -9,7 +9,12 @@ S LRT draws ``x@mu + sqrt((x*x)@sigma^2) * xi_s`` and returns per row
 H, SE, MI, pred (argmax of the mean predictive, lowest index on ties) and
 p_max.  The variates xi are either an explicit (S, M, V) operand (the
 validation path) or drawn in place from the Philox stream keyed by
-(seed, step) (``rng.py``), which never exists in memory.
+(seed, step) (``rng.py``), which never exists in memory.  ``step`` is a
+Python int or a one-element int32 tensor on the operands' device, plus
+``step_offset``: the kernel reads the tensor in device memory, so a CUDA
+graph that captured the call replays it at whatever step was written
+there (``launch/engine/runner.py``).  The plain version takes the step
+as an int.
 
 The kernel (``csrc/uncertainty_head.cu``) reads mu/sigma once, keeps the
 (M, V) mean and std in a scratch, merges per-vocab-tile online softmax
@@ -119,12 +124,13 @@ def _mean_std(x, mu, sigma):
 def uncertainty_head_plain(x: torch.Tensor, mu: torch.Tensor,
                            sigma: torch.Tensor, *, num_samples: int,
                            xi: torch.Tensor | None = None, seed: int = 0,
-                           step: int = 0,
+                           step: int | torch.Tensor = 0, step_offset: int = 0,
                            tile: int = TILE) -> dict[str, torch.Tensor]:
     """The fused head: pass 1 keeps the (M, V) mean/std, both passes
     rebuild each logits tile from it and the (replayed) variates."""
     mean, std = _mean_std(x, mu, sigma)
     S = num_samples
+    step = int(step) + step_offset
 
     def tile_logits(c0):
         return _tile_logits(mean, std, xi, seed, step, S, c0, tile)[0]
@@ -167,7 +173,7 @@ def _fn():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         u = ctypes.c_uint32
-        fn.argtypes = [p, i, i, i, p, p, i, p, i, u, u, i,
+        fn.argtypes = [p, i, i, i, p, p, i, p, i, u, p, u, i,
                        p, p, p, p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
     return fn
@@ -195,8 +201,35 @@ def _two_pass_fn():
     return fn
 
 
+# a zero int32 per device: an int step is passed as the offset over it, so
+# the kernel has one way to its step (device memory plus an offset)
+_zero_step: dict[torch.device, torch.Tensor] = {}
+
+
+def _step_operand(step, step_offset: int, dev) -> tuple[int, int]:
+    """(device address, offset) of the head stream's step."""
+    if isinstance(step, torch.Tensor):
+        _check(step.reshape(-1), "step", (torch.int32,), (1,), dev)
+        if not 0 <= step_offset < 2 ** 32:
+            raise ValueError(f"step_offset must be 32-bit unsigned, got "
+                             f"{step_offset}")
+        return step.data_ptr(), step_offset
+    step = step + step_offset
+    if not 0 <= step < 2 ** 32:
+        raise ValueError(f"step must be 32-bit unsigned, got {step}")
+    zero = _zero_step.get(dev)
+    if zero is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("an int step needs one call outside CUDA "
+                               "graph capture first (it allocates its zero)")
+        zero = _zero_step[dev] = torch.zeros((1,), dtype=torch.int32,
+                                             device=dev)
+    return zero.data_ptr(), step
+
+
 def _launch_head(kernel: str, x, mu, sigma, xi, S: int, seed: int = 0,
-                 step: int = 0) -> dict[str, torch.Tensor]:
+                 step: int | torch.Tensor = 0,
+                 step_offset: int = 0) -> dict[str, torch.Tensor]:
     """Checks the operands, allocates the scratch and the outputs, and
     launches the fused head (``kernel`` "uncertainty_head") or the two-pass
     head ("uncertainty_head_two_pass")."""
@@ -209,9 +242,8 @@ def _launch_head(kernel: str, x, mu, sigma, xi, S: int, seed: int = 0,
     V = mu.shape[-1]
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"num_samples must be in [1, {MAX_SAMPLES}], got {S}")
-    if not (0 <= seed < 2 ** 32 and 0 <= step < 2 ** 32):
-        raise ValueError(f"seed/step must be 32-bit unsigned, got "
-                         f"{seed}/{step}")
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(f"seed must be 32-bit unsigned, got {seed}")
     _check(x, "x", (torch.float32, torch.bfloat16), (M, K), dev)
     _check(mu, "mu", (torch.float32,), (K, V), dev)
     _check(sigma, "sigma", (torch.float32,), (K, V), dev)
@@ -241,8 +273,8 @@ def _launch_head(kernel: str, x, mu, sigma, xi, S: int, seed: int = 0,
         else:
             mean = torch.empty((M, V), **f32)
             std = torch.empty((M, V), **f32)
-            rc = _fn()(*head, seed, step, TILE, mean.data_ptr(),
-                       std.data_ptr(), *tail, stream)
+            rc = _fn()(*head, seed, *_step_operand(step, step_offset, dev),
+                       TILE, mean.data_ptr(), std.data_ptr(), *tail, stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc}")
     launches.COUNTS[kernel] += 1
@@ -252,11 +284,13 @@ def _launch_head(kernel: str, x, mu, sigma, xi, S: int, seed: int = 0,
 def uncertainty_head_cuda(x: torch.Tensor, mu: torch.Tensor,
                           sigma: torch.Tensor, *, num_samples: int,
                           xi: torch.Tensor | None = None, seed: int = 0,
-                          step: int = 0) -> dict[str, torch.Tensor]:
+                          step: int | torch.Tensor = 0,
+                          step_offset: int = 0) -> dict[str, torch.Tensor]:
     """The fused head; xi (S, M, V) or None for the in-kernel stream keyed
-    by (seed, step)."""
+    by (seed, step + step_offset), ``step`` an int or a one-element int32
+    device tensor that the kernel reads (never read back to the host)."""
     return _launch_head("uncertainty_head", x, mu, sigma, xi, num_samples,
-                        seed, step)
+                        seed, step, step_offset)
 
 
 def uncertainty_head_two_pass_cuda(x: torch.Tensor, mu: torch.Tensor,

@@ -5,7 +5,10 @@ the serving POLICY (layout / read-path / prefill-mode fallbacks), then
 drives the per-chunk loop: admit via ``scheduler.SlotScheduler``,
 prefill through ``runner.ModelRunner``, grant or preempt against the
 block pool, decode ``chunk`` steps, harvest the chunk's outputs with one
-host transfer, account into ``stats.ServeStats``.
+host transfer, account into ``stats.ServeStats``.  On CUDA a decode chunk
+is one replay of the runner's CUDA graph: every write between chunks
+(token carry, active mask, flag counters, block table, depths, prefill
+KV) lands in place in the tensors the graph was captured over.
 
 The prefix cache, speculative decoding, the priority policy, the MI
 escalation lane and the tensor-parallel mesh are not ported yet
@@ -110,9 +113,11 @@ class ServeEngine:
         self.prefill_mode = prefill_mode if paged \
             and M.supports_chunked_prefill(cfg) else "batch"
         self.prefill_chunk = prefill_chunk
+        # allocates the decode carry and, on CUDA, captures the chunk
         self.runner = ModelRunner(
-            params, cfg, max_len=max_len, chunk=chunk, entropy=entropy,
-            mi_threshold=mi_threshold, se_threshold=se_threshold,
+            params, cfg, num_slots=num_slots, max_len=max_len, chunk=chunk,
+            entropy=entropy, mi_threshold=mi_threshold,
+            se_threshold=se_threshold,
             kv_layout=self.kv_layout, kv_block=kv_block,
             kv_blocks=self.kv_blocks, device=self.device,
             head_noise=head_noise)
@@ -183,13 +188,7 @@ class ServeEngine:
                 sched.submit(r)
 
         runner = self.runner
-        dev = self.device
-        tok = torch.zeros((self.num_slots,), dtype=torch.int32, device=dev)
-        cache = runner.make_cache(self.num_slots)
-        active = torch.zeros((self.num_slots,), dtype=torch.bool, device=dev)
-        flags = {name: torch.zeros((self.num_slots,), dtype=torch.int32,
-                                   device=dev)
-                 for name in ("epistemic", "aleatoric")}
+        tok, cache, active, flags = runner.start()
         step0 = 0
         table_synced = -1
         # chunked-prefill bookkeeping: slot -> in-flight prompt walk, FIFO
@@ -198,18 +197,21 @@ class ServeEngine:
         jobs: collections.deque[int] = collections.deque()
         decoding: set[int] = set()
 
+        # per-slot writes into the graph's carry go through fill_, whose
+        # scalar rides in the kernel's arguments: item assignment would
+        # stage it through a host-to-device copy that synchronises
         def activate(slot, req):
             req.transition("decoding")
-            tok[slot] = int(req.prompt[-1])
-            active[slot] = True
+            tok[slot].fill_(int(req.prompt[-1]))
+            active[slot].fill_(True)
             for v in flags.values():
-                v[slot] = 0
+                v[slot].fill_(0)
             decoding.add(slot)
 
         def sync_table():
             nonlocal table_synced
             if sched.table_version != table_synced:
-                cache["block_table"] = runner.place_table(sched.block_tables)
+                runner.write_table(cache, sched.block_tables)
                 table_synced = sched.table_version
 
         try:
@@ -278,7 +280,7 @@ class ServeEngine:
                         if ids is None:
                             sched.preempt(slot)
                             decoding.discard(slot)
-                            active[slot] = False
+                            active[slot].fill_(False)
                     sync_table()
 
                 stats.trace(sched)
@@ -332,7 +334,7 @@ class ServeEngine:
                                 reason="eos" if done_eos else "length")
                             sched.evict(slot)
                             decoding.discard(slot)
-                            active[slot] = False
+                            active[slot].fill_(False)
                             break
         except BaseException:
             # slots mid-decode still hold blocks: release them so the pool

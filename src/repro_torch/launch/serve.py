@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import PORTED_FAMILIES, get_config, reduced
 from repro_torch.core.entropy import KernelEntropy
 from repro_torch.data.synthetic import TokenStreamState, token_batch
@@ -84,7 +85,11 @@ def check_ported(args, cfg) -> None:
             raise NotImplementedError(f"{flag} {_ROADMAP}")
 
 
-def serve(args) -> dict:
+def build_engine(args) -> tuple[ServeEngine, ArchConfig]:
+    """The engine the CLI serves with, and its config: random weights
+    from ``--seed`` on ``--device``.  On CUDA this captures the decode
+    chunk's graph (``ModelRunner``); the engine serves any number of
+    ``run`` calls with it."""
     cfg = get_config(args.arch)
     check_ported(args, cfg)
     if args.reduced:
@@ -111,6 +116,14 @@ def serve(args) -> dict:
         decode_attn=args.decode_attn, prefill_mode=args.prefill,
         prefill_chunk=args.prefill_chunk, trace_every=args.trace_every,
         device=device)
+    return engine, cfg
+
+
+def serve(args, built=None) -> dict:
+    """Serve ``args``' request trace; ``built`` is a ``build_engine(args)``
+    pair to serve with again (a new engine without it)."""
+    engine, cfg = built or build_engine(args)
+    device = engine.device
     result = engine.run(make_requests(args, cfg))
 
     # randomness crossing device memory per decoded token: the operand xi

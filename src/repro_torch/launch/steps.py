@@ -2,16 +2,21 @@
 
 PyTorch counterpart of the serving half of ``repro.launch.steps``.  The
 JAX package's ``jax.lax.scan`` over ``chunk`` decode steps becomes a
-Python loop that keeps every output on the device and stacks them, so
-the engine pays ONE host transfer per chunk, never one per token.
+Python loop that writes every output in place into buffers the caller
+owns (the token carry, the flag counters, the (chunk, outputs, B) ``ys``
+and the cache), so the engine pays ONE host transfer per chunk, never
+one per token, and the chunk can be captured as a CUDA graph over fixed
+addresses (``launch/engine/runner.py``): the PyTorch form of the JAX
+runner's ``jax.jit(scan_decode, donate_argnums=(2,))``.
 
 Noise keys: the head stream is keyed by (seed, step).  In kernel-entropy
 mode step is the engine's GLOBAL decode step (``step0 + t`` inside a
-chunk), as in the JAX package; in operand mode the step is unused and
-``layers.decode_head_noise`` keys by (seed, slot, depth) instead, so a
-slot's draws depend only on its own token position.  The seed is
-``entropy.seed``, or 17 without an entropy source (the JAX package's
-legacy ``PRNGKey(17)`` stream).
+chunk), as in the JAX package; ``step0`` is a one-element int32 tensor
+that the head kernel reads in device memory, with ``t`` as its offset.
+In operand mode the step is unused and ``layers.decode_head_noise`` keys
+by (seed, slot, depth) instead, so a slot's draws depend only on its own
+token position.  The seed is ``entropy.seed``, or 17 without an entropy
+source (the JAX package's legacy ``PRNGKey(17)`` stream).
 """
 
 from __future__ import annotations
@@ -32,12 +37,13 @@ def decode_seed(entropy) -> int:
 
 
 def build_decode_step(cfg: ArchConfig, entropy=None, head_noise=None):
-    """Single uncertain decode step: (params, token, cache, step) ->
-    (outputs, cache)."""
+    """Single uncertain decode step: (params, token, cache, step,
+    offset=0) -> (outputs, cache); the head stream's step is ``step +
+    offset``, ``step`` an int or a one-element int32 device tensor."""
     seed = decode_seed(entropy)
 
-    def decode_step(params, token, cache, step: int):
-        return M.decode_step(params, cfg, token, cache, (seed, step),
+    def decode_step(params, token, cache, step, offset: int = 0):
+        return M.decode_step(params, cfg, token, cache, (seed, step, offset),
                              head_noise=head_noise)
 
     return decode_step
@@ -48,30 +54,31 @@ def build_scan_decode(cfg: ArchConfig, entropy=None, chunk: int = 8,
                       head_noise=None):
     """Chunked decode: ``chunk`` tokens per host round-trip.
 
-    Returns ``scan_decode(params, token, cache, step0, active, flags) ->
-    (token, cache, flags, ys)``: ``flags`` are per-slot epistemic /
-    aleatoric counters that only ``active`` slots accumulate (device
-    telemetry: a request finishing mid-chunk keeps counting to the chunk
-    boundary), and ``ys`` is a (len(OUTPUTS), chunk, B) float32 device
-    tensor — token ids and flags are exact in float32 — that the caller
-    copies to the host once.
+    Returns ``scan_decode(params, token, cache, step0, active, flags, ys)
+    -> (token, cache, flags, ys)``, which writes every result IN PLACE and
+    returns the tensors it was given: ``token`` (B,) int32 ends as the
+    last step's tokens; ``flags`` are per-slot epistemic / aleatoric int32
+    counters that only ``active`` slots accumulate (device telemetry: a
+    request finishing mid-chunk keeps counting to the chunk boundary);
+    ``ys`` is a (chunk, len(OUTPUTS), B) float32 buffer — token ids and
+    flags are exact in float32 — that the caller copies to the host once.
+    ``step0`` is the chunk's first global step, a one-element int32
+    tensor on the cache's device.
     """
     step_fn = build_decode_step(cfg, entropy=entropy, head_noise=head_noise)
 
-    def scan_decode(params, token, cache, step0: int, active, flags):
-        rows = []
+    def scan_decode(params, token, cache, step0, active, flags, ys):
         epi, alea = flags["epistemic"], flags["aleatoric"]
         for t in range(chunk):
-            out, cache = step_fn(params, token, cache, step0 + t)
+            out, cache = step_fn(params, token, cache, step0, t)
             is_epi = out["MI"] > mi_threshold
             is_alea = (out["SE"] > se_threshold) & ~is_epi
-            rows.append(torch.stack([
-                out["next_token"].float(), out["H"], out["SE"], out["MI"],
-                out["p_max"], is_epi.float(), is_alea.float()]))
-            token = out["next_token"]
-            epi = epi + (is_epi & active).to(epi.dtype)
-            alea = alea + (is_alea & active).to(alea.dtype)
-        ys = torch.stack(rows, dim=1)                  # (outputs, chunk, B)
-        return token, cache, {"epistemic": epi, "aleatoric": alea}, ys
+            torch.stack([out["next_token"].float(), out["H"], out["SE"],
+                         out["MI"], out["p_max"], is_epi.float(),
+                         is_alea.float()], out=ys[t])
+            token.copy_(out["next_token"])
+            epi.add_((is_epi & active).to(epi.dtype))
+            alea.add_((is_alea & active).to(alea.dtype))
+        return token, cache, flags, ys
 
     return scan_decode

@@ -9,7 +9,9 @@ Caches are slot-indexed dicts: ``len`` (B,) int32 per-slot depths plus
 either dense strips (L, B, max_len, Hkv, hd) or, under the paged layout,
 block pools (L, NB + 1, BS, Hkv, hd) behind a (B, MB) ``block_table``
 (the extra block is the write sink of ``layers.paged_scatter``).  Every
-step writes the cache in place and returns the same dict.
+step writes the cache in place, ``len`` included, and returns the same
+dict holding the same tensors, so a CUDA graph captured over a decode
+step replays it on the cache's fixed addresses.
 """
 
 from __future__ import annotations
@@ -139,7 +141,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
             offset=offset, span=span, rot=rot, kv_index=kv_index)
         x = x + h
         x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
-    cache["len"][slot] = new_len
+    cache["len"][slot].fill_(new_len)  # item assignment would sync the host
     return cache
 
 
@@ -151,8 +153,8 @@ def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
     """The KV-writing decode body: embed -> blocks -> final norm.
 
     token: (B,).  Writes each slot's K/V at its PRE-step depth and returns
-    ``(hidden (B, d), cache)`` with ``len`` advanced by one (a new tensor:
-    the caller's pre-step ``len`` stays valid for the head)."""
+    ``(hidden (B, d), cache)`` with ``len`` advanced by one IN PLACE: a
+    caller that needs the pre-step depths copies them first."""
     x = L.apply_embed(params["embed"], token[:, None])
     lens = cache["len"]
     table = cache.get("block_table")
@@ -170,16 +172,17 @@ def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
         x = x + h
         x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    cache["len"] = lens + 1
+    lens.add_(1)
     return x[:, 0], cache
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
-                key: tuple[int, int], head_noise=None):
+                key: tuple, head_noise=None):
     """One uncertain decode step: (outputs, cache) with outputs =
     {next_token, H, SE, MI, p_max} per slot from ``cfg.mc_samples`` LRT
-    head draws (``uncertain_head``)."""
-    lens0 = cache["len"]
+    head draws (``uncertain_head``); ``key`` is (seed, step) or (seed,
+    step, offset) of the head stream."""
+    lens0 = cache["len"].clone()        # the body advances len in place
     hidden, cache = decode_hidden(params, cfg, token, cache)
     return U.head_outputs(params, cfg, hidden, lens0, key,
                           head_noise=head_noise), cache

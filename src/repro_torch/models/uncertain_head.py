@@ -37,16 +37,19 @@ def head_outputs(params, cfg: ArchConfig, hidden: torch.Tensor,
     """Uncertain head over a decode hidden state.
 
     hidden: (B, d); ``cache_len``: (B,) PRE-step depths (the operand noise
-    site); ``key``: (seed, step) of the head stream.  Returns
+    site); ``key``: (seed, step) or (seed, step, offset) of the head
+    stream, ``step`` an int or a one-element int32 device tensor that the
+    kernel reads (``ops.uncertainty_head_sampled``).  Returns
     {next_token, H, SE, MI, p_max} per slot.
     """
     head = params["head"]
     S = cfg.mc_samples
-    seed, step = key
+    seed, step = key[:2]
     if cfg.head_entropy == "kernel" and not cfg.logits_softcap:
         from repro_torch.kernels import ops
-        unc = ops.uncertainty_head_sampled(hidden, head["mu"], head["sigma"],
-                                           seed, step, num_samples=S)
+        unc = ops.uncertainty_head_sampled(
+            hidden, head["mu"], head["sigma"], seed, step, num_samples=S,
+            step_offset=key[2] if len(key) > 2 else 0)
         return {"next_token": unc["pred"], "H": unc["H"], "SE": unc["SE"],
                 "MI": unc["MI"], "p_max": unc["p_max"]}
     xi = (head_noise or L.decode_head_noise)(seed, cache_len, S,

@@ -97,6 +97,40 @@ def test_cuda_head_is_deterministic_per_seed_and_counts_launches(
     assert launches.snapshot()["uncertainty_head"] == 3
 
 
+def _bitwise(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+               for k in a)
+
+
+def test_cuda_head_device_step_replays_in_a_cuda_graph(cuda_device):
+    """The step read from device memory: one call captured in a CUDA graph
+    with a one-element step tensor, new steps written between replays,
+    equals the eager kernel called with the int step at each one, and an
+    eager call with the tensor equals it too (same stream, same bits)."""
+    x, mu, sg, _ = (t.to(cuda_device) for t in _head(6, 4, 64, 900, 10))
+    step = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+
+    def call():
+        return UH.uncertainty_head_cuda(x, mu, sg, num_samples=10, seed=7,
+                                        step=step, step_offset=3)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    seen = []
+    for s in (0, 5, 1, 2 ** 31 - 4, 5):
+        step.fill_(s)
+        graph.replay()
+        want = UH.uncertainty_head_cuda(x, mu, sg, num_samples=10, seed=7,
+                                        step=s + 3)
+        assert _bitwise(out, want) and _bitwise(call(), want), s
+        seen.append(out["H"].clone())
+    assert not torch.equal(seen[0], seen[1]) and torch.equal(seen[1],
+                                                             seen[4])
+
+
 def _decode_route(route, dtype, D):
     """The kernel a decode call takes: ``route`` forced, or for "auto"
     ``decode_route``'s (bf16 with D % 16 == 0 on the tensor cores)."""
@@ -280,15 +314,57 @@ def _prefill_bf16(dev, seed, S, H, Hkv, D, BS, span, hole=None):
     return q, k, v, torch.from_numpy(row).to(dev)
 
 
-def _prefill_kernels(fn):
-    """Names of the prefill kernels ``fn`` launches, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
+_PROFILE_PREFILL = """
+import json, sys, tempfile
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+from test_torch_kernels_cuda import _prefill_bf16
+from repro_torch.kernels import launches
+from repro_torch.kernels import paged_attention as PA
+out = {}
+for case in sys.argv[2:]:
+    seed, S, H, Hkv, D, offset, span = json.loads(case)
+    q, k, v, row = _prefill_bf16("cuda", seed, S, H, Hkv, D, 16, span)
+    call = lambda: PA.paged_prefill_attention_cuda(q, k, v, row, offset, span)
+    call()
+    torch.cuda.synchronize()
+    launches.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        call()
         torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages() if "paged_prefill_" in e.key}
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(tmp + "/trace.json")
+        events = json.load(open(tmp + "/trace.json"))["traceEvents"]
+    out[case] = {"names": sorted(e["name"] for e in events
+                                 if e.get("cat") == "kernel"
+                                 and "paged_prefill_" in e["name"]),
+                 "launches": launches.snapshot()["paged_prefill_attention"]}
+print(json.dumps(out))
+"""
+
+
+def _prefill_kernels(*cases):
+    """Per case (seed, S, H, Hkv, D, offset, span) of ``_prefill_bf16``:
+    the names of the prefill kernels one call launches, from torch.profiler
+    in a fresh process (in the test process it records no kernels when
+    the test runs alone), and the call's launch count."""
+    import json
+    import os
+    import subprocess
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(here.parent / "src"),
+                      os.environ.get("PYTHONPATH")])))
+    args = [json.dumps(c) for c in cases]
+    out = subprocess.run([sys.executable, "-c", _PROFILE_PREFILL, str(here),
+                          *args], env=env, capture_output=True, text=True,
+                         check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    return [got[a] for a in args]
 
 
 @pytest.mark.parametrize("kc", [1024, 64])
@@ -330,17 +406,15 @@ def test_cuda_prefill_mma_matches_plain(cuda_device, S, H, Hkv, D, BS,
 def test_cuda_prefill_routes_by_dtype_and_head_dim(cuda_device):
     """bf16 at D 128 launches the tensor-core kernel; bf16 at D 72 (not a
     multiple of 16) launches the SIMT kernel and agrees all the same."""
-    q, k, v, row = _prefill_bf16(cuda_device, 1, 64, 12, 2, 128, 16, 256)
-    launches.reset()
-    names = _prefill_kernels(lambda: PA.paged_prefill_attention_cuda(
-        q, k, v, row, 192, 256))
-    assert launches.snapshot()["paged_prefill_attention"] == 1
+    mma, simt = _prefill_kernels((1, 64, 12, 2, 128, 192, 256),
+                                 (2, 20, 4, 2, 72, 16, 48))
+    assert mma["launches"] == 1 and simt["launches"] == 1
+    names = mma["names"]
     assert any("paged_prefill_mma<128>" in n for n in names), names
     assert not any("paged_prefill_simt" in n for n in names), names
     assert PA.prefill_route(torch.bfloat16, 72) == "simt"
     q, k, v, row = _prefill_bf16(cuda_device, 2, 20, 4, 2, 72, 16, 48)
-    names = _prefill_kernels(lambda: PA.paged_prefill_attention_cuda(
-        q, k, v, row, 16, 48))
+    names = simt["names"]
     assert any("paged_prefill_simt" in n for n in names), names
     assert not any("paged_prefill_mma" in n for n in names), names
     got = PA.paged_prefill_attention_cuda(q, k, v, row, 16, 48)
@@ -952,6 +1026,112 @@ def test_cuda_lm_wrappers_refuse_bad_operands(cuda_device):
     q, k, v = _attn(2, 1, 8, 8, 4, 2, 32, torch.float32)
     with pytest.raises(TypeError):
         FA.flash_attention_cuda(q.to(torch.bfloat16), k, v)
+
+
+def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4):
+    """A reduced qwen2 (2 layers, D 32, V 512) runner on the card: paged KV
+    of 3 slots, the chunk captured as a CUDA graph."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.core.entropy import KernelEntropy
+    from repro_torch.launch.engine.runner import ModelRunner
+    from repro_torch.models import registry as TM
+
+    cfg = dataclasses.replace(reduced(get_config("qwen2_1_5b")),
+                              head_entropy=entropy, decode_attn=decode_attn)
+    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    return ModelRunner(params, cfg, num_slots=3, max_len=32, chunk=chunk,
+                       entropy=KernelEntropy(seed=5), mi_threshold=0.05,
+                       se_threshold=1.0, kv_layout="paged", kv_block=4,
+                       kv_blocks=24, device=dev)
+
+
+@pytest.mark.parametrize("entropy,decode_attn", [("kernel", "kernel"),
+                                                 ("operand", "gather")])
+def test_cuda_captured_chunk_equals_the_eager_chunk(cuda_device, entropy,
+                                                    decode_attn):
+    """Three replays with a slot admitted (prefilled, activated) before
+    each: every replay equals the eager chunk run on a copy of the carry
+    it started from, bit for bit (outputs, tokens, depths, counters)."""
+    from repro_torch.launch import steps as S
+
+    runner = _graph_runner(cuda_device, entropy, decode_attn)
+    assert runner.graph is not None
+    r = np.random.default_rng(3)
+    with torch.inference_mode():
+        tok, cache, active, flags = runner.start()
+        table = np.full((3, 8), -1, np.int32)
+        table[:, :6] = r.permutation(24)[:18].reshape(3, 6)
+        runner.write_table(cache, table)
+        for slot, step0 in ((0, 0), (1, 4), (2, 8)):
+            prompt = r.integers(1, 511, size=9 + slot).astype(np.int32)
+            runner.prefill(cache, slot, prompt, table[slot])
+            tok[slot] = int(prompt[-1])
+            active[slot] = True
+            copy = (tok.clone(), {k: v.clone() for k, v in cache.items()},
+                    active.clone(), {k: v.clone() for k, v in flags.items()})
+            out = runner.scan(tok, cache, step0, active, flags)
+            ys = torch.empty_like(runner.ys)
+            step = torch.full((1,), step0, dtype=torch.int32,
+                              device=cuda_device)
+            want = runner._scan(runner.params, copy[0], copy[1], step,
+                                copy[2], copy[3], ys)
+            assert torch.equal(out[3].view(torch.int32),
+                               want[3].view(torch.int32)), slot
+            assert torch.equal(out[0], want[0])
+            assert torch.equal(cache["len"], want[1]["len"])
+            assert all(torch.equal(flags[k], want[2][k]) for k in flags)
+            live = out[3][:, S.OUTPUTS.index("MI"), :slot + 1]
+            assert torch.isfinite(live).all() and (live >= 0).all()
+
+
+def test_cuda_replays_count_the_captured_launches(cuda_device):
+    """A replay calls no wrapper: the runner adds the launches recorded at
+    capture (one decode launch a layer a step, here 2 layers x 4 steps,
+    and one head a step) once per replay."""
+    runner = _graph_runner(cuda_device)
+    assert runner.captured == {"paged_decode_attention": 2 * 4,
+                               "uncertainty_head": 4}
+    launches.reset()
+    with torch.inference_mode():
+        tok, cache, active, flags = runner.start()
+        for n in range(5):
+            runner.scan(tok, cache, 4 * n, active, flags)
+    torch.cuda.synchronize()
+    got = launches.snapshot()
+    assert {k: v for k, v in got.items() if v} == {
+        k: 5 * v for k, v in runner.captured.items()}
+
+
+def test_cuda_writes_between_chunks_do_not_synchronize(cuda_device):
+    """What the engine writes into the graph's carry between replays (the
+    block table, a slot's depth, token and flags, a prompt chunk) and the
+    replay itself queue without a host sync; an item assignment of a
+    Python scalar would sync (it stages the scalar through a host copy)."""
+    runner = _graph_runner(cuda_device)
+    prompt = np.arange(1, 9, dtype=np.int32)
+    table = np.full((3, 8), -1, np.int32)
+    table[0, :4] = (3, 9, 1, 7)
+    with torch.inference_mode():
+        tok, cache, active, flags = runner.start()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runner.write_table(cache, table)
+            runner.set_len(cache, 0, 0)
+            runner.prefill_chunk(cache, 0, prompt, 0, 8, 8)
+            tok[0].fill_(int(prompt[-1]))
+            active[0].fill_(True)
+            flags["epistemic"][0].fill_(0)
+            runner.scan(tok, cache, 0, active, flags)
+            with pytest.raises(RuntimeError):
+                tok[1] = 5
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert int(cache["len"][0]) == 8 + runner.chunk
+    assert torch.equal(cache["block_table"].cpu(), torch.from_numpy(table))
 
 
 if __name__ == "__main__":
