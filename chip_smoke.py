@@ -18,7 +18,9 @@ Phases (any failure exits non-zero before the result line):
      served case is also timed with the L2 cold).  The photonic convs
      also print their conversion and MUFU counts from the SASS, and one
      Philox call's instructions (a probe built beside the kernels), which
-     ``PHILOX_INT_OPS`` in every seeded row's bound is taken from.
+     ``PHILOX_INT_OPS`` in every seeded row's bound is taken from.  The
+     three serving kernels are also held and timed at deepseek-moe-16b's
+     shapes (MHA at H = Hkv = 16; the head at K 2048, V 102400).
   4. serve: qwen2-1.5B at full width (28 layers, d 1536, bf16 body, f32
      Bayesian head over V = 151936, S = 10 draws), random weights from a
      seed, paged KV + kernel decode attention + chunked prefill + kernel
@@ -55,14 +57,25 @@ Phases (any failure exits non-zero before the result line):
      qwen2-1.5B's widths, each call's launches counted around it alone
      (its own kernel, no other), checked against plain f32 GEMMs, the
      fused head and the models' attention, and timed.
-  9. one JSON line of per-kernel numbers (eleven kernels), the card's
-     nvidia-smi line, then the result line.
+  9. moe: deepseek-moe-16b at full width (28 layers, d 2048, 64 routed
+     experts top-6 + 2 shared) on phase 4's trace through the kernel path,
+     served three times by one graphed engine (init and capture time,
+     peak memory, decode ms a step and tok/s as median and range, the
+     launch counts checked per run), every chunk of a fourth run against
+     the eager chunk bit for bit, then operand entropy through the kernel
+     path against the gather / batch-prefill path (whose chunks are held
+     against the eager chunk too), on the same parameters; then phase
+     5's profile of a short moe serve in a fresh process.
+ 10. one JSON line of per-kernel numbers (eleven kernels; the serving
+     kernels' launches are phase 4's first run plus phase 9's), the
+     card's nvidia-smi line, then the result line.
 
 Imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -229,10 +242,9 @@ def compare_heads(tag: str, got: dict, want: dict, x, mu, sigma, xi) -> float:
     return worst
 
 
-def head_case(dev, seed):
-    """qwen2-1.5B's head widths: K 1536, V 151936; mu ~ N(0, 1/K), sigma in
-    [0.01, 0.06)."""
-    K, V = 1536, 151936
+def head_case(dev, seed, K=1536, V=151936):
+    """The head at qwen2-1.5B's widths (K 1536, V 151936) or others; mu ~
+    N(0, 1/K), sigma in [0.01, 0.06)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     mu = torch.randn((K, V), generator=g, device=dev) / math.sqrt(K)
     sigma = 0.01 + 0.05 * torch.rand((K, V), generator=g, device=dev)
@@ -329,11 +341,12 @@ def _pool(dev, g, NB, BS, Hkv, D):
             .to(torch.bfloat16))
 
 
-def decode_case(dev, lens_l, MB, seed, D=128, dtype=torch.bfloat16):
-    """qwen2-1.5B's decode attention widths (H 12, Hkv 2, BS 16): slots of
-    the given depths, each row's blocks shuffled through the pool with
-    -1 tails."""
-    B, H, Hkv, BS = len(lens_l), 12, 2, 16
+def decode_case(dev, lens_l, MB, seed, D=128, dtype=torch.bfloat16, H=12,
+                Hkv=2):
+    """Decode attention at qwen2-1.5B's widths (H 12, Hkv 2, BS 16) or
+    others: slots of the given depths, each row's blocks shuffled through
+    the pool with -1 tails."""
+    B, BS = len(lens_l), 16
     NB = B * MB
     g = torch.Generator(device=dev).manual_seed(seed)
     k_pool, v_pool = (_pool(dev, g, NB, BS, Hkv, D).to(dtype) for _ in "kv")
@@ -596,6 +609,135 @@ def check_prefill(dev) -> dict:
     print(f"  {sass_counts('paged_attention', 'paged_prefill_mma')}",
           flush=True)
     return dict(timed[192], max_abs_err=worst)
+
+
+# deepseek-moe-16b's shapes on the served path: MHA (H = Hkv = 16, D 128,
+# GQA ratio 1) and the head at K 2048, V 102400
+MOE_H, MOE_HKV, MOE_K, MOE_V = 16, 16, 2048, 102400
+
+
+def check_moe_shapes(dev) -> dict:
+    """The three serving kernels at deepseek-moe-16b's shapes, each against
+    its plain version, timed beside its bound and, where one exists, its
+    library yardstick: decode attention (4 slots at the served depths,
+    ratio 1, where most of the tensor-core kernel's 16 mma rows are
+    padding), prefill attention (S 64 at offsets 0 and 192 of span 256)
+    and the fused head (M 4, S 10, Philox and explicit xi).  Returns the
+    times by kernel for the moe phase's report."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import layers as L
+    UH = kernel_module("uncertainty_head")
+
+    out = {}
+    H, Hkv, D, BS = MOE_H, MOE_HKV, 128, 16
+    tol = 2e-2                        # one bf16 ulp of O(1) outputs
+    lens_l = [288, 150, 17, 0]
+    q, k_pool, v_pool, table, lens = decode_case(dev, lens_l, 19, 3, H=H,
+                                                 Hkv=Hkv)
+    eff = L.mapped_span(table, k_pool.shape[1], lens)
+    gather = L.decode_attention(q, L.paged_gather(k_pool, table),
+                                L.paged_gather(v_pool, table), eff)
+    got = PA.paged_decode_attention_cuda(q, k_pool, v_pool, table, lens)
+    want = PA.paged_decode_attention_plain(q, k_pool, v_pool, table, lens)
+    torch.cuda.synchronize()
+    e = max(max_err(got, want), max_err(got, gather))
+    if PA.decode_route(q.dtype, D) != "mma" or not e <= tol \
+            or not same_nan(got, want) or not torch.isnan(got[3]).all() \
+            or torch.isnan(got[:3]).any():
+        fail(f"decode attention at deepseek's MHA: max |err| {e:.3g} > "
+             f"{tol} or NaN not exactly on the empty slot")
+    lib, live = sdpa_call(q, k_pool, v_pool, table, lens)
+    if not max_err(got[live], lib().transpose(1, 2)) <= tol:
+        fail("decode attention at deepseek's MHA: SDPA differs")
+    run = lambda: PA.paged_decode_attention_cuda(  # noqa: E731
+        q, k_pool, v_pool, table, lens)
+    b_ms, b_by = decode_bound(q, lens_l, Hkv)
+    out["paged_decode_attention"] = {
+        "max_abs_err": e, "ms": device_ms(run, 100), "cold_ms": cold_ms(run),
+        "plain_ms": time_ms(lambda: PA.paged_decode_attention_plain(
+            q, k_pool, v_pool, table, lens), 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": device_ms(lib, 100)}
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    NB = 4 * 19
+    k_pool, v_pool = (_pool(dev, g, NB, BS, Hkv, D) for _ in "kv")
+    perm = torch.randperm(NB, generator=torch.Generator().manual_seed(7))
+    row = perm[:256 // BS].to(torch.int32).reshape(1, -1).to(dev)
+    for offset in (0, 192):
+        S, span = 64, 256
+        q = torch.randn((1, S, H, D), generator=g,
+                        device=dev).to(torch.bfloat16)
+        got = PA.paged_prefill_attention_cuda(q, k_pool, v_pool, row, offset,
+                                              span, 1024)
+        want = PA.paged_prefill_attention_plain(q, k_pool, v_pool, row,
+                                                offset, span, 1024)
+        ref = L.flash_attention(q, L.paged_gather(k_pool, row)[:, :span],
+                                L.paged_gather(v_pool, row)[:, :span],
+                                causal=True, q_offset=offset)
+        torch.cuda.synchronize()
+        e = max(max_err(got, want), max_err(got, ref))
+        if PA.prefill_route(q.dtype, D) != "mma" or not e <= tol \
+                or torch.isnan(got).any():
+            fail(f"prefill attention at deepseek's MHA, offset {offset}: "
+                 f"max |err| {e:.3g} > {tol} or NaN")
+        kx, vx = (L.paged_gather(p, row)[:, :span].transpose(1, 2)
+                  .contiguous() for p in (k_pool, v_pool))
+        qx = q.transpose(1, 2).contiguous()
+        mask = (torch.arange(span, device=dev)[None, :]
+                <= offset + torch.arange(S, device=dev)[:, None])
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qx, kx, vx, attn_mask=mask)
+        if not max_err(got, lib().transpose(1, 2)) <= tol:
+            fail(f"prefill attention at deepseek's MHA: SDPA differs at "
+                 f"offset {offset}")
+        keys = min(offset + S, span)
+        pairs = sum(min(offset + i + 1, span) for i in range(S))
+        b_ms, b_by = bound(2 * q.numel() * 2 + keys * Hkv * D * 2 * 2,
+                           4.0 * pairs * H * D, BF16_FLOPS)
+        out[f"paged_prefill_attention offset {offset}"] = {
+            "max_abs_err": e,
+            "ms": device_ms(lambda: PA.paged_prefill_attention_cuda(
+                q, k_pool, v_pool, row, offset, span, 1024), 50),
+            "plain_ms": time_ms(lambda: PA.paged_prefill_attention_plain(
+                q, k_pool, v_pool, row, offset, span, 1024), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": device_ms(lib, 50)}
+
+    S, M = 10, 4
+    mu, sigma, g = head_case(dev, 8, MOE_K, MOE_V)
+    x = torch.randn((M, MOE_K), generator=g, device=dev).to(torch.bfloat16)
+    xi = torch.randn((S, M, MOE_V), generator=g, device=dev)
+    from repro_torch.kernels import rng
+    worst, plain_ms = 0.0, None
+    for mode, kw in (("xi", {"xi": xi}), ("philox", {"seed": 7, "step": 3})):
+        got = UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, **kw)
+        t0 = time.perf_counter()
+        want = UH.uncertainty_head_plain(x, mu, sigma, num_samples=S, **kw)
+        torch.cuda.synchronize()
+        if mode == "philox":
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        xi_full = xi if mode == "xi" else rng.head_normal(
+            7, 3, S, M, torch.arange(MOE_V, device=dev))
+        worst = max(worst, compare_heads(f"head at deepseek's widths {mode}",
+                                         got, want, x, mu, sigma, xi_full))
+    run = lambda: UH.uncertainty_head_cuda(  # noqa: E731
+        x, mu, sigma, num_samples=S, seed=7, step=3)
+    b_ms, b_by = bound(M * MOE_K * 2 + 2 * MOE_K * MOE_V * 4 + 5 * M * 4,
+                       4.0 * M * MOE_K * MOE_V, F32_FLOPS)
+    out["uncertainty_head"] = {
+        "max_abs_err": worst, "ms": device_ms(run, 10), "cold_ms": cold_ms(run),
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}
+    for name, t in out.items():
+        print(f"  {name} at deepseek-moe-16b's shapes: ok (max |err| "
+              f"{t['max_abs_err']:.3g}), {t['ms']:.4f} ms"
+              + (f" (L2 cold {t['cold_ms']:.4f})" if "cold_ms" in t else "")
+              + f", bound {t['bound_ms']:.6f} ms ({t['bound_by']}), plain "
+              f"{t['plain_ms']:.3f} ms, library "
+              + (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
+                 else "none"), flush=True)
+    return out
 
 
 def sass_opcodes(binary: Path) -> dict[str, dict[str, int]]:
@@ -1392,27 +1534,28 @@ GATHER_PATH = ["--decode-attn", "gather", "--prefill", "batch"]
 SERVE_RUNS = 3
 
 
-def serve_args(extra: list[str]):
+def serve_args(extra: list[str], flags: list[str] = SERVE_FLAGS):
     from repro_torch.launch.serve import build_parser
 
-    args = build_parser().parse_args(SERVE_FLAGS + extra)
+    args = build_parser().parse_args(flags + extra)
     args.reduced = False                  # full width, from Python
     return args
 
 
-def build_serve(extra: list[str]):
+def build_serve(extra: list[str], flags: list[str] = SERVE_FLAGS):
     """``(args, (engine, cfg))``: the engine at full width, its decode
     chunk captured as a CUDA graph (set-up: nothing here is counted)."""
     from repro_torch.launch.serve import build_engine
 
-    args = serve_args(extra)
+    args = serve_args(extra, flags)
     return args, build_engine(args)
 
 
-def serve_full(extra: list[str], built=None) -> dict:
+def serve_full(extra: list[str], built=None,
+               flags: list[str] = SERVE_FLAGS) -> dict:
     from repro_torch.launch.serve import serve
 
-    args = serve_args(extra)
+    args = serve_args(extra, flags)
     torch.cuda.synchronize()
     return serve(args, built)
 
@@ -1442,31 +1585,7 @@ def serve_phase(launches) -> dict:
           f"chunk graph warm-up + capture {runner.capture_s:.3f}s, "
           f"{runner.graph_key}, launches a replay {runner.captured}",
           flush=True)
-    counts, ms, tps, first = None, [], [], None
-    for i in range(SERVE_RUNS):
-        launches.reset()
-        r = serve_full([], built)
-        got = launches.snapshot()
-        check_serve(r, got)
-        counts = counts or got
-        # one engine, its carry reset in place between runs: the same
-        # tokens and MI every run (the head stream is keyed by seed, step)
-        seen = [(q.tokens, q.MI) for q in r["requests"]]
-        if first is not None and seen != first:
-            fail(f"serve run {i + 1} differs from run 1 on the same engine")
-        first = first or seen
-        steps = r["spec_decode"]["full_model_calls"]
-        ms.append(r["decode_s"] / steps * 1e3)
-        tps.append(r["decode_tok_per_s"])
-        print(f"serve run {i + 1}: {r['gen_tokens']} tokens, decode "
-              f"{r['decode_tok_per_s']:.1f} tok/s, e2e "
-              f"{r['e2e_tok_per_s']:.1f} tok/s, {r['prefill_chunks']} "
-              f"prefill chunks, {steps} decode steps ({ms[-1]:.2f} ms "
-              f"each), latency p50 {r['latency_p50_s']:.2f}s p99 "
-              f"{r['latency_p99_s']:.2f}s, launches {got}", flush=True)
-    print(f"serve qwen2-1.5b full width, {SERVE_RUNS} runs of one graphed "
-          f"engine: decode ms a step {spread(ms)}, decode tok/s "
-          f"{spread(tps, '.1f')}", flush=True)
+    counts = serve_runs(args, built, "serve", launches)
     prompts = [q.prompt for q in make_requests(args, cfg)]
     toks = secs = 0.0
     for b in range(0, len(prompts), args.slots):
@@ -1483,16 +1602,62 @@ def serve_phase(launches) -> dict:
     return counts
 
 
+def serve_runs(args, built, label: str, launches) -> dict:
+    """``args``' trace served SERVE_RUNS times by the engine ``built``,
+    the launch counts zeroed just before each run and checked just after
+    it (``check_serve``); every run must give run 1's tokens and MI (one
+    engine, its carry reset in place between runs; the head stream is
+    keyed by seed and step).  Prints each run and decode ms a step and
+    tok/s as median and range; returns the first run's counts."""
+    from repro_torch.launch.serve import serve
+
+    engine, cfg = built
+    counts, ms, tps, first = None, [], [], None
+    for i in range(SERVE_RUNS):
+        launches.reset()
+        torch.cuda.synchronize()
+        r = serve(args, built)
+        got = launches.snapshot()
+        check_serve(r, got, cfg.num_layers)
+        counts = counts or got
+        seen = [(q.tokens, q.MI) for q in r["requests"]]
+        if first is not None and seen != first:
+            fail(f"{label} run {i + 1} differs from run 1 on the same "
+                 "engine")
+        first = first or seen
+        steps = r["spec_decode"]["full_model_calls"]
+        ms.append(r["decode_s"] / steps * 1e3)
+        tps.append(r["decode_tok_per_s"])
+        print(f"{label} run {i + 1}: {r['gen_tokens']} tokens, decode "
+              f"{r['decode_tok_per_s']:.1f} tok/s, e2e "
+              f"{r['e2e_tok_per_s']:.1f} tok/s, {r['prefill_chunks']} "
+              f"prefill chunks, {steps} decode steps ({ms[-1]:.2f} ms "
+              f"each), latency p50 {r['latency_p50_s']:.2f}s p99 "
+              f"{r['latency_p99_s']:.2f}s, launches {got}", flush=True)
+    print(f"{label} {cfg.name} full width, {SERVE_RUNS} runs of one graphed "
+          f"engine: decode ms a step {spread(ms)}, decode tok/s "
+          f"{spread(tps, '.1f')}", flush=True)
+    return counts
+
+
 def check_graph_chunks(extra: list[str], label: str) -> str:
     """Every decode chunk of a serve run at full width as the graph
     replays it against the eager chunk (``steps.build_scan_decode``
     called directly) on a copy of the carry the replay started from:
     tokens, H, SE, MI and p_max bit for bit, and the carry after."""
+    args, built = build_serve(extra)
+    return graph_vs_eager(args, built, label)[1]
+
+
+def graph_vs_eager(args, built, label: str) -> tuple[dict, str]:
+    """``check_graph_chunks`` on an engine already built: one serve run of
+    ``args``' trace with every chunk checked; returns (the run, the
+    report)."""
     from repro_torch.core.entropy import KernelEntropy
     from repro_torch.launch import steps as S
     from repro_torch.launch.serve import make_requests
 
-    args, (engine, cfg) = build_serve(extra)
+    engine, cfg = built
     runner = engine.runner
     eager = S.build_scan_decode(
         engine.cfg, entropy=KernelEntropy(seed=args.seed)
@@ -1525,18 +1690,21 @@ def check_graph_chunks(extra: list[str], label: str) -> str:
         return out
 
     runner.scan = checked
-    r = engine.run(make_requests(args, cfg))
+    try:
+        r = engine.run(make_requests(args, cfg))
+    finally:
+        del runner.scan
     if chunks[0] == 0 or r["chunks_run"] != chunks[0]:
         fail(f"graph vs eager ({label}): {chunks[0]} chunks compared")
-    return (f"graph vs eager chunk ({label}): {chunks[0]} chunks of "
-            f"{args.chunk} steps bit for bit (tokens, H, SE, MI, p_max, "
-            f"carry)")
+    return r, (f"graph vs eager chunk ({label}): {chunks[0]} chunks of "
+               f"{args.chunk} steps bit for bit (tokens, H, SE, MI, p_max, "
+               f"carry)")
 
 
-def check_serve(r: dict, counts: dict) -> None:
+def check_serve(r: dict, counts: dict, layers: int = 28) -> None:
     steps, chunks = r["spec_decode"]["full_model_calls"], r["prefill_chunks"]
-    want = {"paged_decode_attention": 28 * steps,
-            "paged_prefill_attention": 28 * chunks,
+    want = {"paged_decode_attention": layers * steps,
+            "paged_prefill_attention": layers * chunks,
             "uncertainty_head": steps}
     for name, n in want.items():
         if counts[name] != n or n == 0:
@@ -1633,14 +1801,16 @@ def traced(kind: str) -> dict:
 
 
 def trace_main(kind: str) -> dict:
-    """A ``device_trace`` summary, without its output: ``serve``, the
-    short kernel-path serve (the engine and its graph built before the
-    window), or ``bnn_machine`` / ``bnn_mean``, the BNN's MC prediction
+    """A ``device_trace`` summary, without its output: ``serve`` (or
+    ``moe_serve``, deepseek-moe-16b), the short kernel-path serve (the
+    engine and its graph built before the window), or ``bnn_machine`` / ``bnn_mean``, the BNN's MC prediction
     on 800 images after one untraced call."""
     dev = torch.device("cuda")
-    if kind == "serve":
-        _, built = build_serve(PROFILE_SERVE)
-        t = device_trace(lambda: serve_full(PROFILE_SERVE, built), kind)
+    if kind in ("serve", "moe_serve"):
+        flags = MOE_FLAGS if kind == "moe_serve" else SERVE_FLAGS
+        _, built = build_serve(PROFILE_SERVE, flags)
+        t = device_trace(lambda: serve_full(PROFILE_SERVE, built, flags),
+                         kind)
         r = t.pop("out")
         return t | {"steps": r["spec_decode"]["full_model_calls"],
                     "prefill_chunks": r["prefill_chunks"],
@@ -1660,12 +1830,14 @@ def trace_main(kind: str) -> dict:
     fail(f"unknown trace {kind!r}")
 
 
-def profile_serve() -> str:
+def profile_serve(kind: str = "serve") -> str:
     """A short kernel-path serve under torch.profiler (1 prefill chunk per
     request, 2 decode chunks each; the engine and its graph built before
-    the window): device time by kind of kernel, how much of the traced
-    window the device sits idle, and the host syncs by cause."""
-    t = traced("serve")
+    the window) of qwen2-1.5b (``serve``) or deepseek-moe-16b
+    (``moe_serve``), both 28 layers: device time by kind of kernel, how
+    much of the traced window the device sits idle, and the host syncs by
+    cause."""
+    t = traced(kind)
     steps = t["steps"]
     prefill = {k: v for k, v in t["by_name"].items() if "paged_prefill_" in k}
     if not any("paged_prefill_mma<128>" in k for k in prefill):
@@ -1682,7 +1854,8 @@ def profile_serve() -> str:
              f"alone, once a layer a step ({top(decode, 4) or 'none'})")
     causes = ", ".join(f"{k} {n}" for k, n in sorted(
         t["sync_causes"].items(), key=lambda kv: -kv[1]))
-    return (f"profile (a fresh process), kernel path, {steps} decode steps "
+    return (f"profile {kind} (a fresh process), kernel path, {steps} "
+            f"decode steps "
             f"+ {t['prefill_chunks']} prefill chunks ({t['chunks_run']} decode "
             f"chunks, {t['graph_launches']} graph launches): device busy "
             f"{t['busy_ms']:.2f} ms of a {t['window_ms']:.2f} ms window (idle "
@@ -1711,6 +1884,162 @@ def compare_plain(kernel_run: dict, ref_run: dict) -> str:
     return (f"operand mode, kernel path vs gather/batch reference: "
             f"{equal}/{total} tokens equal ({equal / max(total, 1):.1%}), "
             f"max |dMI| before the first divergence {dmi:.3g}")
+
+
+# --------------------------------------------------------------------------
+# phase 9: the moe family at full width
+# --------------------------------------------------------------------------
+
+MOE_FLAGS = ["--arch", "deepseek_moe_16b", *SERVE_FLAGS[2:]]
+
+
+def moe_phase() -> dict:
+    """deepseek-moe-16b at full width (28 layers, d 2048, 16 MHA heads,
+    64 routed experts top-6 + 2 shared, expert ff 1408, V 102400; bf16
+    body, f32 head, random weights from the seed) on the serve trace of
+    phase 4, kernel path and kernel entropy: one engine, its decode chunk
+    one CUDA graph replay, serves the trace SERVE_RUNS times (launch
+    counts zeroed before each run and checked after it: 28 decode-attention
+    launches and one head a step, 28 prefill launches a chunk), then once
+    more with every chunk held bit for bit against the eager chunk.  Then,
+    on the same parameters, operand entropy through the kernel path and
+    through the gather / batch-prefill path, the latter chunk by chunk
+    against the eager chunk too.  Returns the first run's counts."""
+    import gc
+
+    from repro_torch.kernels import launches
+    from repro_torch.launch.serve import build_engine, serve
+
+    from repro_torch import resolve_device
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.models import registry as M
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], MOE_FLAGS)
+    # the weights build_engine would draw, drawn here to time the init
+    dev = resolve_device(args.device)
+    t0 = time.perf_counter()
+    cfg = reduced(get_config(args.arch)) if args.reduced \
+        else get_config(args.arch)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        args.seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    built = build_engine(args, params)
+    engine, cfg = built
+    runner = engine.runner
+    leaves = []
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        else:
+            leaves.append(node)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    table = params["embed"]["table"]
+    # every parameter but the embedding table is read once a decode step:
+    # the capacity dispatch runs every expert (C 8 at 4 slots)
+    floor_ms = (nbytes - table.numel() * table.element_size()) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"moe engine {cfg.name}: {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads (kv {cfg.num_kv_heads}), "
+          f"{cfg.num_experts} experts top-{cfg.top_k} + "
+          f"{cfg.num_shared_experts} shared, expert ff {cfg.moe_d_ff}, V "
+          f"{cfg.vocab_size}; parameters {nbytes / 1e9:.2f} GB, drawn in "
+          f"{init_s:.2f}s; decode chunk graph warm-up + capture "
+          f"{runner.capture_s:.3f}s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; bytes "
+          f"floor a decode step {floor_ms:.2f} ms; launches a replay "
+          f"{runner.captured}", flush=True)
+    want = {"paged_decode_attention": cfg.num_layers * args.chunk,
+            "uncertainty_head": args.chunk}
+    if runner.captured != want:
+        fail(f"moe: a replay records {runner.captured}, expected {want}")
+    counts = serve_runs(args, built, "moe serve", launches)
+    print(f"moe peak memory after the runs "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(graph_vs_eager(args, built, "moe, kernel path, kernel entropy")[1],
+          flush=True)
+    del built, engine, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    a_args = serve_args(KERNEL_PATH + ["--entropy", "operand"], MOE_FLAGS)
+    with prefill_routing() as routed_a:
+        a = serve(a_args, build_engine(a_args, params))
+    gc.collect()
+    b_args = serve_args(GATHER_PATH + ["--entropy", "operand"], MOE_FLAGS)
+    with prefill_routing() as routed_b:
+        b, report = graph_vs_eager(b_args, build_engine(b_args, params),
+                                   "moe, gather path, operand entropy")
+    print(report, flush=True)
+    print(routing_flips(routed_a, routed_b, cfg.num_layers,
+                        a_args.prompt_len // a_args.prefill_chunk),
+          flush=True)
+    for req in (*a["requests"], *b["requests"]):
+        u = torch.tensor([req.H, req.SE, req.MI])
+        if req.state != "finished" or not torch.isfinite(u).all() \
+                or (u[2] < 0).any():
+            fail(f"moe operand run: request {req.rid} unfinished, "
+                 "non-finite or MI < 0")
+    print(f"moe {compare_plain(a, b)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return counts
+
+
+@contextlib.contextmanager
+def prefill_routing():
+    """Record the sorted top-k experts of every prompt-sized dispatch
+    (16 tokens or more; a decode step routes one token a slot) while the
+    block runs, in call order: ``moe_ffn`` looks ``route`` up in its
+    module at each call."""
+    from repro_torch.models import moe
+
+    calls, inner = [], moe.route
+
+    def recording(bp, cfg, xt, capacity, expert_offsets=None):
+        r = inner(bp, cfg, xt, capacity, expert_offsets)
+        if xt.shape[0] >= 16:
+            calls.append(r["topi"].sort(dim=-1).values)
+        return r
+
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = inner
+
+
+def routing_flips(chunked: list, batch: list, layers: int,
+                  chunks: int) -> str:
+    """How often the kernel path's chunked prefill routes a prompt token
+    to another expert set than the gather path's batch prefill, by
+    layer: the chunked calls run a prompt's chunks one after another,
+    each through every layer; the batch calls run a prompt through
+    every layer at once."""
+    if len(chunked) != len(batch) * chunks:
+        fail(f"moe routing: {len(chunked)} chunked and {len(batch)} batch "
+             "prefill dispatches recorded")
+    flips = torch.zeros(layers)
+    tokens = 0
+    for p in range(len(batch) // layers):
+        for layer in range(layers):
+            want = batch[p * layers + layer]
+            got = torch.cat([chunked[(p * chunks + c) * layers + layer]
+                             for c in range(chunks)])
+            flips[layer] += float((got != want).any(-1).sum())
+        tokens += want.shape[0]
+    share = flips / tokens
+    first = int(torch.nonzero(flips).flatten()[0]) if flips.any() else None
+    return (f"moe prefill routing, kernel path (chunked) vs gather path "
+            f"(batch), operand mode: {int(flips.sum())} of "
+            f"{tokens * layers} token-layer expert sets differ "
+            f"({float(flips.sum()) / (tokens * layers):.2%}); first layer "
+            f"with a flip {first}; share by layer "
+            + " ".join(f"{x:.3f}" for x in share.tolist()))
 
 
 # --------------------------------------------------------------------------
@@ -2059,6 +2388,7 @@ def main():
     rows["lrt_matmul"], rows["lrt_matmul_sampled"] = check_lrt(dev)
     rows["uncertainty_head_two_pass"] = check_two_pass(dev)
     rows["flash_attention"] = check_flash(dev)
+    check_moe_shapes(dev)
     print(f"phase kernels: {time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
@@ -2102,6 +2432,15 @@ def main():
     counts.update(lm_counts)
     print(f"lm kernels launches {lm_counts}", flush=True)
     print(f"phase lm kernels: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    moe_counts = moe_phase()
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "uncertainty_head"):
+        counts[name] += moe_counts[name]
+    print(f"moe launches {moe_counts}", flush=True)
+    print(profile_serve("moe_serve"), flush=True)
+    print(f"phase moe: {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

@@ -131,6 +131,16 @@ class ServeEngine:
         w = -(-n // self.kv_block) * self.kv_block
         return min(w, self.max_len) if self.kv_layout == "dense" else w
 
+    def _start_job(self, req: Request) -> dict:
+        """Open a chunked-prefill walk over ``req``'s prompt: the walk
+        offset, plus for the moe family ``ex_off``, the running expert
+        load that its ``prefill_chunk`` threads between chunks."""
+        P = len(req.prompt)
+        job = {"req": req, "P": P, "span": self._bucket(P), "off": 0}
+        if self.cfg.family == "moe":
+            job["ex_off"] = self.runner.expert_offsets()
+        return job
+
     def _run_chunk(self, cache, slot: int, job: dict):
         """Advance ``job`` by one prompt chunk (padded to exactly
         ``prefill_chunk`` tokens); returns ``(cache, done, shape_key)``."""
@@ -141,7 +151,13 @@ class ServeEngine:
         toks = np.zeros((S_len,), np.int32)
         toks[:real] = job["req"].prompt[off:off + real]
         new_len = off + real
-        cache = self.runner.prefill_chunk(cache, slot, toks, off, new_len, W)
+        if "ex_off" in job:
+            cache, job["ex_off"] = self.runner.prefill_chunk(
+                cache, slot, toks, off, new_len, W,
+                expert_offsets=job["ex_off"])
+        else:
+            cache = self.runner.prefill_chunk(cache, slot, toks, off,
+                                              new_len, W)
         job["off"] = new_len
         return cache, new_len >= P, ("chunk", S_len, W, "")
 
@@ -237,8 +253,7 @@ class ServeEngine:
                         # pin the depth now: interleaved decode steps write
                         # junk at [len, len + chunk) for every slot
                         runner.set_len(cache, slot, 0)
-                        prefilling[slot] = {"req": req, "P": P, "span": W,
-                                            "off": 0}
+                        prefilling[slot] = self._start_job(req)
                         jobs.append(slot)
                         continue
                     toks = np.zeros((W,), np.int32)

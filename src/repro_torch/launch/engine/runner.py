@@ -171,9 +171,21 @@ class ModelRunner:
                             self.place_table(row) if paged else None)
 
     def prefill_chunk(self, cache: dict, slot: int, toks: np.ndarray,
-                      offset: int, new_len: int, span: int) -> dict:
+                      offset: int, new_len: int, span: int,
+                      expert_offsets: Optional[torch.Tensor] = None):
+        """One prompt chunk into ``slot``; returns the cache, or for the
+        moe family ``(cache, new_expert_offsets)`` from the (L, E) running
+        expert load it is given."""
+        kw = {} if expert_offsets is None else \
+            {"expert_offsets": expert_offsets}
         return M.prefill_chunk(self.params, self.cfg, self.tokens(toks),
-                               cache, slot, offset, new_len, span)
+                               cache, slot, offset, new_len, span, **kw)
+
+    def expert_offsets(self) -> torch.Tensor:
+        """A moe prompt's running expert load before its first chunk:
+        (L, E) f32 zeros on the device."""
+        return torch.zeros((self.cfg.num_layers, self.cfg.num_experts),
+                           dtype=torch.float32, device=self.device)
 
     def set_len(self, cache: dict, slot: int, n: int) -> dict:
         cache["len"][slot].fill_(n)      # no host copy (see engine.py)

@@ -6,7 +6,7 @@ missing GPU raises, ``--device cpu`` runs the plain PyTorch paths).
 Flags of features the port does not have yet raise
 ``NotImplementedError`` (see ROADMAP.md): ``--prefix-cache on``,
 ``--spec-decode on``, ``--policy priority``, ``--escalate-mi`` and
-``--mesh``, and any ``--arch`` outside the dense family.
+``--mesh``, and any ``--arch`` outside the dense and moe families.
 
 ``--reduced`` is ``store_true`` with ``default=True``, as in the JAX
 CLI, so the CLI always serves the reduced config; the full-width model
@@ -16,6 +16,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1_5b \
       --slots 4 --num-requests 8 --prompt-len 32 --gen-len 16 --chunk 8 \
       --kv-layout paged --decode-attn kernel --prefill chunked
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek_moe_16b --device cpu --kv-layout paged \
+      --decode-attn kernel --prefill chunked
 """
 
 from __future__ import annotations
@@ -85,19 +88,21 @@ def check_ported(args, cfg) -> None:
             raise NotImplementedError(f"{flag} {_ROADMAP}")
 
 
-def build_engine(args) -> tuple[ServeEngine, ArchConfig]:
+def build_engine(args, params=None) -> tuple[ServeEngine, ArchConfig]:
     """The engine the CLI serves with, and its config: random weights
-    from ``--seed`` on ``--device``.  On CUDA this captures the decode
-    chunk's graph (``ModelRunner``); the engine serves any number of
-    ``run`` calls with it."""
+    from ``--seed`` on ``--device``, or ``params`` already there (another
+    engine's, so that two engines of one model hold one copy).  On CUDA
+    this captures the decode chunk's graph (``ModelRunner``); the engine
+    serves any number of ``run`` calls with it."""
     cfg = get_config(args.arch)
     check_ported(args, cfg)
     if args.reduced:
         cfg = reduced(cfg)
     cfg = dataclasses.replace(cfg, head_entropy=args.entropy)
     device = resolve_device(args.device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = M.init_params(cfg, gen, device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = M.init_params(cfg, gen, device)
 
     entropy = KernelEntropy(seed=args.seed) \
         if args.entropy == "kernel" else None

@@ -1,0 +1,284 @@
+"""Mixture-of-Experts transformer (deepseek-moe-16b, grok-1-314b), serving
+path.
+
+PyTorch counterpart of ``repro.models.moe``.  Routing is softmax top-k
+with capacity dispatch: a (token, k) assignment's queue position in its
+expert comes from an f32 cumsum over the flat (T·K, E) routing one-hot
+(no sort), kept assignments are scattered into an (E, C + 1, d) buffer
+whose last bin C takes every dropped one, the experts run as one batched
+gated MLP over ``[:, :C]``, and the combine weights gather the results
+back (GShard semantics: capacity overflow drops the assignment).  The
+shared experts (DeepSeekMoE) see every token.
+
+The dispatch is one group (the JAX package's ``_dispatch_groups`` without
+a mesh): the port serves on one GPU.  Every step is a fixed-shape tensor
+op with integer indices — no boolean-mask indexing, no one-hot of unknown
+width, no host read — so a decode step captures in a CUDA graph.  Inactive
+decode slots are dispatched too, as in the reference: they take capacity
+like any token.
+
+Blocks are stacked on a leading layer axis with the reference's names:
+``router.w`` (f32), ``experts_ep`` or ``experts_tp`` (by
+``cfg.expert_sharding``; ``w1``, ``w3``, ``w2``) and ``shared``.  Training
+(``forward``, ``nll_loss``) is not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models import uncertain_head as U
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_experts(gen, cfg: ArchConfig, num: int, d_ff: int, device):
+    """(L, num, ...) expert stacks of N(0, 1) / sqrt(fan_in), drawn in f32
+    one layer at a time: a whole stacked f32 leaf at deepseek's width is
+    20.7 GB beside the bf16 parameters being built."""
+    dt = L.dtype_of(cfg)
+    d, n_layers = cfg.d_model, cfg.num_layers
+
+    def stack(shape, fan):
+        out = torch.empty((n_layers, num, *shape), dtype=dt, device=device)
+        for i in range(n_layers):
+            w = torch.randn((num, *shape), generator=gen,
+                            dtype=torch.float32, device=device)
+            out[i] = w / math.sqrt(float(fan))
+        return out
+
+    return {"w1": stack((d, d_ff), d), "w3": stack((d, d_ff), d),
+            "w2": stack((d_ff, d), d_ff)}
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator, device):
+    """Random serving parameters with the JAX package's distributions: the
+    dense transformer's attention, norms, embedding and head, a router of
+    N(0, 1) · 0.02 in f32, and experts of N(0, 1) / sqrt(fan_in)."""
+    dt = L.dtype_of(cfg)
+    lead = (cfg.num_layers,)
+    ones = dict(dtype=dt, device=device)
+    eff = cfg.moe_d_ff or cfg.d_ff
+    ename = "experts_ep" if cfg.expert_sharding == "ep" else "experts_tp"
+    blocks = {
+        "ln1": torch.ones((*lead, cfg.d_model), **ones),
+        "attn": L.init_attention(gen, cfg, device, lead),
+        "ln2": torch.ones((*lead, cfg.d_model), **ones),
+        "router": {"w": torch.randn((*lead, cfg.d_model, cfg.num_experts),
+                                    generator=gen, dtype=torch.float32,
+                                    device=device) * 0.02},
+        ename: _init_experts(gen, cfg, cfg.num_experts, eff, device),
+    }
+    if cfg.num_shared_experts:
+        blocks["shared"] = _init_experts(gen, cfg, cfg.num_shared_experts,
+                                         eff, device)
+    return {
+        "embed": L.init_embed(gen, cfg, device),
+        "blocks": blocks,
+        "final_norm": torch.ones((cfg.d_model,), **ones),
+        "head": L.init_head(gen, cfg, device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MoE layer
+# ---------------------------------------------------------------------------
+
+def _expert_ffn(ep, x: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, d) -> (E, C, d), the gated MLP of each expert over its
+    rows (SiLU whatever ``cfg.mlp_activation`` says, as in the reference);
+    outputs in the activation dtype, f32 accumulation inside the GEMMs."""
+    g = torch.matmul(x, ep["w1"])
+    u = torch.matmul(x, ep["w3"])
+    return torch.matmul(F.silu(g) * u, ep["w2"])
+
+
+def route(bp, cfg: ArchConfig, xt: torch.Tensor, capacity: int,
+          expert_offsets: Optional[torch.Tensor] = None) -> dict:
+    """The routing of tokens xt (T, d) against capacity C: renormalised
+    top-k gates ``topv`` and experts ``topi`` (T, K), each assignment's
+    queue position ``pos`` in its expert and whether it is kept
+    (``keep``), the (E,) assignment ``counts`` (dropped ones included)
+    and the aux loss.  With ``expert_offsets`` (E,) the global position
+    ``pos + expert_offsets[topi]`` decides ``keep``; ``pos`` stays local."""
+    T = xt.shape[0]
+    E, K = cfg.num_experts, cfg.top_k
+    gates = torch.softmax(xt.float() @ bp["router"]["w"], dim=-1)  # (T, E)
+    topv, topi = torch.topk(gates, K, dim=-1)                  # (T, K)
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balancing aux loss (Switch): E * sum_e f_e * p_e.  The one-hot
+    # by comparison: F.one_hot reads the indices' range on the host
+    experts = torch.arange(E, device=xt.device)
+    onehot = (topi[..., None] == experts).float()              # (T, K, E)
+    aux = E * torch.sum(onehot.sum(1).mean(0) * gates.mean(0))
+
+    # position of each (token, k) in its expert's queue: counts are small
+    # integers, exact in f32
+    oh_flat = onehot.reshape(T * K, E)
+    pos = torch.sum((torch.cumsum(oh_flat, dim=0) - 1.0) * oh_flat,
+                    dim=-1).reshape(T, K)
+    if expert_offsets is None:
+        keep = pos < capacity
+    else:
+        # the local position still indexes the buffer: it is < C wherever
+        # keep holds, as offsets are >= 0
+        keep = (pos + expert_offsets[topi]) < capacity
+    return {"topv": topv, "topi": topi, "pos": pos, "keep": keep,
+            "counts": oh_flat.sum(0), "aux": aux}
+
+
+def moe_ffn(bp, cfg: ArchConfig, x: torch.Tensor,
+            expert_offsets: Optional[torch.Tensor] = None,
+            capacity: Optional[int] = None):
+    """x: (B, S, d) -> (y, aux_loss), top-k capacity dispatch.
+
+    ``expert_offsets`` (E,) f32 and ``capacity`` serve chunked prefill:
+    each expert's running assignment count, threaded across the prompt's
+    chunks by the caller, is added to a token's local queue position, so
+    its keep/drop decision is made against its place in the whole
+    prompt, with C pinned to what the whole prompt computes.  The return
+    then gains the updated offsets (the counts include dropped
+    assignments, as the batch cumsum does)."""
+    B, S, d = x.shape
+    Tn = B * S
+    E, K = cfg.num_experts, cfg.top_k
+    C = capacity if capacity is not None else \
+        max(int(Tn * K / E * cfg.capacity_factor), 8)
+    xt = x.reshape(Tn, d)                                      # B-major
+    r = route(bp, cfg, xt, C, expert_offsets)
+
+    # flat bin e * (C + 1) + c; every dropped assignment lands in bin C,
+    # and kept (e, c) pairs are unique, so the add writes each kept bin once
+    cid = torch.where(r["keep"], r["pos"], float(C)).long()
+    flat = (r["topi"] * (C + 1) + cid).reshape(Tn * K)
+    tok_rep = xt[:, None, :].expand(Tn, K, d).reshape(Tn * K, d)
+    buf = torch.zeros((E * (C + 1), d), dtype=x.dtype, device=x.device)
+    buf.index_add_(0, flat, tok_rep)
+    ep = bp["experts_ep"] if "experts_ep" in bp else bp["experts_tp"]
+    out = _expert_ffn(ep, buf.reshape(E, C + 1, d)[:, :C])
+    out = F.pad(out, (0, 0, 0, 1)).reshape(E * (C + 1), d)    # bin C: 0
+
+    w = (r["topv"] * r["keep"]).to(x.dtype).reshape(Tn * K, 1)
+    y = (out.index_select(0, flat) * w).reshape(Tn, K, d).sum(1)
+
+    if cfg.num_shared_experts:
+        sh = _expert_ffn(bp["shared"], xt[None].expand(
+            cfg.num_shared_experts, Tn, d))
+        y = y + sh.sum(0)
+    y = y.reshape(B, S, d)
+    if expert_offsets is not None:
+        return y, r["aux"], expert_offsets + r["counts"]
+    return y, r["aux"]
+
+
+# ---------------------------------------------------------------------------
+# serving (decode with per-token MoE routing)
+# ---------------------------------------------------------------------------
+
+make_cache = T.make_cache  # the dense transformer's KV layouts
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
+    """Run the full prompt; returns (hidden_last, cache) with (L, B,
+    max_len, Hkv, hd) strips and ``len`` = prompt length.  All B prompts
+    share one dispatch, as in the reference."""
+    x = L.apply_embed(params["embed"], tokens)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        bp = T.layer(params["blocks"], i)
+        h, (k, v) = L.apply_attention(bp["attn"], cfg,
+                                      L.rms_norm(x, bp["ln1"]), rot=rot)
+        x = x + h
+        y, _ = moe_ffn(bp, cfg, L.rms_norm(x, bp["ln2"]))
+        x = x + y
+        ks.append(k)
+        vs.append(v)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    pad = (0, 0, 0, 0, 0, max_len - S)
+    cache = {"k": F.pad(torch.stack(ks), pad),
+             "v": F.pad(torch.stack(vs), pad),
+             "len": torch.full((B,), S, dtype=torch.int32,
+                               device=tokens.device)}
+    return x[:, -1], cache
+
+
+def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
+                  slot: int, offset: int, new_len: int, span: int,
+                  expert_offsets: torch.Tensor):
+    """One chunk of an incremental prompt prefill for ``slot`` (see
+    ``transformer.prefill_chunk``).
+
+    ``expert_offsets``: (L, E) f32 per-layer running expert assignment
+    counts, threaded by the engine across the prompt's chunks so that the
+    capacity drops match the one batch dispatch bit for bit; the capacity
+    is pinned to what the whole ``span``-token prompt computes.  Returns
+    ``(cache, new_expert_offsets)``."""
+    E, K = cfg.num_experts, cfg.top_k
+    C = max(int(span * K / E * cfg.capacity_factor), 8)
+    row = cache["block_table"][slot:slot + 1]
+    x = L.apply_embed(params["embed"], tokens)
+    S = tokens.shape[1]
+    positions = offset + torch.arange(S, device=x.device)[None, :]
+    rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    at = torch.full((1,), offset, dtype=torch.int32, device=x.device)
+    kv_index = L.paged_index(cache["k"].shape[1], cache["k"].shape[2], row,
+                             at, S)
+    offs = []
+    for i in range(cfg.num_layers):
+        bp = T.layer(params["blocks"], i)
+        h, _ = L.apply_attention_chunk(
+            bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
+            kv_pools=(cache["k"][i], cache["v"][i]), block_row=row,
+            offset=offset, span=span, rot=rot, kv_index=kv_index)
+        x = x + h
+        y, _, off = moe_ffn(bp, cfg, L.rms_norm(x, bp["ln2"]),
+                            expert_offsets=expert_offsets[i], capacity=C)
+        x = x + y
+        offs.append(off)
+    cache["len"][slot].fill_(new_len)  # item assignment would sync the host
+    return cache, torch.stack(offs)
+
+
+def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
+    """The KV-writing decode body (see ``transformer.decode_hidden``):
+    ``len`` advances by one IN PLACE."""
+    x = L.apply_embed(params["embed"], token[:, None])
+    lens = cache["len"]
+    table = cache.get("block_table")
+    rot = L.rope_tables(lens.reshape(-1, 1), cfg.head_dim, cfg.rope_theta)
+    kv_index = None if table is None else L.paged_index(
+        cache["k"].shape[1], cache["k"].shape[2], table, lens, 1)
+    for i in range(cfg.num_layers):
+        bp = T.layer(params["blocks"], i)
+        h, _ = L.apply_attention(
+            bp["attn"], cfg, L.rms_norm(x, bp["ln1"]), rot=rot,
+            kv_cache=(cache["k"][i], cache["v"][i]), cache_len=lens,
+            block_table=table, kv_index=kv_index)
+        x = x + h
+        y, _ = moe_ffn(bp, cfg, L.rms_norm(x, bp["ln2"]))
+        x = x + y
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    lens.add_(1)
+    return x[:, 0], cache
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
+                key: tuple, head_noise=None):
+    """One uncertain decode step (see ``transformer.decode_step``)."""
+    lens0 = cache["len"].clone()        # the body advances len in place
+    hidden, cache = decode_hidden(params, cfg, token, cache)
+    return U.head_outputs(params, cfg, hidden, lens0, key,
+                          head_noise=head_noise), cache

@@ -1,13 +1,15 @@
-"""Model dispatch for the port (dense family) and the weight bridge.
+"""Model dispatch for the port (dense and moe families) and the weight
+bridge.
 
-PyTorch counterpart of the dense rows of ``repro.models.registry``.  The
-uniform serving API:
+PyTorch counterpart of the dense and moe rows of
+``repro.models.registry``.  The uniform serving API:
 
     init_params(cfg, generator, device) -> params
     params_from_numpy(tree, cfg, device) -> params
     make_cache(cfg, batch, max_len, device=..., layout=...) -> cache
     prefill(params, cfg, tokens, max_len) -> (hidden, cache)
-    prefill_chunk(params, cfg, tokens, cache, slot, offset, new_len, span)
+    prefill_chunk(params, cfg, tokens, cache, slot, offset, new_len, span,
+                  **family_kw)
     decode_step(params, cfg, token, cache, key, head_noise=None)
     write_slot(cfg, cache, slot, sub, block_row=None)
 
@@ -23,22 +25,25 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.layers import paged_index, paged_table_width  # noqa: F401
 
 # cache leaves that live in the global block pool under the paged layout
 PAGED_KV_LEAVES = ("k", "v")
 
 
-def _dense_only(cfg: ArchConfig):
-    if cfg.family != "dense":
+_FAMILIES = {"dense": transformer, "moe": moe}
+
+
+def module_for(cfg: ArchConfig):
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (see ROADMAP.md)")
-    return transformer
+    return _FAMILIES[cfg.family]
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, device):
-    return _dense_only(cfg).init_params(cfg, generator, device)
+    return module_for(cfg).init_params(cfg, generator, device)
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -53,9 +58,10 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
     """The port's parameters from the JAX parameter tree given as nested
     dicts of numpy arrays (``blocks`` stacked on a leading layer axis, the
-    head as ``{"q": {"mu", "rho"}}``).  The head's sigma = softplus(rho)
-    is computed here, once."""
-    _dense_only(cfg)
+    head as ``{"q": {"mu", "rho"}}``; the moe router in f32 beside the
+    expert stacks).  Every leaf keeps its dtype.  The head's sigma =
+    softplus(rho) is computed here, once."""
+    module_for(cfg)
 
     def walk(node):
         if isinstance(node, dict):
@@ -83,13 +89,20 @@ def supports_prompt_padding(cfg: ArchConfig) -> bool:
 
 
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
-    return supports_paged(cfg) and cfg.family == "dense"
+    return supports_paged(cfg) and cfg.family in ("dense", "moe")
+
+
+def supports_prefix_cache(cfg: ArchConfig) -> bool:
+    """Only the dense token-only family: moe couples tokens through the
+    expert-capacity cumsum, so a suffix-only prefill sees another
+    contention set and can drop other assignments."""
+    return cfg.family == "dense"
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
                layout: str = "dense", kv_block: int = 16,
                num_blocks: int = 0):
-    mod = _dense_only(cfg)
+    mod = module_for(cfg)
     if layout == "paged" and supports_paged(cfg):
         return mod.make_cache(cfg, batch, max_len, device=device,
                               layout="paged", kv_block=kv_block,
@@ -98,20 +111,23 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
 
 
 def prefill(params, cfg: ArchConfig, tokens, max_len: int):
-    return _dense_only(cfg).prefill(params, cfg, tokens, max_len)
+    return module_for(cfg).prefill(params, cfg, tokens, max_len)
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
-                  offset: int, new_len: int, span: int):
+                  offset: int, new_len: int, span: int, **kw):
+    """One incremental prefill chunk for ``slot`` (paged layout only).
+    Family keywords: ``expert_offsets`` (moe, which then returns
+    ``(cache, new_offsets)``)."""
     if not supports_chunked_prefill(cfg):
         raise ValueError(f"family {cfg.family!r} has no chunked prefill")
-    return _dense_only(cfg).prefill_chunk(params, cfg, tokens, cache, slot,
-                                          offset, new_len, span)
+    return module_for(cfg).prefill_chunk(params, cfg, tokens, cache, slot,
+                                         offset, new_len, span, **kw)
 
 
 def decode_step(params, cfg: ArchConfig, token, cache, key, head_noise=None):
-    return _dense_only(cfg).decode_step(params, cfg, token, cache, key,
-                                        head_noise=head_noise)
+    return module_for(cfg).decode_step(params, cfg, token, cache, key,
+                                       head_noise=head_noise)
 
 
 def kv_bytes(cache) -> int:

@@ -84,6 +84,20 @@ def dense_pair(seed=0):
     return jcfg, jparams, tcfg, tparams
 
 
+@functools.lru_cache(maxsize=None)
+def moe_pair(arch="deepseek_moe_16b", seed=0):
+    """(jcfg, jax params, tcfg, port params) of a reduced moe arch (E 8,
+    top-2, f32; deepseek with 1 shared expert and ``experts_ep``, grok
+    with none and ``experts_tp``) from one JAX init."""
+    import jax
+    from repro.models import registry as JM
+    from repro_torch.models import registry as TM
+    jcfg, tcfg = operand_cfgs(arch)
+    jparams = JM.init_params(jax.random.key(seed), jcfg)
+    tparams = TM.params_from_numpy(to_numpy_tree(jparams), tcfg, CPU)
+    return jcfg, jparams, tcfg, tparams
+
+
 def jax_head_noise(key_seed=17):
     """An operand-noise provider for the port that returns the JAX
     package's ``layers.decode_head_noise(PRNGKey(17), ...)`` — the xi the

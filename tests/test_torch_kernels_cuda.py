@@ -143,7 +143,8 @@ def _decode_route(route, dtype, D):
 
 @pytest.mark.parametrize("route", ["auto", "simt"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv,D", [(12, 2, 64), (12, 2, 128), (4, 4, 32)])
+@pytest.mark.parametrize("H,Hkv,D", [(12, 2, 64), (12, 2, 128), (4, 4, 32),
+                                     (16, 16, 128)])   # deepseek-moe, MHA
 def test_cuda_decode_matches_plain(cuda_device, route, dtype, H, Hkv, D):
     q, k, v, table, lens = (t.to(cuda_device) for t in _decode_case(
         5, H, Hkv, D, BS=16, MB=4, lens=(60, 17, 1, 0)))
@@ -388,6 +389,8 @@ def test_cuda_prefill_mma_matches_plain_at_the_served_shape(cuda_device,
     (64, 12, 2, 128, 16, 128, 256, 5),      # a -1 entry inside the span
     (50, 32, 32, 96, 16, 30, 80, None),     # phi-3-vision's D 96, MHA
     (33, 16, 1, 64, 16, 0, 40, None),       # rep 16
+    (64, 16, 16, 128, 16, 0, 256, None),    # deepseek-moe's MHA chunks
+    (64, 16, 16, 128, 16, 192, 256, None),
 ])
 def test_cuda_prefill_mma_matches_plain(cuda_device, S, H, Hkv, D, BS,
                                         offset, span, hole):
@@ -1028,9 +1031,11 @@ def test_cuda_lm_wrappers_refuse_bad_operands(cuda_device):
         FA.flash_attention_cuda(q.to(torch.bfloat16), k, v)
 
 
-def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4):
-    """A reduced qwen2 (2 layers, D 32, V 512) runner on the card: paged KV
-    of 3 slots, the chunk captured as a CUDA graph."""
+def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4,
+                  arch="qwen2_1_5b"):
+    """A reduced ``arch`` (qwen2 or deepseek-moe: 2 layers, D 32, V 512)
+    runner on the card: paged KV of 3 slots, the chunk captured as a CUDA
+    graph."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config, reduced
@@ -1038,7 +1043,7 @@ def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4):
     from repro_torch.launch.engine.runner import ModelRunner
     from repro_torch.models import registry as TM
 
-    cfg = dataclasses.replace(reduced(get_config("qwen2_1_5b")),
+    cfg = dataclasses.replace(reduced(get_config(arch)),
                               head_entropy=entropy, decode_attn=decode_attn)
     params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
@@ -1055,9 +1060,25 @@ def test_cuda_captured_chunk_equals_the_eager_chunk(cuda_device, entropy,
     """Three replays with a slot admitted (prefilled, activated) before
     each: every replay equals the eager chunk run on a copy of the carry
     it started from, bit for bit (outputs, tokens, depths, counters)."""
+    _check_replays_against_eager(
+        _graph_runner(cuda_device, entropy, decode_attn), cuda_device)
+
+
+@pytest.mark.parametrize("entropy,decode_attn", [("kernel", "kernel"),
+                                                 ("operand", "gather")])
+def test_cuda_moe_captured_chunk_equals_the_eager_chunk(cuda_device, entropy,
+                                                        decode_attn):
+    """The moe family's chunk (routing, capacity dispatch, batched
+    experts) as three replays with slots admitted between them, each bit
+    for bit the eager chunk on a copy of its carry."""
+    _check_replays_against_eager(
+        _graph_runner(cuda_device, entropy, decode_attn,
+                      arch="deepseek_moe_16b"), cuda_device)
+
+
+def _check_replays_against_eager(runner, cuda_device):
     from repro_torch.launch import steps as S
 
-    runner = _graph_runner(cuda_device, entropy, decode_attn)
     assert runner.graph is not None
     r = np.random.default_rng(3)
     with torch.inference_mode():
@@ -1103,6 +1124,40 @@ def test_cuda_replays_count_the_captured_launches(cuda_device):
     got = launches.snapshot()
     assert {k: v for k, v in got.items() if v} == {
         k: 5 * v for k, v in runner.captured.items()}
+
+
+def test_cuda_moe_chunk_records_no_host_sync(cuda_device):
+    """The moe decode chunk, eager and replayed, never synchronises the
+    host (no boolean-mask indexing, no one-hot of unknown width), and a
+    replay counts one decode launch a layer a step and one head a step;
+    so does a moe prompt chunk threading its expert offsets."""
+    runner = _graph_runner(cuda_device, arch="deepseek_moe_16b")
+    assert runner.captured == {"paged_decode_attention": 2 * 4,
+                               "uncertainty_head": 4}
+    prompt = np.arange(1, 9, dtype=np.int32)
+    table = np.full((3, 8), -1, np.int32)
+    table[0, :4] = (3, 9, 1, 7)
+    with torch.inference_mode():
+        tok, cache, active, flags = runner.start()
+        runner.write_table(cache, table)
+        off = runner.expert_offsets()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cache, off = runner.prefill_chunk(cache, 0, prompt, 0, 8, 8,
+                                              expert_offsets=off)
+            tok[0].fill_(int(prompt[-1]))
+            active[0].fill_(True)
+            runner.scan(tok, cache, 0, active, flags)
+            ys = torch.empty_like(runner.ys)
+            runner._scan(runner.params, tok, cache, runner.step0, active,
+                         flags, ys)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert off.shape == (2, runner.cfg.num_experts)
+    assert (off.sum(-1) == 8 * runner.cfg.top_k).all()
+    assert int(cache["len"][0]) == 8 + 2 * runner.chunk
+    assert torch.isfinite(ys[:, 3, 0]).all()
 
 
 def test_cuda_writes_between_chunks_do_not_synchronize(cuda_device):
