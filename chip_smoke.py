@@ -66,9 +66,20 @@ Phases (any failure exits non-zero before the result line):
      path against the gather / batch-prefill path (whose chunks are held
      against the eager chunk too), on the same parameters; then phase
      5's profile of a short moe serve in a fresh process.
- 10. one JSON line of per-kernel numbers (eleven kernels; the serving
-     kernels' launches are phase 4's first run plus phase 9's), the
-     card's nvidia-smi line, then the result line.
+ 10. ssm: mamba2-370m at full width (48 SSD blocks, d 1024, N 128,
+     V 50280) on phase 4's trace and flags, which fall back to the dense
+     layout, gather read and batch prefill (asserted): the fused head at
+     K 1024, V 50280 (a ragged last tile) against its plain version and
+     its bound; one graphed engine serving the trace three times (decode
+     ms a step against the step's bytes floor, tok/s, p99, capture time,
+     peak memory; the head the only launch); every chunk against the
+     eager chunk bit for bit, state included, in kernel and operand
+     entropy; one request of 8192 prompt tokens and its decode step;
+     phase 5's profile of a short ssm serve in a fresh process.
+ 11. one JSON line of per-kernel numbers (eleven kernels; the serving
+     kernels' launches are phase 4's first run plus phase 9's, and phase
+     10's for the head), the card's nvidia-smi line, then the result
+     line.
 
 Imports nothing of the JAX package.
 """
@@ -1602,7 +1613,8 @@ def serve_phase(launches) -> dict:
     return counts
 
 
-def serve_runs(args, built, label: str, launches) -> dict:
+def serve_runs(args, built, label: str, launches,
+               attention: bool = True) -> dict:
     """``args``' trace served SERVE_RUNS times by the engine ``built``,
     the launch counts zeroed just before each run and checked just after
     it (``check_serve``); every run must give run 1's tokens and MI (one
@@ -1618,7 +1630,7 @@ def serve_runs(args, built, label: str, launches) -> dict:
         torch.cuda.synchronize()
         r = serve(args, built)
         got = launches.snapshot()
-        check_serve(r, got, cfg.num_layers)
+        check_serve(r, got, cfg.num_layers, attention)
         counts = counts or got
         seen = [(q.tokens, q.MI) for q in r["requests"]]
         if first is not None and seen != first:
@@ -1644,7 +1656,8 @@ def check_graph_chunks(extra: list[str], label: str) -> str:
     """Every decode chunk of a serve run at full width as the graph
     replays it against the eager chunk (``steps.build_scan_decode``
     called directly) on a copy of the carry the replay started from:
-    tokens, H, SE, MI and p_max bit for bit, and the carry after."""
+    tokens, H, SE, MI and p_max bit for bit, and the carry after (depths,
+    flags and, for the ssm family, every layer's state and conv tail)."""
     args, built = build_serve(extra)
     return graph_vs_eager(args, built, label)[1]
 
@@ -1682,6 +1695,8 @@ def graph_vs_eager(args, built, label: str) -> tuple[dict, str]:
         same = torch.equal(bits(out[3][:, rows]), bits(ys[:, rows])) \
             and torch.equal(out[0], e_tok) \
             and torch.equal(cache["len"], e_cache["len"]) \
+            and all(torch.equal(bits(cache[k]), bits(e_cache[k]))
+                    for k in ("ssm", "conv") if k in cache) \
             and all(torch.equal(flags[k], e_flags[k]) for k in flags)
         if not same:
             fail(f"graph vs eager ({label}): chunk {chunks[0]} at step "
@@ -1701,15 +1716,20 @@ def graph_vs_eager(args, built, label: str) -> tuple[dict, str]:
                f"carry)")
 
 
-def check_serve(r: dict, counts: dict, layers: int = 28) -> None:
+def check_serve(r: dict, counts: dict, layers: int = 28,
+                attention: bool = True) -> None:
+    """The run's launch counts (one attention launch a layer a decode
+    step and a prefill chunk, one head a step; an attention-free family
+    launches the head alone) and its requests (finished, 32 tokens,
+    finite H/SE/MI, MI >= 0)."""
     steps, chunks = r["spec_decode"]["full_model_calls"], r["prefill_chunks"]
-    want = {"paged_decode_attention": layers * steps,
-            "paged_prefill_attention": layers * chunks,
+    want = {"paged_decode_attention": layers * steps * attention,
+            "paged_prefill_attention": layers * chunks * attention,
             "uncertainty_head": steps}
     for name, n in want.items():
-        if counts[name] != n or n == 0:
+        if counts[name] != n or (n == 0 and attention) or steps == 0:
             fail(f"serve: {name} launched {counts[name]} times, expected "
-                 f"{n} (> 0)")
+                 f"{n}" + (" (> 0)" if attention else ""))
     for req in r["requests"]:
         if req.state != "finished" or len(req.tokens) != 32:
             fail(f"serve: request {req.rid} did not finish "
@@ -1730,9 +1750,10 @@ KINDS = (("paged_decode", "decode-attn kernel"),
 
 def device_trace(fn, name: str) -> dict:
     """``fn()`` under torch.profiler: the device's busy time and the traced
-    window (first kernel start to last kernel end, in ms), the kernels,
-    the host syncs, and device time by kind and by name.  The profiler
-    slows the host, so the idle share is an upper bound."""
+    window (first kernel start to last kernel end, in ms), the kernels
+    (and those of CUDA graph replays, with their busy time), the host
+    syncs, and device time by kind and by name.  The profiler slows the
+    host, so the idle share is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     trace = ROOT / "build" / f"{name}_trace.json"
@@ -1745,6 +1766,17 @@ def device_trace(fn, name: str) -> dict:
     trace.unlink()
     kern = sorted((e["ts"], e["dur"], e["name"]) for e in events
                   if e.get("cat") == "kernel")
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
+    # a graph replay's kernels carry its cudaGraphLaunch's correlation id
+    replays = {e.get("args", {}).get("correlation") for e in runtime
+               if "GraphLaunch" in e.get("name", "")}
+    in_graph = sorted((e["ts"], e["dur"]) for e in events
+                      if e.get("cat") == "kernel"
+                      and e.get("args", {}).get("correlation") in replays)
+    graph_busy, end = 0.0, -math.inf
+    for ts, dur in in_graph:
+        graph_busy += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
     if not kern:
         fail(f"profile {name}: the trace holds no device kernel")
     busy, end = 0.0, -math.inf
@@ -1759,7 +1791,6 @@ def device_trace(fn, name: str) -> dict:
             acc = table.setdefault(key, [0.0, 0])
             acc[0] += dur
             acc[1] += 1
-    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
     syncs = [e for e in runtime if "Synchronize" in e.get("name", "")]
     # each sync's cause: the innermost host op around it on its thread
     ops = [e for e in events if e.get("cat") == "cpu_op"]
@@ -1774,7 +1805,8 @@ def device_trace(fn, name: str) -> dict:
     return {"out": out, "busy_ms": busy / 1e3,
             "window_ms": (end - kern[0][0]) / 1e3, "kernels": len(kern),
             "syncs": len(syncs), "sync_causes": causes,
-            "graph_launches": graphs, "by_kind": by_kind,
+            "graph_launches": graphs, "graph_kernels": len(in_graph),
+            "graph_busy_ms": graph_busy / 1e3, "by_kind": by_kind,
             "by_name": by_name}
 
 
@@ -1802,12 +1834,14 @@ def traced(kind: str) -> dict:
 
 def trace_main(kind: str) -> dict:
     """A ``device_trace`` summary, without its output: ``serve`` (or
-    ``moe_serve``, deepseek-moe-16b), the short kernel-path serve (the
-    engine and its graph built before the window), or ``bnn_machine`` / ``bnn_mean``, the BNN's MC prediction
+    ``moe_serve``, deepseek-moe-16b; ``ssm_serve``, mamba2-370m), the
+    short kernel-path serve (the engine and its graph built before the
+    window), or ``bnn_machine`` / ``bnn_mean``, the BNN's MC prediction
     on 800 images after one untraced call."""
     dev = torch.device("cuda")
-    if kind in ("serve", "moe_serve"):
-        flags = MOE_FLAGS if kind == "moe_serve" else SERVE_FLAGS
+    if kind in ("serve", "moe_serve", "ssm_serve"):
+        flags = {"serve": SERVE_FLAGS, "moe_serve": MOE_FLAGS,
+                 "ssm_serve": SSM_FLAGS}[kind]
         _, built = build_serve(PROFILE_SERVE, flags)
         t = device_trace(lambda: serve_full(PROFILE_SERVE, built, flags),
                          kind)
@@ -1834,22 +1868,30 @@ def profile_serve(kind: str = "serve") -> str:
     """A short kernel-path serve under torch.profiler (1 prefill chunk per
     request, 2 decode chunks each; the engine and its graph built before
     the window) of qwen2-1.5b (``serve``) or deepseek-moe-16b
-    (``moe_serve``), both 28 layers: device time by kind of kernel, how
-    much of the traced window the device sits idle, and the host syncs by
-    cause."""
+    (``moe_serve``), both 28 layers, or mamba2-370m (``ssm_serve``, 48
+    layers, batch prefill, no attention kernel): device time by kind of
+    kernel, how much of the traced window the device sits idle, and the
+    host syncs by cause."""
     t = traced(kind)
     steps = t["steps"]
     prefill = {k: v for k, v in t["by_name"].items() if "paged_prefill_" in k}
-    if not any("paged_prefill_mma<128>" in k for k in prefill):
+    decode = {k: v for k, v in t["by_name"].items() if "paged_decode_" in k}
+    head = {k: v for k, v in t["by_name"].items() if "head_pass1" in k}
+    if kind == "ssm_serve":
+        if prefill or decode or sum(v[1] for v in head.values()) != steps:
+            fail(f"profile {kind}: attention kernels ran, or the head did "
+                 f"not run once a step ({top(head, 4) or 'no head'})")
+    elif not any("paged_prefill_mma<128>" in k for k in prefill):
         fail(f"profile: the served prefill did not run the tensor-core "
              f"kernel ({top(prefill, 4) or 'no prefill kernel'})")
     if any("paged_prefill_simt<__nv_bfloat16>" in k for k in prefill):
         fail("profile: the served bf16 prefill ran the SIMT kernel")
     # the served decode: the tensor-core kernel alone, one launch a call
-    decode = {k: v for k, v in t["by_name"].items() if "paged_decode_" in k}
-    if list(decode) != [k for k in decode if "paged_decode_mma<128>" in k] \
-            or not decode \
-            or sum(v[1] for v in decode.values()) != 28 * steps:
+    if kind != "ssm_serve" and (
+            list(decode) != [k for k in decode
+                             if "paged_decode_mma<128>" in k]
+            or not decode
+            or sum(v[1] for v in decode.values()) != 28 * steps):
         fail(f"profile: the served decode did not run paged_decode_mma<128> "
              f"alone, once a layer a step ({top(decode, 4) or 'none'})")
     causes = ", ".join(f"{k} {n}" for k, n in sorted(
@@ -1863,11 +1905,16 @@ def profile_serve(kind: str = "serve") -> str:
             f"kernels ({t['kernels'] / steps:.1f} a decode step), "
             f"{t['syncs']} host syncs ({t['syncs'] / steps:.2f} a decode "
             f"step)\n"
+            f"  in the decode graph replays: {t['graph_kernels']} kernels "
+            f"({t['graph_kernels'] / steps:.1f} a step), device busy "
+            f"{t['graph_busy_ms']:.2f} ms ({t['graph_busy_ms'] / steps:.3f} "
+            f"a step)\n"
             f"  host syncs by cause: {causes}\n"
             f"  by kind: {top(t['by_kind'], len(t['by_kind']))}\n"
             f"  top kernels: {top(t['by_name'], 8)}\n"
-            f"  prefill kernels: {top(prefill, 4)}\n"
-            f"  decode kernels: {top(decode, 4)}")
+            f"  prefill kernels: {top(prefill, 4) or 'none'}\n"
+            f"  decode kernels: {top(decode, 4) or 'none'}\n"
+            f"  head kernels: {top(head, 4)}")
 
 
 def compare_plain(kernel_run: dict, ref_run: dict) -> str:
@@ -1891,6 +1938,12 @@ def compare_plain(kernel_run: dict, ref_run: dict) -> str:
 # --------------------------------------------------------------------------
 
 MOE_FLAGS = ["--arch", "deepseek_moe_16b", *SERVE_FLAGS[2:]]
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
 
 
 def moe_phase() -> dict:
@@ -1930,15 +1983,7 @@ def moe_phase() -> dict:
     built = build_engine(args, params)
     engine, cfg = built
     runner = engine.runner
-    leaves = []
-    stack = [params]
-    while stack:
-        node = stack.pop()
-        if isinstance(node, dict):
-            stack.extend(node.values())
-        else:
-            leaves.append(node)
-    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    nbytes = tree_bytes(params)
     table = params["embed"]["table"]
     # every parameter but the embedding table is read once a decode step:
     # the capacity dispatch runs every expert (C 8 at 4 slots)
@@ -2040,6 +2085,153 @@ def routing_flips(chunked: list, batch: list, layers: int,
             f"({float(flips.sum()) / (tokens * layers):.2%}); first layer "
             f"with a flip {first}; share by layer "
             + " ".join(f"{x:.3f}" for x in share.tolist()))
+
+
+# --------------------------------------------------------------------------
+# phase 10: the ssm family at full width
+# --------------------------------------------------------------------------
+
+SSM_FLAGS = ["--arch", "mamba2_370m", *SERVE_FLAGS[2:]]
+SSM_LONG = 8192
+SSM_K, SSM_V = 1024, 50280
+
+
+def ssm_phase(launches) -> dict:
+    """mamba2-370m at full width and depth (48 SSD blocks, d 1024, d_inner
+    2048, 32 heads of P 64, N 128, conv width 4, chunk 256, V 50280; bf16
+    body, f32 head, random weights from the seed) on the serve trace of
+    phase 4 with the kernel path's flags and kernel entropy, which fall
+    back to the dense layout, the gather read and batch prefill (no KV:
+    the cache is each layer's SSM state and conv tail).  One engine, its
+    decode chunk one CUDA graph replay, serves the trace SERVE_RUNS times
+    (the head launched once a step and nothing else), then once more with
+    every chunk held bit for bit against the eager chunk, state included;
+    then operand entropy the same way on a second engine; then one request
+    of SSM_LONG prompt tokens (SSM_LONG / 256 SSD chunks in one prefill),
+    served twice by a third engine, whose decode step is timed beside the
+    trace's.  Returns the first run's counts."""
+    import gc
+
+    from repro_torch import resolve_device
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.models import registry as M
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], SSM_FLAGS)
+    dev = resolve_device(args.device)
+    t0 = time.perf_counter()
+    params = M.init_params(get_config(args.arch), torch.Generator(
+        device=dev).manual_seed(args.seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    built = build_engine(args, params)
+    engine, cfg = built
+    runner = engine.runner
+    served = (engine.kv_layout, engine.decode_attn, engine.prefill_mode)
+    if served != ("dense", "gather", "batch"):
+        fail(f"ssm: the engine serves {served}, expected the dense / "
+             "gather / batch fallback")
+    if runner.captured != {"uncertainty_head": args.chunk}:
+        fail(f"ssm: a replay records {runner.captured}, expected the head "
+             f"alone, {args.chunk} launches")
+    # a decode step reads every parameter but the embedding table once
+    # (the head's mu and sigma in f32) and reads and writes every slot's
+    # SSM state and conv tail
+    table = params["embed"]["table"]
+    body = tree_bytes(params["blocks"]) + tree_bytes(params["final_norm"])
+    head = tree_bytes(params["head"])
+    state = tree_bytes({k: runner.cache[k] for k in ("ssm", "conv")})
+    floor_ms = (body + head + 2 * state) / HBM_BYTES_PER_S * 1e3
+    print(f"ssm engine {cfg.name}: {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, d_inner {cfg.ssm_expand * cfg.d_model}, state "
+          f"{cfg.ssm_state}, head dim {cfg.ssm_head_dim}, chunk "
+          f"{cfg.ssm_chunk}, V {cfg.vocab_size}; parameters "
+          f"{tree_bytes(params) / 1e9:.3f} GB (embedding "
+          f"{table.numel() * table.element_size() / 1e9:.3f}), drawn in "
+          f"{init_s:.2f}s; served {served}; decode chunk graph warm-up + "
+          f"capture {runner.capture_s:.3f}s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; bytes floor a "
+          f"decode step {floor_ms:.4f} ms (body {body / 1e9:.3f} + head "
+          f"{head / 1e9:.3f} + 2 x state {state / 1e9:.3f} GB); launches a "
+          f"replay {runner.captured}", flush=True)
+    counts = serve_runs(args, built, "ssm serve", launches, attention=False)
+    print(f"ssm peak memory after the runs "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(graph_vs_eager(args, built, "ssm, kernel entropy")[1], flush=True)
+    del built, engine, runner
+    gc.collect()
+
+    o_args = serve_args(KERNEL_PATH + ["--entropy", "operand"], SSM_FLAGS)
+    print(graph_vs_eager(o_args, build_engine(o_args, params),
+                         "ssm, operand entropy")[1], flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    l_args = serve_args(KERNEL_PATH + [
+        "--entropy", "kernel", "--num-requests", "1", "--prompt-len",
+        str(SSM_LONG), "--long-prompt", str(SSM_LONG)], SSM_FLAGS)
+    long_built = build_engine(l_args, params)
+    for i in range(2):            # run 1 holds the new graph's first replay
+        launches.reset()
+        torch.cuda.synchronize()
+        r = serve(l_args, long_built)
+        check_serve(r, launches.snapshot(), cfg.num_layers, attention=False)
+        if len(r["requests"][0].prompt) != SSM_LONG:
+            fail("ssm long prompt: the request did not carry the long "
+                 "prompt")
+        steps = r["spec_decode"]["full_model_calls"]
+        print(f"ssm long prompt {SSM_LONG} run {i + 1} "
+              f"({SSM_LONG // cfg.ssm_chunk} SSD chunks in one prefill): "
+              f"prefill {r['prefill_compile_s']:.3f}s, {steps} decode "
+              f"steps at {r['decode_s'] / steps * 1e3:.2f} ms each "
+              f"({r['decode_tok_per_s']:.1f} decode tok/s, one live slot "
+              f"of {l_args.slots}), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+    return counts
+
+
+def check_ssm_head(dev) -> dict:
+    """The fused head at mamba2-370m's widths (K 1024, V 50280 = 392 x 128
+    + 104: the ragged last tile on a served path), M 4, S 10, against its
+    plain version with ``check_head``'s tolerance, in both modes (xi
+    operand and Philox), timed against its bytes bound."""
+    from repro_torch.kernels import rng
+    UH = kernel_module("uncertainty_head")
+
+    S, M = 10, 4
+    mu, sigma, g = head_case(dev, 9, SSM_K, SSM_V)
+    x = torch.randn((M, SSM_K), generator=g, device=dev).to(torch.bfloat16)
+    xi = torch.randn((S, M, SSM_V), generator=g, device=dev)
+    worst, plain_ms = 0.0, None
+    for mode, kw in (("xi", {"xi": xi}), ("philox", {"seed": 7, "step": 3})):
+        got = UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, **kw)
+        t0 = time.perf_counter()
+        want = UH.uncertainty_head_plain(x, mu, sigma, num_samples=S, **kw)
+        torch.cuda.synchronize()
+        if mode == "philox":
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        xi_full = xi if mode == "xi" else rng.head_normal(
+            7, 3, S, M, torch.arange(SSM_V, device=dev))
+        worst = max(worst, compare_heads(f"head at mamba2's widths {mode}",
+                                         got, want, x, mu, sigma, xi_full))
+    run = lambda: UH.uncertainty_head_cuda(  # noqa: E731
+        x, mu, sigma, num_samples=S, seed=7, step=3)
+    b_ms, b_by = bound(M * SSM_K * 2 + 2 * SSM_K * SSM_V * 4 + 5 * M * 4,
+                       4.0 * M * SSM_K * SSM_V, F32_FLOPS)
+    row = {"max_abs_err": worst, "ms": device_ms(run, 10),
+           "cold_ms": cold_ms(run), "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None}
+    print(f"  uncertainty_head at mamba2-370m's widths (K {SSM_K}, V "
+          f"{SSM_V}, ragged last tile): ok (max |err| {worst:.3g}), "
+          f"{row['ms']:.4f} ms (L2 cold {row['cold_ms']:.4f}), bound "
+          f"{b_ms:.6f} ms ({b_by}, {b_ms / row['ms']:.0%} of it), plain "
+          f"{plain_ms:.3f} ms, library none", flush=True)
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -2441,6 +2633,14 @@ def main():
     print(f"moe launches {moe_counts}", flush=True)
     print(profile_serve("moe_serve"), flush=True)
     print(f"phase moe: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    check_ssm_head(dev)
+    ssm_counts = ssm_phase(launches)
+    counts["uncertainty_head"] += ssm_counts["uncertainty_head"]
+    print(f"ssm launches {ssm_counts}", flush=True)
+    print(profile_serve("ssm_serve"), flush=True)
+    print(f"phase ssm: {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

@@ -6,7 +6,11 @@ missing GPU raises, ``--device cpu`` runs the plain PyTorch paths).
 Flags of features the port does not have yet raise
 ``NotImplementedError`` (see ROADMAP.md): ``--prefix-cache on``,
 ``--spec-decode on``, ``--policy priority``, ``--escalate-mi`` and
-``--mesh``, and any ``--arch`` outside the dense and moe families.
+``--mesh``, and any ``--arch`` outside the dense, moe and ssm families.
+The ssm family (``mamba2_370m``) keeps no KV: ``--kv-layout paged``,
+``--decode-attn kernel`` and ``--prefill chunked`` fall back silently to
+the dense layout, the gather read and batch prefill at the exact prompt
+length, as in the JAX engine; the stats report the layout served.
 
 ``--reduced`` is ``store_true`` with ``default=True``, as in the JAX
 CLI, so the CLI always serves the reduced config; the full-width model
@@ -19,6 +23,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek_moe_16b --device cpu --kv-layout paged \
       --decode-attn kernel --prefill chunked
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m \
+      --device cpu --kv-layout paged --decode-attn kernel --prefill chunked
 """
 
 from __future__ import annotations
@@ -76,8 +82,9 @@ def make_requests(args, cfg) -> list[Request]:
 def check_ported(args, cfg) -> None:
     """Refuse the flags of features the port does not have yet."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"--arch {args.arch} (family "
-                                  f"{cfg.family!r}) {_ROADMAP}")
+        raise NotImplementedError(
+            f"--arch {args.arch} (family {cfg.family!r}) {_ROADMAP}; the "
+            f"port serves the {', '.join(PORTED_FAMILIES)} families")
     refused = {"--prefix-cache on": args.prefix_cache == "on",
                "--spec-decode on": args.spec_decode == "on",
                "--policy priority": args.policy == "priority",

@@ -1,7 +1,7 @@
-"""Model dispatch for the port (dense and moe families) and the weight
-bridge.
+"""Model dispatch for the port (dense, moe and ssm families) and the
+weight bridge.
 
-PyTorch counterpart of the dense and moe rows of
+PyTorch counterpart of the dense, moe and ssm rows of
 ``repro.models.registry``.  The uniform serving API:
 
     init_params(cfg, generator, device) -> params
@@ -13,9 +13,13 @@ PyTorch counterpart of the dense and moe rows of
     decode_step(params, cfg, token, cache, key, head_noise=None)
     write_slot(cfg, cache, slot, sub, block_row=None)
 
-Caches are slot-indexed and updated in place.  Paged KV pools carry one
-trailing sink block that no table maps (``layers.paged_index``);
-``kv_bytes`` leaves it out.
+Caches are slot-indexed and updated in place: every leaf carries the
+slot axis at position 1 ((L, B, ...) KV strips, SSM states, conv tails)
+except ``len`` (B,).  The ssm family's cache is recurrent state only
+(``RECURRENT_LEAVES``), so it has no paged layout, no prompt padding and
+no chunked prefill: the engine serves it dense, with batch prefill at
+the exact prompt length.  Paged KV pools carry one trailing sink block
+that no table maps (``layers.paged_index``); ``kv_bytes`` leaves it out.
 """
 
 from __future__ import annotations
@@ -25,14 +29,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import moe, transformer
+from repro_torch.models import moe, ssm, transformer
 from repro_torch.models.layers import paged_index, paged_table_width  # noqa: F401
 
 # cache leaves that live in the global block pool under the paged layout
 PAGED_KV_LEAVES = ("k", "v")
 
+# per-slot recurrent state leaves (ssm): written whole at admission
+RECURRENT_LEAVES = ("ssm", "conv")
 
-_FAMILIES = {"dense": transformer, "moe": moe}
+_FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm}
 
 
 def module_for(cfg: ArchConfig):
@@ -58,8 +64,9 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
     """The port's parameters from the JAX parameter tree given as nested
     dicts of numpy arrays (``blocks`` stacked on a leading layer axis, the
-    head as ``{"q": {"mu", "rho"}}``; the moe router in f32 beside the
-    expert stacks).  Every leaf keeps its dtype.  The head's sigma =
+    head as ``{"q": {"mu", "rho"}}``; the moe router and the ssm
+    ``A_log``, ``D`` and ``dt_bias`` in f32 beside the parameter-dtype
+    leaves).  Every leaf keeps its dtype.  The head's sigma =
     softplus(rho) is computed here, once."""
     module_for(cfg)
 
@@ -146,14 +153,21 @@ def kv_bytes(cache) -> int:
 
 def write_slot(cfg: ArchConfig, cache, slot: int, sub, block_row=None):
     """Write a batch-1 request cache ``sub`` into decode slot ``slot``, in
-    place.  Dense: the (L, 1, max_len, ...) strips and ``len`` land in the
-    slot.  Paged: ``block_row`` (MB,) is the slot's physical-block row
-    from the host allocator; it is installed in the table and the strips
-    are scattered through it from position 0 (strip tokens past the
-    mapped blocks drop into the sink)."""
+    place.  Dense: EVERY leaf of ``sub`` lands in the slot, at the
+    leading corner of its slot row (the reference's
+    ``dynamic_update_slice``): the (L, 1, max_len, ...) strips, the ssm
+    family's states and conv tails, and ``len``.  Paged: ``block_row``
+    (MB,) is the slot's physical-block row from the host allocator; it
+    is installed in the table and the strips are scattered through it
+    from position 0 (strip tokens past the mapped blocks drop into the
+    sink)."""
     if "block_table" not in cache:
-        for n in PAGED_KV_LEAVES:
-            cache[n][:, slot] = sub[n][:, 0].to(cache[n].dtype)
+        for n, s in sub.items():
+            if n == "len":
+                continue
+            corner = tuple(slice(0, w) for w in s.shape[2:])
+            cache[n][(slice(None), slot, *corner)] = s[:, 0].to(
+                cache[n].dtype)
         cache["len"][slot] = sub["len"][0]
         return cache
     if block_row is None:

@@ -98,6 +98,20 @@ def moe_pair(arch="deepseek_moe_16b", seed=0):
     return jcfg, jparams, tcfg, tparams
 
 
+@functools.lru_cache(maxsize=None)
+def ssm_pair(arch="mamba2_370m", seed=0):
+    """(jcfg, jax params, tcfg, port params) of the reduced ssm arch (4
+    layers, d 128, d_inner 256, 8 heads of P 32, N 16, chunk 16, f32)
+    from one JAX init."""
+    import jax
+    from repro.models import registry as JM
+    from repro_torch.models import registry as TM
+    jcfg, tcfg = operand_cfgs(arch)
+    jparams = JM.init_params(jax.random.key(seed), jcfg)
+    tparams = TM.params_from_numpy(to_numpy_tree(jparams), tcfg, CPU)
+    return jcfg, jparams, tcfg, tparams
+
+
 def jax_head_noise(key_seed=17):
     """An operand-noise provider for the port that returns the JAX
     package's ``layers.decode_head_noise(PRNGKey(17), ...)`` — the xi the

@@ -97,6 +97,31 @@ def test_cuda_head_is_deterministic_per_seed_and_counts_launches(
     assert launches.snapshot()["uncertainty_head"] == 3
 
 
+def test_cuda_head_matches_plain_at_a_ragged_served_vocab(cuda_device):
+    """mamba2-370m's head, K 1024 and V 50280 = 392 x 128 + 104: the last
+    128-column tile is ragged on a served path.  H/SE/MI/p_max within
+    2e-4 (f32 sums over 50,280 columns in another order), pred equal
+    wherever p-bar's top-2 gap is resolvable, with the xi operand and
+    with the Philox stream."""
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(8, 4, 1024, 50280,
+                                                       10, sigma=0.05))
+    x = x.to(torch.bfloat16)
+    for kw in ({"xi": xi}, {"seed": 4, "step": 9}):
+        got = UH.uncertainty_head_cuda(x, mu, sg, num_samples=10, **kw)
+        want = UH.uncertainty_head_plain(x, mu, sg, num_samples=10, **kw)
+        for k in KEYS:
+            assert torch.isfinite(got[k]).all(), k
+            assert_close(got[k], want[k].cpu(), atol=2e-4, msg=k)
+        full = kw.get("xi")
+        if full is None:
+            full = rng.head_normal(4, 9, 10, 4,
+                                   torch.arange(50280, device=cuda_device))
+        pbar = torch.softmax(ref.lrt_matmul(x, mu, sg, full), -1).mean(0)
+        top = pbar.topk(2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1]) > 1e-6
+        assert not ((got["pred"] != want["pred"]) & clear).any()
+
+
 def _bitwise(a: dict, b: dict) -> bool:
     return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
                for k in a)
@@ -1033,9 +1058,10 @@ def test_cuda_lm_wrappers_refuse_bad_operands(cuda_device):
 
 def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4,
                   arch="qwen2_1_5b"):
-    """A reduced ``arch`` (qwen2 or deepseek-moe: 2 layers, D 32, V 512)
-    runner on the card: paged KV of 3 slots, the chunk captured as a CUDA
-    graph."""
+    """A reduced ``arch`` (qwen2 or deepseek-moe: 2 layers, D 32, V 512;
+    mamba2: 4 layers, d 128, N 16, V 512) runner on the card: 3 slots,
+    paged KV (the dense recurrent cache for mamba2, as the engine falls
+    back), the chunk captured as a CUDA graph."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config, reduced
@@ -1047,10 +1073,13 @@ def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4,
                               head_entropy=entropy, decode_attn=decode_attn)
     params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                             dev)
+    if not TM.supports_paged(cfg):
+        cfg = dataclasses.replace(cfg, decode_attn="gather")
     return ModelRunner(params, cfg, num_slots=3, max_len=32, chunk=chunk,
                        entropy=KernelEntropy(seed=5), mi_threshold=0.05,
-                       se_threshold=1.0, kv_layout="paged", kv_block=4,
-                       kv_blocks=24, device=dev)
+                       se_threshold=1.0,
+                       kv_layout="paged" if TM.supports_paged(cfg)
+                       else "dense", kv_block=4, kv_blocks=24, device=dev)
 
 
 @pytest.mark.parametrize("entropy,decode_attn", [("kernel", "kernel"),
@@ -1076,6 +1105,16 @@ def test_cuda_moe_captured_chunk_equals_the_eager_chunk(cuda_device, entropy,
                       arch="deepseek_moe_16b"), cuda_device)
 
 
+@pytest.mark.parametrize("entropy", ["kernel", "operand"])
+def test_cuda_ssm_captured_chunk_equals_the_eager_chunk(cuda_device,
+                                                        entropy):
+    """The ssm family's chunk (the recurrence writing each layer's state
+    and conv tail in place) as three replays with slots admitted between
+    them, each bit for bit the eager chunk on a copy of its carry."""
+    _check_replays_against_eager(
+        _graph_runner(cuda_device, entropy, arch="mamba2_370m"), cuda_device)
+
+
 def _check_replays_against_eager(runner, cuda_device):
     from repro_torch.launch import steps as S
 
@@ -1083,12 +1122,15 @@ def _check_replays_against_eager(runner, cuda_device):
     r = np.random.default_rng(3)
     with torch.inference_mode():
         tok, cache, active, flags = runner.start()
+        paged = "block_table" in cache
         table = np.full((3, 8), -1, np.int32)
         table[:, :6] = r.permutation(24)[:18].reshape(3, 6)
-        runner.write_table(cache, table)
+        if paged:
+            runner.write_table(cache, table)
         for slot, step0 in ((0, 0), (1, 4), (2, 8)):
             prompt = r.integers(1, 511, size=9 + slot).astype(np.int32)
-            runner.prefill(cache, slot, prompt, table[slot])
+            runner.prefill(cache, slot, prompt,
+                           table[slot] if paged else None)
             tok[slot] = int(prompt[-1])
             active[slot] = True
             copy = (tok.clone(), {k: v.clone() for k, v in cache.items()},
@@ -1102,7 +1144,8 @@ def _check_replays_against_eager(runner, cuda_device):
             assert torch.equal(out[3].view(torch.int32),
                                want[3].view(torch.int32)), slot
             assert torch.equal(out[0], want[0])
-            assert torch.equal(cache["len"], want[1]["len"])
+            assert all(torch.equal(cache[k], want[1][k])
+                       for k in ("len", "ssm", "conv") if k in cache)
             assert all(torch.equal(flags[k], want[2][k]) for k in flags)
             live = out[3][:, S.OUTPUTS.index("MI"), :slot + 1]
             assert torch.isfinite(live).all() and (live >= 0).all()
@@ -1158,6 +1201,37 @@ def test_cuda_moe_chunk_records_no_host_sync(cuda_device):
     assert (off.sum(-1) == 8 * runner.cfg.top_k).all()
     assert int(cache["len"][0]) == 8 + 2 * runner.chunk
     assert torch.isfinite(ys[:, 3, 0]).all()
+
+
+def test_cuda_ssm_chunk_records_no_host_sync(cuda_device):
+    """The ssm decode chunk, eager and replayed, never synchronises the
+    host (each layer's state and conv tail written in place, no tensor
+    made from host data inside the step), and neither does the exact-
+    length batch prefill into a slot; a replay counts one head a step
+    and nothing else; the carry keeps its addresses."""
+    runner = _graph_runner(cuda_device, arch="mamba2_370m")
+    assert runner.captured == {"uncertainty_head": 4}
+    prompt = np.arange(1, 12, dtype=np.int32)
+    with torch.inference_mode():
+        tok, cache, active, flags = runner.start()
+        ptrs = {k: v.data_ptr() for k, v in cache.items()}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runner.prefill(cache, 0, prompt, None)
+            tok[0].fill_(int(prompt[-1]))
+            active[0].fill_(True)
+            runner.scan(tok, cache, 0, active, flags)
+            ys = torch.empty_like(runner.ys)
+            runner._scan(runner.params, tok, cache, runner.step0, active,
+                         flags, ys)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert {k: v.data_ptr() for k, v in cache.items()} == ptrs
+    assert cache["len"].tolist() == [11 + 2 * runner.chunk,
+                                     2 * runner.chunk, 2 * runner.chunk]
+    assert torch.isfinite(ys[:, 3, 0]).all()
+    assert cache["ssm"][:, 0].abs().sum() > 0
 
 
 def test_cuda_writes_between_chunks_do_not_synchronize(cuda_device):
