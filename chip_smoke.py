@@ -20,7 +20,8 @@ Phases (any failure exits non-zero before the result line):
      Philox call's instructions (a probe built beside the kernels), which
      ``PHILOX_INT_OPS`` in every seeded row's bound is taken from.  The
      three serving kernels are also held and timed at deepseek-moe-16b's
-     shapes (MHA at H = Hkv = 16; the head at K 2048, V 102400).
+     shapes (MHA at H = Hkv = 16; the head at K 2048, V 102400);
+     zamba2-7b's come with phase 11.
   4. serve: qwen2-1.5B at full width (28 layers, d 1536, bf16 body, f32
      Bayesian head over V = 151936, S = 10 draws), random weights from a
      seed, paged KV + kernel decode attention + chunked prefill + kernel
@@ -76,10 +77,25 @@ Phases (any failure exits non-zero before the result line):
      eager chunk bit for bit, state included, in kernel and operand
      entropy; one request of 8192 prompt tokens and its decode step;
      phase 5's profile of a short ssm serve in a fresh process.
- 11. one JSON line of per-kernel numbers (eleven kernels; the serving
-     kernels' launches are phase 4's first run plus phase 9's, and phase
-     10's for the head), the card's nvidia-smi line, then the result
-     line.
+ 11. hybrid: zamba2-7b at full width (81 Mamba2 blocks, d 3584, one
+     shared attention + MLP block applied 14 times, 32 MHA heads of
+     D 112, V 32000) on phase 4's trace through the kernel path (paged,
+     one pool plane an application; chunked prefill rounded up to
+     ssm_chunk 256, asserted): the three serving kernels at its shapes
+     (``check_hybrid_shapes``: decode at the served depths and at depth
+     8192, prefill of 256-token chunks and a ragged 37-token tail, the
+     head at K 3584, V 32000); one graphed engine serving the trace three
+     times (14 decode launches and one head a step; decode ms a step
+     against the step's bytes floor, tok/s, e2e, p99, capture time, peak
+     memory); every chunk against the eager chunk bit for bit, state and
+     pools included, in kernel and operand entropy; one request of 8192
+     prompt tokens (32 chunks) and its decode step; phase 5's profile of
+     a short hybrid serve in a fresh process, which must name
+     paged_decode_mma<112>, paged_prefill_mma<112> and the fused head.
+ 12. one JSON line of per-kernel numbers (eleven kernels; the serving
+     kernels' launches are phase 4's first run plus phases 9's and 11's,
+     and phase 10's for the head), the card's nvidia-smi line, then the
+     result line.
 
 Imports nothing of the JAX package.
 """
@@ -623,60 +639,70 @@ def check_prefill(dev) -> dict:
 
 
 # deepseek-moe-16b's shapes on the served path: MHA (H = Hkv = 16, D 128,
-# GQA ratio 1) and the head at K 2048, V 102400
+# GQA ratio 1) and the head at K 2048, V 102400; zamba2-7b's: MHA at
+# H = Hkv = 32, D 112, 256-token prompt chunks and the head at K 3584,
+# V 32000
 MOE_H, MOE_HKV, MOE_K, MOE_V = 16, 16, 2048, 102400
+ZB_H, ZB_HKV, ZB_D, ZB_K, ZB_V = 32, 32, 112, 3584, 32000
 
 
-def check_moe_shapes(dev) -> dict:
-    """The three serving kernels at deepseek-moe-16b's shapes, each against
-    its plain version, timed beside its bound and, where one exists, its
-    library yardstick: decode attention (4 slots at the served depths,
-    ratio 1, where most of the tensor-core kernel's 16 mma rows are
-    padding), prefill attention (S 64 at offsets 0 and 192 of span 256)
-    and the fused head (M 4, S 10, Philox and explicit xi).  Returns the
-    times by kernel for the moe phase's report."""
+def check_shapes(dev, model: str, H: int, Hkv: int, D: int, K: int, V: int,
+                 decodes, prefills, head_seed: int) -> dict:
+    """The three serving kernels at a model's shapes, each against its
+    plain version, the tensor-core route asserted, timed beside its bound
+    and, where one exists, its library yardstick: decode attention at 4
+    slots of the given depths (``decodes``: (label, depths, table
+    width)), prefill attention (``prefills``: (S, offset, span)) and the
+    fused head (M 4, S 10, Philox and explicit xi).  Returns the times by
+    kernel and case."""
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import layers as L
     UH = kernel_module("uncertainty_head")
 
     out = {}
-    H, Hkv, D, BS = MOE_H, MOE_HKV, 128, 16
+    BS = 16
     tol = 2e-2                        # one bf16 ulp of O(1) outputs
-    lens_l = [288, 150, 17, 0]
-    q, k_pool, v_pool, table, lens = decode_case(dev, lens_l, 19, 3, H=H,
-                                                 Hkv=Hkv)
-    eff = L.mapped_span(table, k_pool.shape[1], lens)
-    gather = L.decode_attention(q, L.paged_gather(k_pool, table),
-                                L.paged_gather(v_pool, table), eff)
-    got = PA.paged_decode_attention_cuda(q, k_pool, v_pool, table, lens)
-    want = PA.paged_decode_attention_plain(q, k_pool, v_pool, table, lens)
-    torch.cuda.synchronize()
-    e = max(max_err(got, want), max_err(got, gather))
-    if PA.decode_route(q.dtype, D) != "mma" or not e <= tol \
-            or not same_nan(got, want) or not torch.isnan(got[3]).all() \
-            or torch.isnan(got[:3]).any():
-        fail(f"decode attention at deepseek's MHA: max |err| {e:.3g} > "
-             f"{tol} or NaN not exactly on the empty slot")
-    lib, live = sdpa_call(q, k_pool, v_pool, table, lens)
-    if not max_err(got[live], lib().transpose(1, 2)) <= tol:
-        fail("decode attention at deepseek's MHA: SDPA differs")
-    run = lambda: PA.paged_decode_attention_cuda(  # noqa: E731
-        q, k_pool, v_pool, table, lens)
-    b_ms, b_by = decode_bound(q, lens_l, Hkv)
-    out["paged_decode_attention"] = {
-        "max_abs_err": e, "ms": device_ms(run, 100), "cold_ms": cold_ms(run),
-        "plain_ms": time_ms(lambda: PA.paged_decode_attention_plain(
-            q, k_pool, v_pool, table, lens), 5),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": device_ms(lib, 100)}
+    for label, lens_l, MB in decodes:
+        q, k_pool, v_pool, table, lens = decode_case(dev, lens_l, MB, 3, D=D,
+                                                     H=H, Hkv=Hkv)
+        eff = L.mapped_span(table, k_pool.shape[1], lens)
+        gather = L.decode_attention(q, L.paged_gather(k_pool, table),
+                                    L.paged_gather(v_pool, table), eff)
+        got = PA.paged_decode_attention_cuda(q, k_pool, v_pool, table, lens)
+        want = PA.paged_decode_attention_plain(q, k_pool, v_pool, table,
+                                               lens)
+        torch.cuda.synchronize()
+        e = max(max_err(got, want), max_err(got, gather))
+        empty = [b for b, n in enumerate(lens_l) if n == 0]
+        if PA.decode_route(q.dtype, D) != "mma" or not e <= tol \
+                or not same_nan(got, want) \
+                or not all(torch.isnan(got[b]).all() for b in empty) \
+                or torch.isnan(got[[b for b in range(len(lens_l))
+                                    if b not in empty]]).any():
+            fail(f"decode attention at {model}'s MHA ({label}): max |err| "
+                 f"{e:.3g} > {tol}, not the mma route, or NaN not exactly "
+                 "on the empty slot")
+        lib, live = sdpa_call(q, k_pool, v_pool, table, lens)
+        if not max_err(got[live], lib().transpose(1, 2)) <= tol:
+            fail(f"decode attention at {model}'s MHA ({label}): SDPA "
+                 "differs")
+        run = lambda: PA.paged_decode_attention_cuda(  # noqa: E731
+            q, k_pool, v_pool, table, lens)
+        b_ms, b_by = decode_bound(q, lens_l, Hkv)
+        out[f"paged_decode_attention {label}"] = {
+            "max_abs_err": e, "ms": device_ms(run, 100),
+            "cold_ms": cold_ms(run),
+            "plain_ms": time_ms(lambda: PA.paged_decode_attention_plain(
+                q, k_pool, v_pool, table, lens), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": device_ms(lib, 100)}
 
     g = torch.Generator(device=dev).manual_seed(6)
-    NB = 4 * 19
+    NB = 4 * -(-max(span for _, _, span in prefills) // BS)
     k_pool, v_pool = (_pool(dev, g, NB, BS, Hkv, D) for _ in "kv")
     perm = torch.randperm(NB, generator=torch.Generator().manual_seed(7))
-    row = perm[:256 // BS].to(torch.int32).reshape(1, -1).to(dev)
-    for offset in (0, 192):
-        S, span = 64, 256
+    for S, offset, span in prefills:
+        row = perm[:-(-span // BS)].to(torch.int32).reshape(1, -1).to(dev)
         q = torch.randn((1, S, H, D), generator=g,
                         device=dev).to(torch.bfloat16)
         got = PA.paged_prefill_attention_cuda(q, k_pool, v_pool, row, offset,
@@ -690,8 +716,9 @@ def check_moe_shapes(dev) -> dict:
         e = max(max_err(got, want), max_err(got, ref))
         if PA.prefill_route(q.dtype, D) != "mma" or not e <= tol \
                 or torch.isnan(got).any():
-            fail(f"prefill attention at deepseek's MHA, offset {offset}: "
-                 f"max |err| {e:.3g} > {tol} or NaN")
+            fail(f"prefill attention at {model}'s MHA, S {S} offset "
+                 f"{offset}: max |err| {e:.3g} > {tol}, not the mma route, "
+                 "or NaN")
         kx, vx = (L.paged_gather(p, row)[:, :span].transpose(1, 2)
                   .contiguous() for p in (k_pool, v_pool))
         qx = q.transpose(1, 2).contiguous()
@@ -700,13 +727,13 @@ def check_moe_shapes(dev) -> dict:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qx, kx, vx, attn_mask=mask)
         if not max_err(got, lib().transpose(1, 2)) <= tol:
-            fail(f"prefill attention at deepseek's MHA: SDPA differs at "
-                 f"offset {offset}")
+            fail(f"prefill attention at {model}'s MHA: SDPA differs at S "
+                 f"{S} offset {offset}")
         keys = min(offset + S, span)
         pairs = sum(min(offset + i + 1, span) for i in range(S))
         b_ms, b_by = bound(2 * q.numel() * 2 + keys * Hkv * D * 2 * 2,
                            4.0 * pairs * H * D, BF16_FLOPS)
-        out[f"paged_prefill_attention offset {offset}"] = {
+        out[f"paged_prefill_attention S {S} offset {offset}"] = {
             "max_abs_err": e,
             "ms": device_ms(lambda: PA.paged_prefill_attention_cuda(
                 q, k_pool, v_pool, row, offset, span, 1024), 50),
@@ -716,9 +743,9 @@ def check_moe_shapes(dev) -> dict:
             "library_ms": device_ms(lib, 50)}
 
     S, M = 10, 4
-    mu, sigma, g = head_case(dev, 8, MOE_K, MOE_V)
-    x = torch.randn((M, MOE_K), generator=g, device=dev).to(torch.bfloat16)
-    xi = torch.randn((S, M, MOE_V), generator=g, device=dev)
+    mu, sigma, g = head_case(dev, head_seed, K, V)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    xi = torch.randn((S, M, V), generator=g, device=dev)
     from repro_torch.kernels import rng
     worst, plain_ms = 0.0, None
     for mode, kw in (("xi", {"xi": xi}), ("philox", {"seed": 7, "step": 3})):
@@ -729,26 +756,50 @@ def check_moe_shapes(dev) -> dict:
         if mode == "philox":
             plain_ms = (time.perf_counter() - t0) * 1e3
         xi_full = xi if mode == "xi" else rng.head_normal(
-            7, 3, S, M, torch.arange(MOE_V, device=dev))
-        worst = max(worst, compare_heads(f"head at deepseek's widths {mode}",
+            7, 3, S, M, torch.arange(V, device=dev))
+        worst = max(worst, compare_heads(f"head at {model}'s widths {mode}",
                                          got, want, x, mu, sigma, xi_full))
     run = lambda: UH.uncertainty_head_cuda(  # noqa: E731
         x, mu, sigma, num_samples=S, seed=7, step=3)
-    b_ms, b_by = bound(M * MOE_K * 2 + 2 * MOE_K * MOE_V * 4 + 5 * M * 4,
-                       4.0 * M * MOE_K * MOE_V, F32_FLOPS)
+    b_ms, b_by = bound(M * K * 2 + 2 * K * V * 4 + 5 * M * 4,
+                       4.0 * M * K * V, F32_FLOPS)
     out["uncertainty_head"] = {
         "max_abs_err": worst, "ms": device_ms(run, 10), "cold_ms": cold_ms(run),
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}
     for name, t in out.items():
-        print(f"  {name} at deepseek-moe-16b's shapes: ok (max |err| "
+        print(f"  {name} at {model}'s shapes: ok (max |err| "
               f"{t['max_abs_err']:.3g}), {t['ms']:.4f} ms"
               + (f" (L2 cold {t['cold_ms']:.4f})" if "cold_ms" in t else "")
-              + f", bound {t['bound_ms']:.6f} ms ({t['bound_by']}), plain "
+              + f", bound {t['bound_ms']:.6f} ms ({t['bound_by']}, "
+              f"{t['bound_ms'] / t['ms']:.0%} of it), plain "
               f"{t['plain_ms']:.3f} ms, library "
               + (f"{t['library_ms']:.4f} ms" if t["library_ms"] is not None
                  else "none"), flush=True)
     return out
+
+
+def check_moe_shapes(dev) -> dict:
+    """The serving kernels at deepseek-moe-16b's shapes: decode at the
+    served depths (ratio 1, where most of the tensor-core kernel's 16 mma
+    rows are padding), prefill S 64 at offsets 0 and 192 of span 256, the
+    head at K 2048, V 102400."""
+    return check_shapes(dev, "deepseek-moe-16b", MOE_H, MOE_HKV, 128, MOE_K,
+                        MOE_V, [("served", [288, 150, 17, 0], 19)],
+                        [(64, 0, 256), (64, 192, 256)], head_seed=8)
+
+
+def check_hybrid_shapes(dev) -> dict:
+    """The serving kernels at zamba2-7b's shapes (MHA at 32 heads of D
+    112): decode at the served depths and at depth 8192 (MB 512), prefill
+    of the rounded 256-token chunk at offsets 0 and 256 of a 512-token
+    prompt and a ragged 37-token tail at offset 256, the head at K 3584,
+    V 32000 (250 whole tiles)."""
+    return check_shapes(
+        dev, "zamba2-7b", ZB_H, ZB_HKV, ZB_D, ZB_K, ZB_V,
+        [("served", [288, 150, 17, 0], 19),
+         ("depth 8192", [8192, 8192, 8192, 8192], 512)],
+        [(256, 0, 512), (256, 256, 512), (37, 256, 293)], head_seed=10)
 
 
 def sass_opcodes(binary: Path) -> dict[str, dict[str, int]]:
@@ -1624,13 +1675,13 @@ def serve_runs(args, built, label: str, launches,
     from repro_torch.launch.serve import serve
 
     engine, cfg = built
-    counts, ms, tps, first = None, [], [], None
+    counts, ms, tps, e2e, p99, first = None, [], [], [], [], None
     for i in range(SERVE_RUNS):
         launches.reset()
         torch.cuda.synchronize()
         r = serve(args, built)
         got = launches.snapshot()
-        check_serve(r, got, cfg.num_layers, attention)
+        check_serve(r, got, attention_layers(cfg), attention)
         counts = counts or got
         seen = [(q.tokens, q.MI) for q in r["requests"]]
         if first is not None and seen != first:
@@ -1640,6 +1691,8 @@ def serve_runs(args, built, label: str, launches,
         steps = r["spec_decode"]["full_model_calls"]
         ms.append(r["decode_s"] / steps * 1e3)
         tps.append(r["decode_tok_per_s"])
+        e2e.append(r["e2e_tok_per_s"])
+        p99.append(r["latency_p99_s"])
         print(f"{label} run {i + 1}: {r['gen_tokens']} tokens, decode "
               f"{r['decode_tok_per_s']:.1f} tok/s, e2e "
               f"{r['e2e_tok_per_s']:.1f} tok/s, {r['prefill_chunks']} "
@@ -1648,7 +1701,8 @@ def serve_runs(args, built, label: str, launches,
               f"{r['latency_p99_s']:.2f}s, launches {got}", flush=True)
     print(f"{label} {cfg.name} full width, {SERVE_RUNS} runs of one graphed "
           f"engine: decode ms a step {spread(ms)}, decode tok/s "
-          f"{spread(tps, '.1f')}", flush=True)
+          f"{spread(tps, '.1f')}, e2e tok/s {spread(e2e, '.1f')}, p99 s "
+          f"{spread(p99)}", flush=True)
     return counts
 
 
@@ -1657,7 +1711,8 @@ def check_graph_chunks(extra: list[str], label: str) -> str:
     replays it against the eager chunk (``steps.build_scan_decode``
     called directly) on a copy of the carry the replay started from:
     tokens, H, SE, MI and p_max bit for bit, and the carry after (depths,
-    flags and, for the ssm family, every layer's state and conv tail)."""
+    flags and, for the ssm and hybrid families, every layer's state and
+    conv tail, and the hybrid's pool planes)."""
     args, built = build_serve(extra)
     return graph_vs_eager(args, built, label)[1]
 
@@ -1692,15 +1747,24 @@ def graph_vs_eager(args, built, label: str) -> tuple[dict, str]:
                                             step, copy[2], copy[3], ys)
         rows = [S.OUTPUTS.index(k) for k in ("token", "H", "SE", "MI",
                                              "p_max")]
-        same = torch.equal(bits(out[3][:, rows]), bits(ys[:, rows])) \
-            and torch.equal(out[0], e_tok) \
-            and torch.equal(cache["len"], e_cache["len"]) \
-            and all(torch.equal(bits(cache[k]), bits(e_cache[k]))
-                    for k in ("ssm", "conv") if k in cache) \
-            and all(torch.equal(flags[k], e_flags[k]) for k in flags)
-        if not same:
+        same = {"outputs": torch.equal(bits(out[3][:, rows]),
+                                       bits(ys[:, rows])),
+                "tokens": torch.equal(out[0], e_tok),
+                "len": torch.equal(cache["len"], e_cache["len"]),
+                "flags": all(torch.equal(flags[k], e_flags[k])
+                             for k in flags)}
+        for k in RECURRENT_CARRY:
+            if k in cache:
+                a, b = cache[k], e_cache[k]
+                if "block_table" in cache and k.startswith("attn_"):
+                    # the sink block takes every dropped write (evicted
+                    # slots') in no fixed order, and is never read
+                    a, b = a[:, :-1], b[:, :-1]
+                same[k] = torch.equal(bits(a), bits(b))
+        if not all(same.values()):
             fail(f"graph vs eager ({label}): chunk {chunks[0]} at step "
-                 f"{step0} differs")
+                 f"{step0} differs in "
+                 f"{', '.join(k for k, v in same.items() if not v)}")
         chunks[0] += 1
         return out
 
@@ -1716,12 +1780,27 @@ def graph_vs_eager(args, built, label: str) -> tuple[dict, str]:
                f"carry)")
 
 
+# the carry leaves a graphed chunk is held to beside the depths: the
+# recurrent state and conv tail of the ssm and hybrid families, and the
+# hybrid's pool planes
+RECURRENT_CARRY = ("ssm", "conv", "attn_k", "attn_v")
+
+
+def attention_layers(cfg) -> int:
+    """Attention launches a decode step and a prefill chunk: one a layer,
+    or one an application of the hybrid's shared block."""
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import n_attn_apps
+        return n_attn_apps(cfg)
+    return cfg.num_layers
+
+
 def check_serve(r: dict, counts: dict, layers: int = 28,
                 attention: bool = True) -> None:
-    """The run's launch counts (one attention launch a layer a decode
-    step and a prefill chunk, one head a step; an attention-free family
-    launches the head alone) and its requests (finished, 32 tokens,
-    finite H/SE/MI, MI >= 0)."""
+    """The run's launch counts (one attention launch a layer, or a
+    hybrid application, a decode step and a prefill chunk, one head a
+    step; an attention-free family launches the head alone) and its
+    requests (finished, 32 tokens, finite H/SE/MI, MI >= 0)."""
     steps, chunks = r["spec_decode"]["full_model_calls"], r["prefill_chunks"]
     want = {"paged_decode_attention": layers * steps * attention,
             "paged_prefill_attention": layers * chunks * attention,
@@ -1834,14 +1913,13 @@ def traced(kind: str) -> dict:
 
 def trace_main(kind: str) -> dict:
     """A ``device_trace`` summary, without its output: ``serve`` (or
-    ``moe_serve``, deepseek-moe-16b; ``ssm_serve``, mamba2-370m), the
-    short kernel-path serve (the engine and its graph built before the
+    ``moe_serve``, deepseek-moe-16b; ``ssm_serve``, mamba2-370m;
+    ``hybrid_serve``, zamba2-7b), the short kernel-path serve (the engine and its graph built before the
     window), or ``bnn_machine`` / ``bnn_mean``, the BNN's MC prediction
     on 800 images after one untraced call."""
     dev = torch.device("cuda")
-    if kind in ("serve", "moe_serve", "ssm_serve"):
-        flags = {"serve": SERVE_FLAGS, "moe_serve": MOE_FLAGS,
-                 "ssm_serve": SSM_FLAGS}[kind]
+    if kind in SERVED:
+        flags = SERVED[kind][0]
         _, built = build_serve(PROFILE_SERVE, flags)
         t = device_trace(lambda: serve_full(PROFILE_SERVE, built, flags),
                          kind)
@@ -1868,12 +1946,14 @@ def profile_serve(kind: str = "serve") -> str:
     """A short kernel-path serve under torch.profiler (1 prefill chunk per
     request, 2 decode chunks each; the engine and its graph built before
     the window) of qwen2-1.5b (``serve``) or deepseek-moe-16b
-    (``moe_serve``), both 28 layers, or mamba2-370m (``ssm_serve``, 48
-    layers, batch prefill, no attention kernel): device time by kind of
-    kernel, how much of the traced window the device sits idle, and the
-    host syncs by cause."""
+    (``moe_serve``), both 28 layers, mamba2-370m (``ssm_serve``, 48
+    layers, batch prefill, no attention kernel) or zamba2-7b
+    (``hybrid_serve``, 14 applications of the shared attention, D 112):
+    device time by kind of kernel, how much of the traced window the
+    device sits idle, and the host syncs by cause."""
     t = traced(kind)
     steps = t["steps"]
+    _, D, apps = SERVED[kind]
     prefill = {k: v for k, v in t["by_name"].items() if "paged_prefill_" in k}
     decode = {k: v for k, v in t["by_name"].items() if "paged_decode_" in k}
     head = {k: v for k, v in t["by_name"].items() if "head_pass1" in k}
@@ -1881,19 +1961,22 @@ def profile_serve(kind: str = "serve") -> str:
         if prefill or decode or sum(v[1] for v in head.values()) != steps:
             fail(f"profile {kind}: attention kernels ran, or the head did "
                  f"not run once a step ({top(head, 4) or 'no head'})")
-    elif not any("paged_prefill_mma<128>" in k for k in prefill):
-        fail(f"profile: the served prefill did not run the tensor-core "
-             f"kernel ({top(prefill, 4) or 'no prefill kernel'})")
+    elif not any(f"paged_prefill_mma<{D}>" in k for k in prefill):
+        fail(f"profile {kind}: the served prefill did not run "
+             f"paged_prefill_mma<{D}> ({top(prefill, 4) or 'no prefill'})")
+    if kind == "hybrid_serve" and not head:
+        fail(f"profile {kind}: the fused head did not run")
     if any("paged_prefill_simt<__nv_bfloat16>" in k for k in prefill):
         fail("profile: the served bf16 prefill ran the SIMT kernel")
     # the served decode: the tensor-core kernel alone, one launch a call
     if kind != "ssm_serve" and (
             list(decode) != [k for k in decode
-                             if "paged_decode_mma<128>" in k]
+                             if f"paged_decode_mma<{D}>" in k]
             or not decode
-            or sum(v[1] for v in decode.values()) != 28 * steps):
-        fail(f"profile: the served decode did not run paged_decode_mma<128> "
-             f"alone, once a layer a step ({top(decode, 4) or 'none'})")
+            or sum(v[1] for v in decode.values()) != apps * steps):
+        fail(f"profile {kind}: the served decode did not run "
+             f"paged_decode_mma<{D}> alone, {apps} launches a step "
+             f"({top(decode, 4) or 'none'})")
     causes = ", ".join(f"{k} {n}" for k, n in sorted(
         t["sync_causes"].items(), key=lambda kv: -kv[1]))
     return (f"profile {kind} (a fresh process), kernel path, {steps} "
@@ -2232,6 +2315,145 @@ def check_ssm_head(dev) -> dict:
           f"{b_ms:.6f} ms ({b_by}, {b_ms / row['ms']:.0%} of it), plain "
           f"{plain_ms:.3f} ms, library none", flush=True)
     return row
+
+
+# --------------------------------------------------------------------------
+# phase 11: the hybrid family at full width
+# --------------------------------------------------------------------------
+
+HYBRID_FLAGS = ["--arch", "zamba2_7b", *SERVE_FLAGS[2:]]
+HYBRID_LONG = 8192
+# the profiled serves: their flags, the served attention's head dim and
+# its launches a decode step
+SERVED = {"serve": (SERVE_FLAGS, 128, 28), "moe_serve": (MOE_FLAGS, 128, 28),
+          "ssm_serve": (SSM_FLAGS, 0, 0),
+          "hybrid_serve": (HYBRID_FLAGS, ZB_D, 14)}
+
+
+def hybrid_phase(launches) -> dict:
+    """zamba2-7b at full width and depth (81 Mamba2 blocks, d 3584,
+    d_inner 7168, 112 SSM heads of P 64, N 64, chunk 256; one shared
+    attention + MLP block, 32 MHA heads of D 112, ff 14336, applied 14
+    times; V 32000; bf16 body, f32 head, random weights from the seed) on
+    the serve trace of phase 4 with the kernel path's flags and kernel
+    entropy: paged KV (one pool plane an application behind one table),
+    the decode kernel, chunked prefill with the chunk rounded up to
+    ssm_chunk (asserted), the prompt's state threaded engine-side.  One
+    engine, its decode chunk one CUDA graph replay (the head and 14
+    decode launches a step), serves the trace SERVE_RUNS times, then once
+    more with every chunk held bit for bit against the eager chunk, state
+    and pools included; then operand entropy the same way on a second
+    engine; then one request of HYBRID_LONG prompt tokens (32 chunks of
+    256), served twice by a third engine, whose decode step is timed
+    beside the trace's.  Returns the first run's counts."""
+    import gc
+
+    from repro_torch import resolve_device
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.models import registry as M
+    from repro_torch.models.hybrid import n_attn_apps
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], HYBRID_FLAGS)
+    dev = resolve_device(args.device)
+    t0 = time.perf_counter()
+    params = M.init_params(get_config(args.arch), torch.Generator(
+        device=dev).manual_seed(args.seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    built = build_engine(args, params)
+    engine, cfg = built
+    runner = engine.runner
+    A = n_attn_apps(cfg)
+    served = (engine.kv_layout, engine.decode_attn, engine.prefill_mode)
+    chunk = -(-args.prefill_chunk // cfg.ssm_chunk) * cfg.ssm_chunk
+    if served != ("paged", "kernel", "chunked") \
+            or engine.prefill_chunk != chunk:
+        fail(f"hybrid: the engine serves {served} with prefill chunks of "
+             f"{engine.prefill_chunk}, expected paged / kernel / chunked "
+             f"with {args.prefill_chunk} rounded up to {chunk}")
+    want = {"paged_decode_attention": A * args.chunk,
+            "uncertainty_head": args.chunk}
+    if runner.captured != want:
+        fail(f"hybrid: a replay records {runner.captured}, expected {want}")
+    # a decode step reads the Mamba blocks once and the shared block once
+    # an application (0.41 GB: it cannot stay in the 50 MB L2), the head
+    # (f32) and each slot's K/V at its depth in every plane (the trace's
+    # mean depth, prompt + gen / 2), and reads and writes every slot's
+    # state and conv tail
+    blocks = tree_bytes(params["blocks"]) + tree_bytes(params["final_norm"])
+    shared = tree_bytes(params["shared"])
+    head = tree_bytes(params["head"])
+    state = tree_bytes({k: runner.cache[k] for k in ("ssm", "conv")})
+    kv_token = 2 * A * cfg.num_kv_heads * cfg.head_dim \
+        * runner.cache["attn_k"].element_size()
+    attended = args.slots * (args.prompt_len + args.gen_len / 2) * kv_token
+    floor_ms = (blocks + A * shared + head + attended + 2 * state) \
+        / HBM_BYTES_PER_S * 1e3
+    print(f"hybrid engine {cfg.name}: {cfg.num_layers} Mamba2 layers, d "
+          f"{cfg.d_model}, d_inner {cfg.ssm_expand * cfg.d_model}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}; shared block x {A} "
+          f"({cfg.num_heads} heads of D {cfg.head_dim}, ff {cfg.d_ff}); V "
+          f"{cfg.vocab_size}; parameters {tree_bytes(params) / 1e9:.3f} GB "
+          f"(blocks {blocks / 1e9:.3f}, shared {shared / 1e9:.3f}, head "
+          f"{head / 1e9:.3f}), drawn in {init_s:.2f}s, peak memory after "
+          f"the draw {init_peak / 1e9:.2f} GB; served {served}, prefill "
+          f"chunk {engine.prefill_chunk}; decode chunk graph warm-up + "
+          f"capture {runner.capture_s:.3f}s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; bytes floor a "
+          f"decode step {floor_ms:.4f} ms (blocks {blocks / 1e9:.3f} + {A} "
+          f"x shared {shared / 1e9:.3f} + head {head / 1e9:.3f} + KV "
+          f"{attended / 1e9:.3f} + 2 x state {state / 1e9:.3f} GB); "
+          f"launches a replay {runner.captured}", flush=True)
+    counts = serve_runs(args, built, "hybrid serve", launches)
+    print(f"hybrid peak memory after the runs "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(graph_vs_eager(args, built, "hybrid, kernel path, kernel "
+                         "entropy")[1], flush=True)
+    del built, engine, runner
+    gc.collect()
+
+    o_args = serve_args(KERNEL_PATH + ["--entropy", "operand"], HYBRID_FLAGS)
+    print(graph_vs_eager(o_args, build_engine(o_args, params),
+                         "hybrid, kernel path, operand entropy")[1],
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    blocks_needed = -(-(HYBRID_LONG + args.gen_len + args.chunk)
+                      // args.kv_block)
+    l_args = serve_args(KERNEL_PATH + [
+        "--entropy", "kernel", "--num-requests", "1", "--prompt-len",
+        str(HYBRID_LONG), "--long-prompt", str(HYBRID_LONG), "--kv-blocks",
+        str(blocks_needed + 8)], HYBRID_FLAGS)
+    long_built = build_engine(l_args, params)
+    for i in range(2):            # run 1 holds the new graph's first replay
+        launches.reset()
+        torch.cuda.synchronize()
+        r = serve(l_args, long_built)
+        check_serve(r, launches.snapshot(), A)
+        chunks = r["prefill_chunks"]
+        if len(r["requests"][0].prompt) != HYBRID_LONG \
+                or chunks != -(-HYBRID_LONG // chunk):
+            fail(f"hybrid long prompt: {chunks} prefill chunks for a "
+                 f"prompt of {len(r['requests'][0].prompt)} tokens")
+        steps = r["spec_decode"]["full_model_calls"]
+        print(f"hybrid long prompt {HYBRID_LONG} run {i + 1} ({chunks} "
+              f"chunks of {chunk}, offsets up to "
+              f"{(chunks - 1) * chunk}): served in "
+              f"{r['total_s']:.3f}s, {steps} decode steps at "
+              f"{r['decode_s'] / steps * 1e3:.2f} ms each "
+              f"({r['decode_tok_per_s']:.1f} decode tok/s, one live slot "
+              f"of {l_args.slots}, depth {HYBRID_LONG} to "
+              f"{HYBRID_LONG + args.gen_len}), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+              flush=True)
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -2641,6 +2863,16 @@ def main():
     print(f"ssm launches {ssm_counts}", flush=True)
     print(profile_serve("ssm_serve"), flush=True)
     print(f"phase ssm: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    check_hybrid_shapes(dev)
+    hybrid_counts = hybrid_phase(launches)
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "uncertainty_head"):
+        counts[name] += hybrid_counts[name]
+    print(f"hybrid launches {hybrid_counts}", flush=True)
+    print(profile_serve("hybrid_serve"), flush=True)
+    print(f"phase hybrid: {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

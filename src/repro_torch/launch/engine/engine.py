@@ -113,6 +113,11 @@ class ServeEngine:
         self.prefill_mode = prefill_mode if paged \
             and M.supports_chunked_prefill(cfg) else "batch"
         self.prefill_chunk = prefill_chunk
+        if self.prefill_mode == "chunked" and cfg.family == "hybrid":
+            # hybrid chunks walk the SSM in ssm_chunk segments: round the
+            # knob up so that every full chunk is a whole number of them
+            sc = cfg.ssm_chunk
+            self.prefill_chunk = -(-prefill_chunk // sc) * sc
         # allocates the decode carry and, on CUDA, captures the chunk
         self.runner = ModelRunner(
             params, cfg, num_slots=num_slots, max_len=max_len, chunk=chunk,
@@ -133,17 +138,23 @@ class ServeEngine:
 
     def _start_job(self, req: Request) -> dict:
         """Open a chunked-prefill walk over ``req``'s prompt: the walk
-        offset, plus for the moe family ``ex_off``, the running expert
-        load that its ``prefill_chunk`` threads between chunks."""
+        offset, plus what the family's ``prefill_chunk`` threads between
+        chunks: ``ex_off``, the running expert load (moe), or ``state``,
+        the prompt's zero (ssm, conv) recurrent state (hybrid)."""
         P = len(req.prompt)
         job = {"req": req, "P": P, "span": self._bucket(P), "off": 0}
         if self.cfg.family == "moe":
             job["ex_off"] = self.runner.expert_offsets()
+        elif self.cfg.family == "hybrid":
+            job["state"] = self.runner.prefill_state()
         return job
 
     def _run_chunk(self, cache, slot: int, job: dict):
         """Advance ``job`` by one prompt chunk (padded to exactly
-        ``prefill_chunk`` tokens); returns ``(cache, done, shape_key)``."""
+        ``prefill_chunk`` tokens where prompts may be padded; hybrid walks
+        exact ``ssm_chunk``-multiple segments, its last chunk the
+        ``"final"`` variant that writes the state); returns ``(cache,
+        done, shape_key)``."""
         off, P, W = job["off"], job["P"], job["span"]
         pc = self.prefill_chunk
         real = min(pc, P - off)
@@ -151,15 +162,22 @@ class ServeEngine:
         toks = np.zeros((S_len,), np.int32)
         toks[:real] = job["req"].prompt[off:off + real]
         new_len = off + real
+        done = new_len >= P
+        variant = ""
         if "ex_off" in job:
             cache, job["ex_off"] = self.runner.prefill_chunk(
                 cache, slot, toks, off, new_len, W,
                 expert_offsets=job["ex_off"])
+        elif "state" in job:
+            cache, job["state"] = self.runner.prefill_chunk(
+                cache, slot, toks, off, new_len, W, state=job["state"],
+                finalize=done)
+            variant = "final" if done else ""
         else:
             cache = self.runner.prefill_chunk(cache, slot, toks, off,
                                               new_len, W)
         job["off"] = new_len
-        return cache, new_len >= P, ("chunk", S_len, W, "")
+        return cache, done, ("chunk", S_len, W, variant)
 
     def run(self, requests: list[Request]) -> dict:
         """Serve ``requests`` to completion; returns engine metrics.

@@ -172,12 +172,18 @@ class ModelRunner:
 
     def prefill_chunk(self, cache: dict, slot: int, toks: np.ndarray,
                       offset: int, new_len: int, span: int,
-                      expert_offsets: Optional[torch.Tensor] = None):
+                      expert_offsets: Optional[torch.Tensor] = None,
+                      state: Optional[dict] = None, finalize: bool = False):
         """One prompt chunk into ``slot``; returns the cache, or for the
         moe family ``(cache, new_expert_offsets)`` from the (L, E) running
-        expert load it is given."""
-        kw = {} if expert_offsets is None else \
-            {"expert_offsets": expert_offsets}
+        expert load it is given, or for the hybrid family ``(cache,
+        new_state)`` from the prompt's (ssm, conv) state, which reaches
+        the slot only when ``finalize``."""
+        kw = {}
+        if expert_offsets is not None:
+            kw["expert_offsets"] = expert_offsets
+        if state is not None:
+            kw.update(state=state, finalize=finalize)
         return M.prefill_chunk(self.params, self.cfg, self.tokens(toks),
                                cache, slot, offset, new_len, span, **kw)
 
@@ -186,6 +192,13 @@ class ModelRunner:
         (L, E) f32 zeros on the device."""
         return torch.zeros((self.cfg.num_layers, self.cfg.num_experts),
                            dtype=torch.float32, device=self.device)
+
+    def prefill_state(self) -> dict:
+        """A hybrid prompt's recurrent state before its first chunk, on the
+        device: ``ssm`` (L, 1, H, P, N) f32 and ``conv`` (L, 1, W - 1,
+        d_in + 2N) in the cache's conv dtype, zeros."""
+        return {n: torch.zeros_like(self.cache[n][:, :1])
+                for n in ("ssm", "conv")}
 
     def set_len(self, cache: dict, slot: int, n: int) -> dict:
         cache["len"][slot].fill_(n)      # no host copy (see engine.py)

@@ -6,11 +6,15 @@ missing GPU raises, ``--device cpu`` runs the plain PyTorch paths).
 Flags of features the port does not have yet raise
 ``NotImplementedError`` (see ROADMAP.md): ``--prefix-cache on``,
 ``--spec-decode on``, ``--policy priority``, ``--escalate-mi`` and
-``--mesh``, and any ``--arch`` outside the dense, moe and ssm families.
+``--mesh``, and any ``--arch`` outside the dense, moe, ssm and hybrid
+families.
 The ssm family (``mamba2_370m``) keeps no KV: ``--kv-layout paged``,
 ``--decode-attn kernel`` and ``--prefill chunked`` fall back silently to
 the dense layout, the gather read and batch prefill at the exact prompt
-length, as in the JAX engine; the stats report the layout served.
+length, as in the JAX engine; the stats report the layout served.  The
+hybrid family (``zamba2_7b``) pages the KV of its shared attention and
+prefills in chunks rounded up to ``ssm_chunk``, its prompts at their
+exact length.
 
 ``--reduced`` is ``store_true`` with ``default=True``, as in the JAX
 CLI, so the CLI always serves the reduced config; the full-width model
@@ -24,6 +28,8 @@ Usage:
       --arch deepseek_moe_16b --device cpu --kv-layout paged \
       --decode-attn kernel --prefill chunked
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_370m \
+      --device cpu --kv-layout paged --decode-attn kernel --prefill chunked
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \
       --device cpu --kv-layout paged --decode-attn kernel --prefill chunked
 """
 
@@ -198,7 +204,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "decode chunk (needs --kv-layout paged); 'batch': "
                          "whole-prompt prefill at admission, the reference")
     ap.add_argument("--prefill-chunk", type=int, default=32,
-                    help="prompt tokens per interleaved prefill chunk")
+                    help="prompt tokens per interleaved prefill chunk "
+                         "(rounded up to ssm_chunk on hybrid)")
     ap.add_argument("--long-prompt", type=int, default=0,
                     help="give request 0 a prompt of N tokens (block "
                          "tables grow on demand)")

@@ -1,7 +1,7 @@
-"""Model dispatch for the port (dense, moe and ssm families) and the
-weight bridge.
+"""Model dispatch for the port (dense, moe, ssm and hybrid families) and
+the weight bridge.
 
-PyTorch counterpart of the dense, moe and ssm rows of
+PyTorch counterpart of the dense, moe, ssm and hybrid rows of
 ``repro.models.registry``.  The uniform serving API:
 
     init_params(cfg, generator, device) -> params
@@ -18,8 +18,11 @@ slot axis at position 1 ((L, B, ...) KV strips, SSM states, conv tails)
 except ``len`` (B,).  The ssm family's cache is recurrent state only
 (``RECURRENT_LEAVES``), so it has no paged layout, no prompt padding and
 no chunked prefill: the engine serves it dense, with batch prefill at
-the exact prompt length.  Paged KV pools carry one trailing sink block
-that no table maps (``layers.paged_index``); ``kv_bytes`` leaves it out.
+the exact prompt length.  The hybrid family pages the KV planes of its
+shared attention (``attn_k``, ``attn_v``) and keeps its recurrent state
+per slot; its prompts keep their exact length too.  Paged KV pools
+carry one trailing sink block that no table maps
+(``layers.paged_index``); ``kv_bytes`` leaves it out.
 """
 
 from __future__ import annotations
@@ -29,16 +32,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import moe, ssm, transformer
+from repro_torch.models import hybrid, moe, ssm, transformer
 from repro_torch.models.layers import paged_index, paged_table_width  # noqa: F401
 
 # cache leaves that live in the global block pool under the paged layout
-PAGED_KV_LEAVES = ("k", "v")
+PAGED_KV_LEAVES = ("k", "v", "attn_k", "attn_v")
 
-# per-slot recurrent state leaves (ssm): written whole at admission
+# per-slot recurrent state leaves (ssm, hybrid): written whole at admission
 RECURRENT_LEAVES = ("ssm", "conv")
 
-_FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm}
+_FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm,
+             "hybrid": hybrid}
 
 
 def module_for(cfg: ArchConfig):
@@ -66,8 +70,9 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
     dicts of numpy arrays (``blocks`` stacked on a leading layer axis, the
     head as ``{"q": {"mu", "rho"}}``; the moe router and the ssm
     ``A_log``, ``D`` and ``dt_bias`` in f32 beside the parameter-dtype
-    leaves).  Every leaf keeps its dtype.  The head's sigma =
-    softplus(rho) is computed here, once."""
+    leaves; the hybrid family's ``shared`` block as it comes).  Every
+    leaf keeps its dtype.  The head's sigma = softplus(rho) is computed
+    here, once."""
     module_for(cfg)
 
     def walk(node):
@@ -96,7 +101,7 @@ def supports_prompt_padding(cfg: ArchConfig) -> bool:
 
 
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
-    return supports_paged(cfg) and cfg.family in ("dense", "moe")
+    return supports_paged(cfg) and cfg.family in ("dense", "moe", "hybrid")
 
 
 def supports_prefix_cache(cfg: ArchConfig) -> bool:
@@ -125,7 +130,10 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
                   offset: int, new_len: int, span: int, **kw):
     """One incremental prefill chunk for ``slot`` (paged layout only).
     Family keywords: ``expert_offsets`` (moe, which then returns
-    ``(cache, new_offsets)``)."""
+    ``(cache, new_offsets)``); ``state`` and ``finalize`` (hybrid: the
+    prompt's batch-1 (ssm, conv) state threaded between chunks and
+    written into the slot only when ``finalize``, the last chunk; returns
+    ``(cache, new_state)``)."""
     if not supports_chunked_prefill(cfg):
         raise ValueError(f"family {cfg.family!r} has no chunked prefill")
     return module_for(cfg).prefill_chunk(params, cfg, tokens, cache, slot,
@@ -153,30 +161,30 @@ def kv_bytes(cache) -> int:
 
 def write_slot(cfg: ArchConfig, cache, slot: int, sub, block_row=None):
     """Write a batch-1 request cache ``sub`` into decode slot ``slot``, in
-    place.  Dense: EVERY leaf of ``sub`` lands in the slot, at the
-    leading corner of its slot row (the reference's
-    ``dynamic_update_slice``): the (L, 1, max_len, ...) strips, the ssm
-    family's states and conv tails, and ``len``.  Paged: ``block_row``
-    (MB,) is the slot's physical-block row from the host allocator; it
-    is installed in the table and the strips are scattered through it
-    from position 0 (strip tokens past the mapped blocks drop into the
-    sink)."""
-    if "block_table" not in cache:
-        for n, s in sub.items():
-            if n == "len":
-                continue
+    place, as the reference does.  Dense: EVERY leaf of ``sub`` lands in
+    the slot, at the leading corner of its slot row: the (L, 1, max_len,
+    ...) strips, the recurrent states and conv tails, and ``len``.
+    Paged: ``block_row`` (MB,) is the slot's physical-block row from the
+    host allocator; it is installed in the table, the ``PAGED_KV_LEAVES``
+    strips are scattered through it from position 0 (strip tokens past
+    the mapped blocks drop into the sink), and every other leaf (the
+    hybrid family's states and conv tails) takes the dense slot write."""
+    paged = "block_table" in cache
+    if paged:
+        if block_row is None:
+            raise ValueError("paged cache write needs the slot's block_row")
+        table = block_row.reshape(1, -1).to(torch.int32)
+        cache["block_table"][slot] = table[0]
+    for n, s in sub.items():
+        if n == "len":
+            continue
+        if not (paged and n in PAGED_KV_LEAVES):
             corner = tuple(slice(0, w) for w in s.shape[2:])
             cache[n][(slice(None), slot, *corner)] = s[:, 0].to(
                 cache[n].dtype)
-        cache["len"][slot] = sub["len"][0]
-        return cache
-    if block_row is None:
-        raise ValueError("paged cache write needs the slot's block_row")
-    table = block_row.reshape(1, -1).to(torch.int32)
-    cache["block_table"][slot] = table[0]
-    for n in PAGED_KV_LEAVES:
+            continue
         pool = cache[n]
-        strip = sub[n][:, 0]                            # (L, S, Hkv, hd)
+        strip = s[:, 0]                            # (L or A, S, Hkv, hd)
         lens = torch.zeros((1,), dtype=torch.int32, device=pool.device)
         phys, off = paged_index(pool.shape[1], pool.shape[2], table, lens,
                                 strip.shape[1])

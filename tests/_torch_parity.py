@@ -128,3 +128,22 @@ def jax_head_noise(key_seed=17):
         return torch.from_numpy(np.asarray(xi).copy())
 
     return provider
+
+
+@functools.lru_cache(maxsize=None)
+def hybrid_pair(arch="zamba2_7b", seed=0, num_layers=None):
+    """(jcfg, jax params, tcfg, port params) of the reduced hybrid arch (4
+    layers, the shared block every 2, d 128, 4 MHA heads of D 32, d_inner
+    256, 8 SSM heads of P 32, N 16, chunk 16, V 512, f32) from one JAX
+    init; ``num_layers`` (e.g. 5: a last group of one layer) replaces the
+    depth in both configs."""
+    import jax
+    from repro.models import registry as JM
+    from repro_torch.models import registry as TM
+    jcfg, tcfg = operand_cfgs(arch)
+    if num_layers is not None:
+        jcfg = dataclasses.replace(jcfg, num_layers=num_layers)
+        tcfg = dataclasses.replace(tcfg, num_layers=num_layers)
+    jparams = JM.init_params(jax.random.key(seed), jcfg)
+    tparams = TM.params_from_numpy(to_numpy_tree(jparams), tcfg, CPU)
+    return jcfg, jparams, tcfg, tparams

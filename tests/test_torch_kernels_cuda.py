@@ -122,6 +122,32 @@ def test_cuda_head_matches_plain_at_a_ragged_served_vocab(cuda_device):
         assert not ((got["pred"] != want["pred"]) & clear).any()
 
 
+def test_cuda_head_matches_plain_at_zamba2s_widths(cuda_device):
+    """zamba2-7b's head, K 3584 and V 32000 (250 whole 128-column tiles),
+    M 4, S 10: H/SE/MI/p_max within 2e-4 of the plain version, pred equal
+    wherever p-bar's top-2 gap is resolvable, with the xi operand and
+    with the Philox stream; one launch a call."""
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(12, 4, 3584, 32000,
+                                                       10, sigma=0.05))
+    x = x.to(torch.bfloat16)
+    for kw in ({"xi": xi}, {"seed": 4, "step": 9}):
+        launches.reset()
+        got = UH.uncertainty_head_cuda(x, mu, sg, num_samples=10, **kw)
+        assert launches.snapshot()["uncertainty_head"] == 1
+        want = UH.uncertainty_head_plain(x, mu, sg, num_samples=10, **kw)
+        for k in KEYS:
+            assert torch.isfinite(got[k]).all(), k
+            assert_close(got[k], want[k].cpu(), atol=2e-4, msg=k)
+        full = kw.get("xi")
+        if full is None:
+            full = rng.head_normal(4, 9, 10, 4,
+                                   torch.arange(32000, device=cuda_device))
+        pbar = torch.softmax(ref.lrt_matmul(x, mu, sg, full), -1).mean(0)
+        top = pbar.topk(2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1]) > 1e-6
+        assert not ((got["pred"] != want["pred"]) & clear).any()
+
+
 def _bitwise(a: dict, b: dict) -> bool:
     return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
                for k in a)
@@ -261,11 +287,12 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.kernels import paged_attention as PA
 names = {}
 for case in sys.argv[1:]:
-    dtype, D, route = json.loads(case)
+    dtype, D, route, *heads = json.loads(case)
+    H, Hkv = heads or (12, 2)
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(0)
-    q = torch.randn((4, 1, 12, D), generator=g, device="cuda").to(dt)
-    k, v = (torch.randn((76, 16, 2, D), generator=g, device="cuda").to(dt)
+    q = torch.randn((4, 1, H, D), generator=g, device="cuda").to(dt)
+    k, v = (torch.randn((76, 16, Hkv, D), generator=g, device="cuda").to(dt)
             for _ in "kv")
     table = torch.randperm(76, device="cuda").to(torch.int32).reshape(4, 19)
     lens = torch.tensor([288, 150, 17, 0], dtype=torch.int32, device="cuda")
@@ -286,10 +313,10 @@ print(json.dumps(names))
 """
 
 
-def test_cuda_decode_mma_is_one_launch(cuda_device):
-    """By kernel name in a torch.profiler trace (a fresh process, as for
-    flash attention): the served bf16 call launches paged_decode_mma<128>
-    and nothing else; the SIMT route launches its kernel and the merge."""
+def _decode_kernels(*cases):
+    """Per case (dtype, D, route[, H, Hkv]) the names of the kernels one
+    decode call launches (4 slots over 76 blocks), from torch.profiler in
+    a fresh process."""
     import json
     import os
     import subprocess
@@ -298,17 +325,71 @@ def test_cuda_decode_mma_is_one_launch(cuda_device):
     src = str(Path(__file__).resolve().parents[1] / "src")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         filter(None, [src, os.environ.get("PYTHONPATH")])))
-    cases = [json.dumps(c) for c in (("bfloat16", 128, None),
-                                     ("bfloat16", 128, "simt"),
-                                     ("float32", 64, None))]
-    out = subprocess.run([sys.executable, "-c", _PROFILE_DECODE, *cases],
+    args = [json.dumps(c) for c in cases]
+    out = subprocess.run([sys.executable, "-c", _PROFILE_DECODE, *args],
                          env=env, capture_output=True, text=True, check=True)
     names = json.loads(out.stdout.strip().splitlines()[-1])
-    mma, simt, f32 = (names[c] for c in cases)
+    return [names[a] for a in args]
+
+
+def test_cuda_decode_mma_is_one_launch(cuda_device):
+    """By kernel name in a torch.profiler trace (a fresh process, as for
+    flash attention): the served bf16 call launches paged_decode_mma<128>
+    and nothing else; the SIMT route launches its kernel and the merge."""
+    mma, simt, f32 = _decode_kernels(("bfloat16", 128, None),
+                                     ("bfloat16", 128, "simt"),
+                                     ("float32", 64, None))
     assert len(mma) == 1 and "paged_decode_mma<128>" in mma[0], mma
     for n in (simt, f32):
         assert len(n) == 2 and any("paged_decode_simt<" in x for x in n) \
             and any("paged_decode_simt_merge" in x for x in n), n
+
+
+def test_cuda_decode_mma_matches_plain_at_zamba2s_mha(cuda_device):
+    """zamba2-7b's shared attention (H = Hkv = 32, D 112, bf16): the
+    decode route is the tensor-core kernel, paged_decode_mma<112> alone
+    in one launch by name, and it agrees with the plain version (atol
+    2e-2, one bf16 ulp of O(1) outputs) at the served depths and at
+    depth 8192, with NaN exactly on the empty slot."""
+    assert PA.decode_route(torch.bfloat16, 112) == "mma"
+    (names,) = _decode_kernels(("bfloat16", 112, None, 32, 32))
+    assert len(names) == 1 and "paged_decode_mma<112>" in names[0], names
+    for MB, lens in ((19, [288, 150, 17, 0]), (512, [8192, 8191, 4000, 0])):
+        q, k, v, table, d = (t.to(cuda_device) for t in _decode_case(
+            MB, 32, 32, 112, 16, MB, lens))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        launches.reset()
+        out = PA.paged_decode_attention_cuda(q, k, v, table, d)
+        assert launches.snapshot()["paged_decode_attention"] == 1
+        want = PA.paged_decode_attention_plain(q, k, v, table, d)
+        torch.cuda.synchronize()
+        assert_close(out.float(), want.float().cpu(), atol=2e-2,
+                     equal_nan=True)
+        assert torch.isnan(out[3]).all() and not torch.isnan(out[:3]).any()
+
+
+@pytest.mark.parametrize("S,offset,span", [(256, 0, 512), (256, 256, 512),
+                                           (37, 256, 293)])
+def test_cuda_prefill_mma_matches_plain_at_zamba2s_mha(cuda_device, S,
+                                                       offset, span):
+    """zamba2-7b's prompt chunks (256 tokens, the rounded ssm_chunk, and a
+    ragged 37-token tail; H = Hkv = 32, D 112, bf16): the tensor-core
+    kernel, paged_prefill_mma<112> by name in one launch, within 2e-2 of
+    the plain version, no NaN."""
+    assert PA.prefill_route(torch.bfloat16, 112) == "mma"
+    (run,) = _prefill_kernels((S + offset, S, 32, 32, 112, offset, span))
+    assert run["launches"] == 1
+    assert any("paged_prefill_mma<112>" in n for n in run["names"]), run
+    assert not any("paged_prefill_simt" in n for n in run["names"]), run
+    q, k, v, row = _prefill_bf16(cuda_device, S + offset, S, 32, 32, 112, 16,
+                                 span)
+    for kc in (1024, 64):
+        got = PA.paged_prefill_attention_cuda(q, k, v, row, offset, span,
+                                              kc)
+        want = PA.paged_prefill_attention_plain(q, k, v, row, offset, span,
+                                                kc)
+        assert not torch.isnan(got).any()
+        assert_close(got.float(), want.float().cpu(), atol=2e-2)
 
 
 @pytest.mark.parametrize("kc", [1024, 16])
@@ -1059,7 +1140,9 @@ def test_cuda_lm_wrappers_refuse_bad_operands(cuda_device):
 def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4,
                   arch="qwen2_1_5b"):
     """A reduced ``arch`` (qwen2 or deepseek-moe: 2 layers, D 32, V 512;
-    mamba2: 4 layers, d 128, N 16, V 512) runner on the card: 3 slots,
+    mamba2: 4 layers, d 128, N 16, V 512; zamba2: mamba2's blocks and 2
+    applications of the shared block, 4 MHA heads of D 32) runner on the
+    card: 3 slots,
     paged KV (the dense recurrent cache for mamba2, as the engine falls
     back), the chunk captured as a CUDA graph."""
     import dataclasses
@@ -1115,6 +1198,22 @@ def test_cuda_ssm_captured_chunk_equals_the_eager_chunk(cuda_device,
         _graph_runner(cuda_device, entropy, arch="mamba2_370m"), cuda_device)
 
 
+@pytest.mark.parametrize("entropy,decode_attn", [("kernel", "kernel"),
+                                                 ("operand", "gather")])
+def test_cuda_hybrid_captured_chunk_equals_the_eager_chunk(cuda_device,
+                                                           entropy,
+                                                           decode_attn):
+    """The hybrid family's chunk (the shared block's applications, each
+    writing its own pool plane; every layer's state and conv tail) as
+    three replays with slots admitted between them (batch prefill through
+    the paged slot write), each bit for bit the eager chunk on a copy of
+    its carry, state and pools included."""
+    runner = _graph_runner(cuda_device, entropy, decode_attn,
+                           arch="zamba2_7b")
+    assert runner.kv_layout == "paged"
+    _check_replays_against_eager(runner, cuda_device)
+
+
 def _check_replays_against_eager(runner, cuda_device):
     from repro_torch.launch import steps as S
 
@@ -1146,6 +1245,10 @@ def _check_replays_against_eager(runner, cuda_device):
             assert torch.equal(out[0], want[0])
             assert all(torch.equal(cache[k], want[1][k])
                        for k in ("len", "ssm", "conv") if k in cache)
+            # the hybrid's pool planes, without the sink block (dropped
+            # writes land there in no fixed order; it is never read)
+            assert all(torch.equal(cache[k][:, :-1], want[1][k][:, :-1])
+                       for k in ("attn_k", "attn_v") if k in cache)
             assert all(torch.equal(flags[k], want[2][k]) for k in flags)
             live = out[3][:, S.OUTPUTS.index("MI"), :slot + 1]
             assert torch.isfinite(live).all() and (live >= 0).all()
@@ -1230,6 +1333,49 @@ def test_cuda_ssm_chunk_records_no_host_sync(cuda_device):
     assert {k: v.data_ptr() for k, v in cache.items()} == ptrs
     assert cache["len"].tolist() == [11 + 2 * runner.chunk,
                                      2 * runner.chunk, 2 * runner.chunk]
+    assert torch.isfinite(ys[:, 3, 0]).all()
+    assert cache["ssm"][:, 0].abs().sum() > 0
+
+
+def test_cuda_hybrid_chunk_records_no_host_sync(cuda_device):
+    """The hybrid decode chunk, eager and replayed, never synchronises the
+    host, nor do its prompt chunks threading the recurrent state (a
+    16-token chunk and the finalize chunk); a replay counts one decode
+    launch an application a step (2 here) and one head a step; the state
+    reaches the slot on the finalize chunk; the carry keeps its
+    addresses."""
+    runner = _graph_runner(cuda_device, arch="zamba2_7b")
+    assert runner.captured == {"paged_decode_attention": 2 * 4,
+                               "uncertainty_head": 4}
+    prompt = np.arange(1, 21, dtype=np.int32)
+    table = np.full((3, 8), -1, np.int32)
+    table[0, :5] = (3, 9, 1, 7, 11)
+    with torch.inference_mode():
+        tok, cache, active, flags = runner.start()
+        ptrs = {k: v.data_ptr() for k, v in cache.items()}
+        runner.write_table(cache, table)
+        state = runner.prefill_state()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runner.set_len(cache, 0, 0)
+            cache, state = runner.prefill_chunk(cache, 0, prompt[:16], 0, 16,
+                                                20, state=state)
+            runner.scan(tok, cache, 0, active, flags)
+            cache, state = runner.prefill_chunk(cache, 0, prompt[16:], 16, 20,
+                                                20, state=state,
+                                                finalize=True)
+            tok[0].fill_(int(prompt[-1]))
+            active[0].fill_(True)
+            runner.scan(tok, cache, 4, active, flags)
+            ys = torch.empty_like(runner.ys)
+            runner._scan(runner.params, tok, cache, runner.step0, active,
+                         flags, ys)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert {k: v.data_ptr() for k, v in cache.items()} == ptrs
+    assert int(cache["len"][0]) == 20 + 2 * runner.chunk
+    assert state["ssm"].shape == (4, 1, 8, 32, 16)
     assert torch.isfinite(ys[:, 3, 0]).all()
     assert cache["ssm"][:, 0].abs().sum() > 0
 
