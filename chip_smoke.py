@@ -21,7 +21,7 @@ Phases (any failure exits non-zero before the result line):
      ``PHILOX_INT_OPS`` in every seeded row's bound is taken from.  The
      three serving kernels are also held and timed at deepseek-moe-16b's
      shapes (MHA at H = Hkv = 16; the head at K 2048, V 102400);
-     zamba2-7b's come with phase 11.
+     zamba2-7b's come with phase 11, seamless-m4t-medium's with 12.
   4. serve: qwen2-1.5B at full width (28 layers, d 1536, bf16 body, f32
      Bayesian head over V = 151936, S = 10 draws), random weights from a
      seed, paged KV + kernel decode attention + chunked prefill + kernel
@@ -92,10 +92,26 @@ Phases (any failure exits non-zero before the result line):
      prompt tokens (32 chunks) and its decode step; phase 5's profile of
      a short hybrid serve in a fresh process, which must name
      paged_decode_mma<112>, paged_prefill_mma<112> and the fused head.
- 12. one JSON line of per-kernel numbers (eleven kernels; the serving
-     kernels' launches are phase 4's first run plus phases 9's and 11's,
-     and phase 10's for the head), the card's nvidia-smi line, then the
-     result line.
+ 12. encdec: seamless-m4t-medium at full width (12 encoder and 12 decoder
+     layers, d 1024, 16 MHA heads of D 64, ff 4096, V 256206) on phase
+     4's trace through the kernel path: the three serving kernels at its
+     shapes (``check_encdec_shapes``: decode at the served depths, prefill
+     S 64 at offsets 0 and 192 of span 256, the head at K 1024, V 256206,
+     whose last tile is ragged); one graphed engine serving the trace
+     three times (12 decode launches and one head a step; decode ms a step
+     against the step's bytes floor, tok/s, e2e, p99, capture time, peak
+     memory); every chunk against the eager chunk bit for bit, the cross
+     strips ``ck`` / ``cv`` and the pools included, in kernel entropy on
+     the kernel path and operand entropy on the gather / batch path; one
+     256-token prompt walked in four chunks with random frames (the served
+     trace feeds zeros: the frontend is a stub) against batch prefill with
+     the same frames; phase 5's profile of a short encdec serve in a
+     fresh process, which must name paged_decode_mma<64>,
+     paged_prefill_mma<64> and the fused head.
+ 13. one JSON line of per-kernel numbers (eleven kernels; the serving
+     kernels' launches are phase 4's first run plus phases 9's, 11's and
+     12's, and phase 10's for the head), the card's nvidia-smi line, then
+     the result line.
 
 Imports nothing of the JAX package.
 """
@@ -644,6 +660,9 @@ def check_prefill(dev) -> dict:
 # V 32000
 MOE_H, MOE_HKV, MOE_K, MOE_V = 16, 16, 2048, 102400
 ZB_H, ZB_HKV, ZB_D, ZB_K, ZB_V = 32, 32, 112, 3584, 32000
+# seamless-m4t-medium's: MHA at H = Hkv = 16, D 64, and the head at K 1024,
+# V 256206 = 2001 x 128 + 78 (2,002 tiles, the last ragged)
+SM_H, SM_HKV, SM_D, SM_K, SM_V = 16, 16, 64, 1024, 256206
 
 
 def check_shapes(dev, model: str, H: int, Hkv: int, D: int, K: int, V: int,
@@ -800,6 +819,17 @@ def check_hybrid_shapes(dev) -> dict:
         [("served", [288, 150, 17, 0], 19),
          ("depth 8192", [8192, 8192, 8192, 8192], 512)],
         [(256, 0, 512), (256, 256, 512), (37, 256, 293)], head_seed=10)
+
+
+def check_encdec_shapes(dev) -> dict:
+    """The serving kernels at seamless-m4t-medium's shapes (MHA at 16
+    heads of D 64, ratio 1: 15 of the decode kernel's 16 mma rows are
+    padding): decode at the served depths, prefill S 64 at offsets 0 and
+    192 of span 256, the head at K 1024, V 256206 (a ragged last tile of
+    78 columns; V is not a multiple of 4)."""
+    return check_shapes(dev, "seamless-m4t-medium", SM_H, SM_HKV, SM_D, SM_K,
+                        SM_V, [("served", [288, 150, 17, 0], 19)],
+                        [(64, 0, 256), (64, 192, 256)], head_seed=12)
 
 
 def sass_opcodes(binary: Path) -> dict[str, dict[str, int]]:
@@ -1753,10 +1783,12 @@ def graph_vs_eager(args, built, label: str) -> tuple[dict, str]:
                 "len": torch.equal(cache["len"], e_cache["len"]),
                 "flags": all(torch.equal(flags[k], e_flags[k])
                              for k in flags)}
-        for k in RECURRENT_CARRY:
+        for k in RECURRENT_CARRY + (ENCDEC_CARRY if cfg.family == "encdec"
+                                    else ()):
             if k in cache:
                 a, b = cache[k], e_cache[k]
-                if "block_table" in cache and k.startswith("attn_"):
+                if "block_table" in cache and k in ("attn_k", "attn_v", "k",
+                                                    "v"):
                     # the sink block takes every dropped write (evicted
                     # slots') in no fixed order, and is never read
                     a, b = a[:, :-1], b[:, :-1]
@@ -1784,14 +1816,21 @@ def graph_vs_eager(args, built, label: str) -> tuple[dict, str]:
 # recurrent state and conv tail of the ssm and hybrid families, and the
 # hybrid's pool planes
 RECURRENT_CARRY = ("ssm", "conv", "attn_k", "attn_v")
+# and the encdec family's: its cross strips and its self-attention pools
+ENCDEC_CARRY = ("ck", "cv", "k", "v")
 
 
 def attention_layers(cfg) -> int:
     """Attention launches a decode step and a prefill chunk: one a layer,
-    or one an application of the hybrid's shared block."""
+    or one an application of the hybrid's shared block, or one a decoder
+    layer of the encdec family (its encoder and cross-attention run the
+    plain attention)."""
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import n_attn_apps
         return n_attn_apps(cfg)
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import n_dec
+        return n_dec(cfg)
     return cfg.num_layers
 
 
@@ -1914,7 +1953,8 @@ def traced(kind: str) -> dict:
 def trace_main(kind: str) -> dict:
     """A ``device_trace`` summary, without its output: ``serve`` (or
     ``moe_serve``, deepseek-moe-16b; ``ssm_serve``, mamba2-370m;
-    ``hybrid_serve``, zamba2-7b), the short kernel-path serve (the engine and its graph built before the
+    ``hybrid_serve``, zamba2-7b; ``encdec_serve``, seamless-m4t-medium),
+    the short kernel-path serve (the engine and its graph built before the
     window), or ``bnn_machine`` / ``bnn_mean``, the BNN's MC prediction
     on 800 images after one untraced call."""
     dev = torch.device("cuda")
@@ -1948,7 +1988,8 @@ def profile_serve(kind: str = "serve") -> str:
     the window) of qwen2-1.5b (``serve``) or deepseek-moe-16b
     (``moe_serve``), both 28 layers, mamba2-370m (``ssm_serve``, 48
     layers, batch prefill, no attention kernel) or zamba2-7b
-    (``hybrid_serve``, 14 applications of the shared attention, D 112):
+    (``hybrid_serve``, 14 applications of the shared attention, D 112) or
+    seamless-m4t-medium (``encdec_serve``, 12 decoder layers, D 64):
     device time by kind of kernel, how much of the traced window the
     device sits idle, and the host syncs by cause."""
     t = traced(kind)
@@ -1964,7 +2005,7 @@ def profile_serve(kind: str = "serve") -> str:
     elif not any(f"paged_prefill_mma<{D}>" in k for k in prefill):
         fail(f"profile {kind}: the served prefill did not run "
              f"paged_prefill_mma<{D}> ({top(prefill, 4) or 'no prefill'})")
-    if kind == "hybrid_serve" and not head:
+    if kind in ("hybrid_serve", "encdec_serve") and not head:
         fail(f"profile {kind}: the fused head did not run")
     if any("paged_prefill_simt<__nv_bfloat16>" in k for k in prefill):
         fail("profile: the served bf16 prefill ran the SIMT kernel")
@@ -2325,9 +2366,11 @@ HYBRID_FLAGS = ["--arch", "zamba2_7b", *SERVE_FLAGS[2:]]
 HYBRID_LONG = 8192
 # the profiled serves: their flags, the served attention's head dim and
 # its launches a decode step
+ENCDEC_FLAGS = ["--arch", "seamless_m4t_medium", *SERVE_FLAGS[2:]]
 SERVED = {"serve": (SERVE_FLAGS, 128, 28), "moe_serve": (MOE_FLAGS, 128, 28),
           "ssm_serve": (SSM_FLAGS, 0, 0),
-          "hybrid_serve": (HYBRID_FLAGS, ZB_D, 14)}
+          "hybrid_serve": (HYBRID_FLAGS, ZB_D, 14),
+          "encdec_serve": (ENCDEC_FLAGS, SM_D, 12)}
 
 
 def hybrid_phase(launches) -> dict:
@@ -2454,6 +2497,230 @@ def hybrid_phase(launches) -> dict:
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
               flush=True)
     return counts
+
+
+# --------------------------------------------------------------------------
+# phase 12: the encdec family at full width
+# --------------------------------------------------------------------------
+
+def encdec_phase(launches) -> dict:
+    """seamless-m4t-medium at full width and depth (12 encoder and 12
+    decoder layers, d 1024, 16 MHA heads of D 64, ff 4096, gelu, V 256206;
+    bf16 body, f32 head, random weights from the seed) on the serve trace
+    of phase 4 with the kernel path's flags and kernel entropy: paged
+    self-attention KV, the decode kernel, chunked prefill of 64 tokens
+    whose first chunk runs the encoder on the engine's zero frames and
+    writes the slot's cross strips ``ck`` / ``cv``.  One engine, its
+    decode chunk one CUDA graph replay (12 decode launches and the head a
+    step), serves the trace SERVE_RUNS times, then once more with every
+    chunk held bit for bit against the eager chunk, the cross strips and
+    pools included; then operand entropy on the gather / batch path the
+    same way on a second engine; then ``encdec_frames_walk``.  Returns
+    the first run's counts."""
+    import gc
+
+    from repro_torch import resolve_device
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import registry as M
+    from repro_torch.models.encdec import n_dec
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], ENCDEC_FLAGS)
+    dev = resolve_device(args.device)
+    t0 = time.perf_counter()
+    params = M.init_params(get_config(args.arch), torch.Generator(
+        device=dev).manual_seed(args.seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    built = build_engine(args, params)
+    engine, cfg = built
+    runner = engine.runner
+    layers = n_dec(cfg)
+    served = (engine.kv_layout, engine.decode_attn, engine.prefill_mode)
+    if served != ("paged", "kernel", "chunked") \
+            or engine.prefill_chunk != args.prefill_chunk:
+        fail(f"encdec: the engine serves {served} with prefill chunks of "
+             f"{engine.prefill_chunk}, expected paged / kernel / chunked "
+             f"with {args.prefill_chunk}")
+    want = {"paged_decode_attention": layers * args.chunk,
+            "uncertainty_head": args.chunk}
+    if runner.captured != want:
+        fail(f"encdec: a replay records {runner.captured}, expected {want}")
+    # a decode step reads the decoder's weights but the cross K/V
+    # projections (used at the first chunk only), the final norm, the head
+    # (f32), every slot's cross strips (ENC_LEN deep, whatever the
+    # depth) and each slot's self K/V at its depth (the trace's mean
+    # depth, prompt + gen / 2)
+    dec = params["decoder"]
+    cross_w = tree_bytes({k: dec["cross_attn"][k] for k in ("wk", "wv")})
+    decoder = tree_bytes(dec) - cross_w + tree_bytes(params["final_norm"])
+    head = tree_bytes(params["head"])
+    strips = tree_bytes({k: runner.cache[k] for k in ("ck", "cv")})
+    kv_token = 2 * layers * cfg.num_kv_heads * cfg.head_dim \
+        * runner.cache["k"].element_size()
+    attended = args.slots * (args.prompt_len + args.gen_len / 2) * kv_token
+    floor_ms = (decoder + head + strips + attended) / HBM_BYTES_PER_S * 1e3
+    print(f"encdec engine {cfg.name}: {cfg.encoder_layers} encoder + "
+          f"{layers} decoder layers, d {cfg.d_model}, {cfg.num_heads} heads "
+          f"of D {cfg.head_dim}, ff {cfg.d_ff}; V {cfg.vocab_size}; "
+          f"parameters {tree_bytes(params) / 1e9:.3f} GB (embedding "
+          f"{tree_bytes(params['embed']) / 1e9:.3f}, encoder "
+          f"{tree_bytes(params['encoder']) / 1e9:.3f}, decoder "
+          f"{tree_bytes(dec) / 1e9:.3f}, head {head / 1e9:.3f}), drawn in "
+          f"{init_s:.2f}s, peak memory after the draw "
+          f"{init_peak / 1e9:.2f} GB; cross strips {strips / 1e9:.3f} GB at "
+          f"{args.slots} slots; served {served}, prefill chunk "
+          f"{engine.prefill_chunk}; decode chunk graph warm-up + capture "
+          f"{runner.capture_s:.3f}s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; bytes floor a "
+          f"decode step {floor_ms:.4f} ms (decoder {decoder / 1e9:.3f} + "
+          f"head {head / 1e9:.3f} + cross strips {strips / 1e9:.3f} + KV "
+          f"{attended / 1e9:.3f} GB); launches a replay {runner.captured}",
+          flush=True)
+    counts = serve_runs(args, built, "encdec serve", launches)
+    print(f"encdec peak memory after the runs "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(graph_vs_eager(args, built, "encdec, kernel path, kernel "
+                         "entropy")[1], flush=True)
+    print(encdec_plain_costs(params, cfg, runner.cache), flush=True)
+    del built, engine, runner
+    gc.collect()
+
+    o_args = serve_args(GATHER_PATH + ["--entropy", "operand"], ENCDEC_FLAGS)
+    print(graph_vs_eager(o_args, build_engine(o_args, params),
+                         "encdec, gather path, operand entropy")[1],
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(encdec_frames_walk(params, cfg), flush=True)
+    return counts
+
+
+def encdec_plain_costs(params, cfg, cache) -> str:
+    """What the plain attention costs where the encdec family keeps it
+    (the reference's jnp ``flash_attention``, no Pallas kernel): the
+    cross-attention of one decode step (one query a slot over the engine's
+    (B, ENC_LEN) strips, every decoder layer; device time, CUDA graph
+    replay) against the bytes of reading the strips once, and one
+    request's encoder over ENC_LEN frames (wall time: it runs eagerly at
+    the first prefill chunk)."""
+    from repro_torch.models import encdec as E
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import layer
+
+    B = cache["ck"].shape[1]
+    layers = E.n_dec(cfg)
+    g = torch.Generator(device=cache["ck"].device).manual_seed(26)
+    x = torch.randn((B, 1, cfg.d_model), generator=g,
+                    device=g.device).to(L.dtype_of(cfg))
+    ps = [layer(params["decoder"], i)["cross_attn"] for i in range(layers)]
+
+    def cross():
+        for i, p in enumerate(ps):
+            L.apply_attention(p, cfg, x, cross_kv=(cache["ck"][i],
+                                                   cache["cv"][i]))
+
+    with torch.inference_mode():
+        ms = device_ms(cross, 5)
+        frames = torch.randn((1, E.ENC_LEN, cfg.d_model), generator=g,
+                             device=g.device)
+        enc_ms = time_ms(lambda: E.encode(params, cfg, frames), 3)
+    strips = tree_bytes({k: cache[k] for k in ("ck", "cv")})
+    b_ms = strips / HBM_BYTES_PER_S * 1e3
+    return (f"encdec plain attention: the cross-attention of a decode step "
+            f"({layers} layers, {B} slots x {E.ENC_LEN} keys, with its q and "
+            f"out projections) {ms:.4f} ms of device time against "
+            f"{b_ms:.4f} ms to read the strips ({strips / 1e9:.3f} GB) once; "
+            f"the encoder over {E.ENC_LEN} frames {enc_ms:.2f} ms (wall, "
+            f"eager)")
+
+
+def bf16_close(name: str, got, want, rel: float = 2e-2) -> str:
+    """``got`` finite, with ||got - want|| within ``rel`` of ||want|| (the
+    serving kernels' 2e-2, one bf16 ulp of O(1) values, taken over the
+    whole tensor: two bf16 paths part by an ulp here and there, and the
+    parts grow through the decoder's layers); returns the relative error
+    and the max |err|."""
+    g, w = got.double(), want.double()
+    r = float((g - w).norm() / w.norm())
+    if not torch.isfinite(g).all() or not r <= rel:
+        fail(f"encdec frames walk: {name} relative error {r:.3g} > {rel}, "
+             "or not finite")
+    return f"{r:.3g} (max |err| {max_err(got, want):.3g})"
+
+
+def encdec_frames_walk(params, cfg) -> str:
+    """One 256-token prompt with random frames from a seed (the served
+    trace feeds zeros, whose encoder output is exactly 0: this is the
+    check of the encoder on the card), walked in four 64-token chunks
+    through the kernel path (the paged prefill kernel; the first chunk
+    runs the encoder and writes ``ck`` / ``cv``) against ``registry.
+    prefill`` with the same frames on the gather path: the cross strips
+    within one bf16 ulp of ``make_cross_kv(encode(frames))`` and of batch
+    prefill's; every layer's self K/V and the hidden state of the first
+    decode step (the prompt's last token fed again, as the engine does;
+    the kernel read against the gather read) within ``bf16_close``."""
+    import dataclasses
+
+    from repro_torch.models import encdec as E
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as M
+
+    dev = params["head"]["mu"].device
+    P, C, BS = 256, 64, 16
+    g = torch.Generator(device=dev).manual_seed(25)
+    frames = torch.randn((1, E.ENC_LEN, cfg.d_model), generator=g,
+                         device=dev)
+    toks = torch.randint(1, cfg.vocab_size - 1, (1, P), generator=g,
+                         device=dev)
+    kcfg = dataclasses.replace(cfg, decode_attn="kernel")
+    gcfg = dataclasses.replace(cfg, decode_attn="gather")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cache = M.make_cache(kcfg, 1, P + BS, device=dev, layout="paged",
+                             kv_block=BS)
+        MB = cache["block_table"].shape[1]
+        perm = torch.randperm(MB, generator=torch.Generator().manual_seed(5))
+        cache["block_table"][0].copy_(perm.to(torch.int32))
+        for off in range(0, P, C):
+            M.prefill_chunk(params, kcfg, toks[:, off:off + C], cache, 0, off,
+                            off + C, P, **({"frames": frames} if off == 0
+                                           else {}))
+        torch.cuda.synchronize()
+        walk_s = time.perf_counter() - t0
+        _, ref = M.prefill(params, gcfg, toks, P + 1, frames)
+        enc = E.encode(params, cfg, frames)
+        for i in range(E.n_dec(cfg)):
+            p = {k: v[i] for k, v in params["decoder"]["cross_attn"].items()}
+            k, v = L.make_cross_kv(p, cfg, enc)
+            for name, got, want in (("ck", cache["ck"][i], k),
+                                    ("cv", cache["cv"][i], v)):
+                bf16_check(f"encdec frames walk: {name}[{i}] vs "
+                           "make_cross_kv", got, want)
+                bf16_check(f"encdec frames walk: {name}[{i}] vs batch "
+                           "prefill", got, ref[name][i])
+        row = cache["block_table"][:, :P // BS]
+        errs = {}
+        for n in ("k", "v"):
+            walked = torch.stack([L.paged_gather(cache[n][i], row)[0]
+                                  for i in range(E.n_dec(cfg))])
+            errs[n] = bf16_close(f"self {n}", walked, ref[n][:, 0, :P])
+        last = toks[:, -1]
+        h_walk, _ = E.decode_hidden(params, kcfg, last, cache)
+        h_ref, _ = E.decode_hidden(params, gcfg, last, ref)
+        errs["hidden"] = bf16_close("first decode step's hidden", h_walk,
+                                    h_ref)
+    gap = max_err(ref["ck"], torch.zeros_like(ref["ck"]))
+    return (f"encdec frames walk: one {P}-token prompt, random frames, "
+            f"{P // C} chunks of {C} on the kernel path in {walk_s:.3f}s: "
+            f"ck / cv within one bf16 ulp of make_cross_kv(encode(frames)) "
+            f"and of batch prefill (max |ck| {gap:.3g}); error against batch "
+            f"prefill on the gather path, relative: "
+            + ", ".join(f"{k} {e}" for k, e in errs.items()))
 
 
 # --------------------------------------------------------------------------
@@ -2873,6 +3140,16 @@ def main():
     print(f"hybrid launches {hybrid_counts}", flush=True)
     print(profile_serve("hybrid_serve"), flush=True)
     print(f"phase hybrid: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    check_encdec_shapes(dev)
+    encdec_counts = encdec_phase(launches)
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "uncertainty_head"):
+        counts[name] += encdec_counts[name]
+    print(f"encdec launches {encdec_counts}", flush=True)
+    print(profile_serve("encdec_serve"), flush=True)
+    print(f"phase encdec: {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

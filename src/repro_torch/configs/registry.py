@@ -29,7 +29,7 @@ ARCH_IDS = [
 ]
 
 # families the port's models serve (ROADMAP.md lists the rest)
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def normalize(name: str) -> str:

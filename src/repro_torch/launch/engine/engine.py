@@ -127,6 +127,21 @@ class ServeEngine:
             kv_blocks=self.kv_blocks, device=self.device,
             head_noise=head_noise)
         self.params = params
+        self._frames: dict[int, torch.Tensor] = {}
+
+    def _modality(self, batch: int) -> Optional[torch.Tensor]:
+        """The modality input of a ``batch``-prompt prefill: the encdec
+        family's encoder frames, (batch, ENC_LEN, d) f32 zeros on the
+        engine's device (the frontend is a stub, as in the reference),
+        allocated once per engine; None for the other families."""
+        if self.cfg.family != "encdec":
+            return None
+        if batch not in self._frames:
+            from repro_torch.models.encdec import ENC_LEN
+            self._frames[batch] = torch.zeros(
+                (batch, ENC_LEN, self.cfg.d_model), dtype=torch.float32,
+                device=self.device)
+        return self._frames[batch]
 
     def _bucket(self, n: int) -> int:
         """Prompt-length bucket: next kv_block multiple (dense strips
@@ -140,9 +155,11 @@ class ServeEngine:
         """Open a chunked-prefill walk over ``req``'s prompt: the walk
         offset, plus what the family's ``prefill_chunk`` threads between
         chunks: ``ex_off``, the running expert load (moe), or ``state``,
-        the prompt's zero (ssm, conv) recurrent state (hybrid)."""
+        the prompt's zero (ssm, conv) recurrent state (hybrid); ``first``
+        marks the walk's first chunk (encdec: it runs the encoder)."""
         P = len(req.prompt)
-        job = {"req": req, "P": P, "span": self._bucket(P), "off": 0}
+        job = {"req": req, "P": P, "span": self._bucket(P), "off": 0,
+               "first": True}
         if self.cfg.family == "moe":
             job["ex_off"] = self.runner.expert_offsets()
         elif self.cfg.family == "hybrid":
@@ -153,8 +170,9 @@ class ServeEngine:
         """Advance ``job`` by one prompt chunk (padded to exactly
         ``prefill_chunk`` tokens where prompts may be padded; hybrid walks
         exact ``ssm_chunk``-multiple segments, its last chunk the
-        ``"final"`` variant that writes the state); returns ``(cache,
-        done, shape_key)``."""
+        ``"final"`` variant that writes the state; an encdec walk's first
+        chunk is the ``"first"`` variant that runs the encoder); returns
+        ``(cache, done, shape_key)``."""
         off, P, W = job["off"], job["P"], job["span"]
         pc = self.prefill_chunk
         real = min(pc, P - off)
@@ -173,9 +191,15 @@ class ServeEngine:
                 cache, slot, toks, off, new_len, W, state=job["state"],
                 finalize=done)
             variant = "final" if done else ""
+        elif self.cfg.family == "encdec" and job["first"]:
+            cache = self.runner.prefill_chunk(cache, slot, toks, off,
+                                              new_len, W,
+                                              frames=self._modality(1))
+            variant = "first"
         else:
             cache = self.runner.prefill_chunk(cache, slot, toks, off,
                                               new_len, W)
+        job["first"] = False
         job["off"] = new_len
         return cache, done, ("chunk", S_len, W, variant)
 
@@ -278,7 +302,7 @@ class ServeEngine:
                     toks[:P] = req.prompt
                     runner.prefill(cache, slot, toks,
                                    sched.block_tables[slot] if paged
-                                   else None)
+                                   else None, self._modality(1))
                     if W > P:
                         # junk pad KV stays masked above the true len
                         runner.set_len(cache, slot, P)

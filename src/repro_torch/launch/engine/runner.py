@@ -160,30 +160,37 @@ class ModelRunner:
                                    non_blocking=True)
 
     def prefill(self, cache: dict, slot: int, toks: np.ndarray,
-                row: Optional[np.ndarray]) -> dict:
+                row: Optional[np.ndarray], modality=None) -> dict:
         """Batch prefill of one prompt (bucketed width W) into ``slot``:
         paged prefill builds a W-token strip that the slot write pages
-        out; dense builds the engine-wide max_len strip."""
+        out; dense builds the engine-wide max_len strip.  ``modality``:
+        the encdec family's (1, ENC_LEN, d) encoder frames."""
         paged = self.kv_layout == "paged"
         width = len(toks) if paged else self.max_len
-        _, sub = M.prefill(self.params, self.cfg, self.tokens(toks), width)
+        _, sub = M.prefill(self.params, self.cfg, self.tokens(toks), width,
+                           modality)
         return M.write_slot(self.cfg, cache, slot, sub,
                             self.place_table(row) if paged else None)
 
     def prefill_chunk(self, cache: dict, slot: int, toks: np.ndarray,
                       offset: int, new_len: int, span: int,
                       expert_offsets: Optional[torch.Tensor] = None,
-                      state: Optional[dict] = None, finalize: bool = False):
+                      state: Optional[dict] = None, finalize: bool = False,
+                      frames: Optional[torch.Tensor] = None):
         """One prompt chunk into ``slot``; returns the cache, or for the
         moe family ``(cache, new_expert_offsets)`` from the (L, E) running
         expert load it is given, or for the hybrid family ``(cache,
         new_state)`` from the prompt's (ssm, conv) state, which reaches
-        the slot only when ``finalize``."""
+        the slot only when ``finalize``.  ``frames`` (encdec, the first
+        chunk): the encoder's input, whose cross K/V the chunk writes
+        into the slot's ``ck`` / ``cv`` in place."""
         kw = {}
         if expert_offsets is not None:
             kw["expert_offsets"] = expert_offsets
         if state is not None:
             kw.update(state=state, finalize=finalize)
+        if frames is not None:
+            kw["frames"] = frames
         return M.prefill_chunk(self.params, self.cfg, self.tokens(toks),
                                cache, slot, offset, new_len, span, **kw)
 
@@ -256,10 +263,11 @@ def decode_loop_reference(params, cfg, tokens, gen_len: int, *,
     the head stream is global step i, as in the JAX package.
 
     ``decode_fn`` (a ``steps.build_decode_step`` step) lets a caller pass
-    its own step, e.g. with a ``head_noise`` provider.  ``modality`` (the
-    vlm / audio prefix) is not ported yet and must be None.
+    its own step, e.g. with a ``head_noise`` provider.  ``modality`` is
+    the encdec family's (B, ENC_LEN, d) encoder frames; the vlm / audio
+    prefix is not ported yet and raises.
     """
-    if modality is not None:
+    if modality is not None and cfg.family != "encdec":
         raise NotImplementedError("modality prefixes are not ported yet "
                                   "(see ROADMAP.md)")
     dev = params["head"]["mu"].device
@@ -267,7 +275,9 @@ def decode_loop_reference(params, cfg, tokens, gen_len: int, *,
         tokens = torch.as_tensor(np.asarray(tokens, np.int32), device=dev)
         B, P = tokens.shape
         max_len = max_len or P + gen_len
-        _, cache = M.prefill(params, cfg, tokens, max_len)
+        if modality is not None:
+            modality = torch.as_tensor(modality, device=dev)
+        _, cache = M.prefill(params, cfg, tokens, max_len, modality)
         decode = decode_fn or S.build_decode_step(cfg, entropy=entropy)
         tok = tokens[:, -1]
         names = ("token", "H", "SE", "MI", "p_max")

@@ -6,15 +6,17 @@ missing GPU raises, ``--device cpu`` runs the plain PyTorch paths).
 Flags of features the port does not have yet raise
 ``NotImplementedError`` (see ROADMAP.md): ``--prefix-cache on``,
 ``--spec-decode on``, ``--policy priority``, ``--escalate-mi`` and
-``--mesh``, and any ``--arch`` outside the dense, moe, ssm and hybrid
-families.
+``--mesh``, and any ``--arch`` outside the dense, moe, ssm, hybrid and
+encdec families.
 The ssm family (``mamba2_370m``) keeps no KV: ``--kv-layout paged``,
 ``--decode-attn kernel`` and ``--prefill chunked`` fall back silently to
 the dense layout, the gather read and batch prefill at the exact prompt
 length, as in the JAX engine; the stats report the layout served.  The
 hybrid family (``zamba2_7b``) pages the KV of its shared attention and
 prefills in chunks rounded up to ``ssm_chunk``, its prompts at their
-exact length.
+exact length.  The encdec family (``seamless_m4t_medium``) feeds its
+encoder zero frames (the frontend is a stub, as in the JAX engine) at
+each prompt's first chunk, which writes the cross-attention K/V.
 
 ``--reduced`` is ``store_true`` with ``default=True``, as in the JAX
 CLI, so the CLI always serves the reduced config; the full-width model
@@ -31,6 +33,9 @@ Usage:
       --device cpu --kv-layout paged --decode-attn kernel --prefill chunked
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \
       --device cpu --kv-layout paged --decode-attn kernel --prefill chunked
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless_m4t_medium --device cpu --kv-layout paged \
+      --decode-attn kernel --prefill chunked
 """
 
 from __future__ import annotations

@@ -30,7 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models import uncertain_head as U
-from repro_torch.models.transformer import layer
+from repro_torch.models.transformer import layer, stacked
 
 
 def n_attn_apps(cfg: ArchConfig) -> int:
@@ -50,21 +50,6 @@ def groups(cfg: ArchConfig):
 # init
 # ---------------------------------------------------------------------------
 
-def _stacked_blocks(gen, cfg: ArchConfig, device):
-    """``ssm.init_block`` drawn one layer at a time into tensors stacked on
-    L: the f32 draw of all 81 layers at once would hold ≈ 34 GB at full
-    width."""
-    out = None
-    for i in range(cfg.num_layers):
-        bp = ssm.init_block(gen, cfg, device)
-        if out is None:
-            out = {k: v.new_empty((cfg.num_layers, *v.shape))
-                   for k, v in bp.items()}
-        for k, v in bp.items():
-            out[k][i] = v
-    return out
-
-
 def init_params(cfg: ArchConfig, gen: torch.Generator, device):
     """Random serving parameters with the reference's names and
     distributions: the Mamba blocks stacked on L (``ssm.init_block``, a
@@ -73,7 +58,10 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device):
     ones = dict(dtype=L.dtype_of(cfg), device=device)
     return {
         "embed": L.init_embed(gen, cfg, device),
-        "blocks": _stacked_blocks(gen, cfg, device),
+        # a layer at a time: the f32 draw of all 81 layers at once would
+        # hold ≈ 34 GB at full width
+        "blocks": stacked(lambda: ssm.init_block(gen, cfg, device),
+                          cfg.num_layers),
         "shared": {"ln1": torch.ones((cfg.d_model,), **ones),
                    "attn": L.init_attention(gen, cfg, device),
                    "ln2": torch.ones((cfg.d_model,), **ones),

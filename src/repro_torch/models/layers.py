@@ -256,15 +256,22 @@ def _qkv(p, cfg: ArchConfig, x: torch.Tensor, rot: tuple):
     return q, k, v.reshape(B, S, Hkv, hd)
 
 
-def apply_attention(p, cfg: ArchConfig, x: torch.Tensor, *, rot: tuple,
+def apply_attention(p, cfg: ArchConfig, x: torch.Tensor, *,
+                    rot: Optional[tuple] = None, causal: bool = True,
                     kv_cache: Optional[tuple] = None,
                     cache_len: Optional[torch.Tensor] = None,
                     block_table: Optional[torch.Tensor] = None,
-                    kv_index: Optional[tuple] = None):
+                    kv_index: Optional[tuple] = None,
+                    cross_kv: Optional[tuple] = None):
     """Returns (out, new_kv): the computed (k, v) for prefill (no cache),
     or the cache pair after this step's writes for decode.  ``rot`` is
     ``rope_tables`` at the tokens' positions; ``kv_index`` the paged
-    write index of this step (``paged_index``), computed here if absent.
+    write index of this step (``paged_index``), computed here if absent;
+    ``causal`` masks the no-cache prefill (False: the encoder).
+
+    ``cross_kv`` = (k, v), (B, S_enc, Hkv, D) encoder memory from
+    ``make_cross_kv``: cross-attention, whose query takes no RoPE, attends
+    all of it (non-causal) and returns ``new_kv`` None.
 
     ``block_table`` selects the paged layout (``kv_cache`` is then a pair
     of (NB + 1, BS, Hkv, D) pools, written in place); ``cfg.decode_attn``
@@ -276,9 +283,18 @@ def apply_attention(p, cfg: ArchConfig, x: torch.Tensor, *, rot: tuple,
     dropped."""
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
+    if cross_kv is not None:
+        q = _mm(x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+        out = flash_attention(q.reshape(B, S, H, hd), *cross_kv, causal=False,
+                              q_chunk=cfg.attn_q_chunk,
+                              kv_chunk=cfg.attn_kv_chunk)
+        return _mm(out.reshape(B, S, H * hd), p["wo"]), None
     q, k, v = _qkv(p, cfg, x, rot)
     if kv_cache is None:
-        out = flash_attention(q, k, v, causal=True, q_chunk=cfg.attn_q_chunk,
+        out = flash_attention(q, k, v, causal=causal,
+                              q_chunk=cfg.attn_q_chunk,
                               kv_chunk=cfg.attn_kv_chunk)
         new_kv = (k, v)
     else:
@@ -350,6 +366,16 @@ def apply_attention_chunk(p, cfg: ArchConfig, x: torch.Tensor, *,
                               kv_chunk=cfg.attn_kv_chunk, q_offset=offset)
     out = out.reshape(B, S, H * hd)
     return _mm(out, p["wo"]), (kc, vc)
+
+
+def make_cross_kv(p, cfg: ArchConfig, enc_out: torch.Tensor):
+    """Cross-attention K/V, each (B, S_enc, Hkv, D), from the encoder
+    output: the projections alone, no bias and no RoPE (as the reference
+    computes them)."""
+    B, S, _ = enc_out.shape
+    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    return (_mm(enc_out, p["wk"]).reshape(B, S, Hkv, hd),
+            _mm(enc_out, p["wv"]).reshape(B, S, Hkv, hd))
 
 
 # --------------------------------------------------------------------------

@@ -1,13 +1,13 @@
-"""Model dispatch for the port (dense, moe, ssm and hybrid families) and
-the weight bridge.
+"""Model dispatch for the port (dense, moe, ssm, hybrid and encdec
+families) and the weight bridge.
 
-PyTorch counterpart of the dense, moe, ssm and hybrid rows of
+PyTorch counterpart of the dense, moe, ssm, hybrid and encdec rows of
 ``repro.models.registry``.  The uniform serving API:
 
     init_params(cfg, generator, device) -> params
     params_from_numpy(tree, cfg, device) -> params
     make_cache(cfg, batch, max_len, device=..., layout=...) -> cache
-    prefill(params, cfg, tokens, max_len) -> (hidden, cache)
+    prefill(params, cfg, tokens, max_len, modality=None) -> (hidden, cache)
     prefill_chunk(params, cfg, tokens, cache, slot, offset, new_len, span,
                   **family_kw)
     decode_step(params, cfg, token, cache, key, head_noise=None)
@@ -20,7 +20,10 @@ except ``len`` (B,).  The ssm family's cache is recurrent state only
 no chunked prefill: the engine serves it dense, with batch prefill at
 the exact prompt length.  The hybrid family pages the KV planes of its
 shared attention (``attn_k``, ``attn_v``) and keeps its recurrent state
-per slot; its prompts keep their exact length too.  Paged KV pools
+per slot; its prompts keep their exact length too.  The encdec family
+pages its decoder's self-attention KV and keeps the cross-attention
+memory (``ck``, ``cv``) a dense strip a slot; its modality input is the
+encoder's frames.  Paged KV pools
 carry one trailing sink block that no table maps
 (``layers.paged_index``); ``kv_bytes`` leaves it out.
 """
@@ -32,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, moe, ssm, transformer
+from repro_torch.models import encdec, hybrid, moe, ssm, transformer
 from repro_torch.models.layers import paged_index, paged_table_width  # noqa: F401
 
 # cache leaves that live in the global block pool under the paged layout
@@ -42,7 +45,7 @@ PAGED_KV_LEAVES = ("k", "v", "attn_k", "attn_v")
 RECURRENT_LEAVES = ("ssm", "conv")
 
 _FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm,
-             "hybrid": hybrid}
+             "hybrid": hybrid, "encdec": encdec}
 
 
 def module_for(cfg: ArchConfig):
@@ -70,7 +73,8 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
     dicts of numpy arrays (``blocks`` stacked on a leading layer axis, the
     head as ``{"q": {"mu", "rho"}}``; the moe router and the ssm
     ``A_log``, ``D`` and ``dt_bias`` in f32 beside the parameter-dtype
-    leaves; the hybrid family's ``shared`` block as it comes).  Every
+    leaves; the hybrid family's ``shared`` block and the encdec family's
+    ``encoder``, ``decoder`` and ``enc_norm`` as they come).  Every
     leaf keeps its dtype.  The head's sigma = softplus(rho) is computed
     here, once."""
     module_for(cfg)
@@ -101,7 +105,8 @@ def supports_prompt_padding(cfg: ArchConfig) -> bool:
 
 
 def supports_chunked_prefill(cfg: ArchConfig) -> bool:
-    return supports_paged(cfg) and cfg.family in ("dense", "moe", "hybrid")
+    return supports_paged(cfg) and cfg.family in ("dense", "moe", "hybrid",
+                                                  "encdec")
 
 
 def supports_prefix_cache(cfg: ArchConfig) -> bool:
@@ -122,8 +127,13 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
     return mod.make_cache(cfg, batch, max_len, device=device)
 
 
-def prefill(params, cfg: ArchConfig, tokens, max_len: int):
-    return module_for(cfg).prefill(params, cfg, tokens, max_len)
+def prefill(params, cfg: ArchConfig, tokens, max_len: int, modality=None):
+    """Batch prefill; ``modality`` is the encdec family's encoder frames
+    (B, ENC_LEN, d), unused by the others."""
+    mod = module_for(cfg)
+    if cfg.family == "encdec":
+        return mod.prefill(params, cfg, tokens, max_len, frames=modality)
+    return mod.prefill(params, cfg, tokens, max_len)
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
@@ -133,7 +143,8 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
     ``(cache, new_offsets)``); ``state`` and ``finalize`` (hybrid: the
     prompt's batch-1 (ssm, conv) state threaded between chunks and
     written into the slot only when ``finalize``, the last chunk; returns
-    ``(cache, new_state)``)."""
+    ``(cache, new_state)``); ``frames`` (encdec, the first chunk only: the
+    encoder's input, whose cross K/V it writes into the slot)."""
     if not supports_chunked_prefill(cfg):
         raise ValueError(f"family {cfg.family!r} has no chunked prefill")
     return module_for(cfg).prefill_chunk(params, cfg, tokens, cache, slot,
@@ -168,7 +179,8 @@ def write_slot(cfg: ArchConfig, cache, slot: int, sub, block_row=None):
     host allocator; it is installed in the table, the ``PAGED_KV_LEAVES``
     strips are scattered through it from position 0 (strip tokens past
     the mapped blocks drop into the sink), and every other leaf (the
-    hybrid family's states and conv tails) takes the dense slot write."""
+    hybrid family's states and conv tails, the encdec family's ``ck`` /
+    ``cv``) takes the dense slot write, an indexed assignment in place."""
     paged = "block_table" in cache
     if paged:
         if block_row is None:

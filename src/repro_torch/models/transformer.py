@@ -30,6 +30,30 @@ def layer(tree, i: int):
     return tree[i]
 
 
+def stacked(init, n: int):
+    """``init()``'s tree drawn ``n`` times, a layer at a time, into
+    tensors stacked on a leading layer axis (a full-width draw of every
+    layer at once would hold them all in f32)."""
+    def put(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    def empty(tree):
+        return {k: empty(v) if isinstance(v, dict)
+                else v.new_empty((n, *v.shape)) for k, v in tree.items()}
+
+    out = None
+    for i in range(n):
+        tree = init()
+        if out is None:
+            out = empty(tree)
+        put(out, tree, i)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------

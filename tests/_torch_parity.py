@@ -147,3 +147,17 @@ def hybrid_pair(arch="zamba2_7b", seed=0, num_layers=None):
     jparams = JM.init_params(jax.random.key(seed), jcfg)
     tparams = TM.params_from_numpy(to_numpy_tree(jparams), tcfg, CPU)
     return jcfg, jparams, tcfg, tparams
+
+
+@functools.lru_cache(maxsize=None)
+def encdec_pair(arch="seamless_m4t_medium", seed=0):
+    """(jcfg, jax params, tcfg, port params) of the reduced encdec arch (2
+    encoder + 2 decoder layers, d 128, 4 MHA heads of D 32, ff 256, gelu,
+    V 512, f32) from one JAX init."""
+    import jax
+    from repro.models import registry as JM
+    from repro_torch.models import registry as TM
+    jcfg, tcfg = operand_cfgs(arch)
+    jparams = JM.init_params(jax.random.key(seed), jcfg)
+    tparams = TM.params_from_numpy(to_numpy_tree(jparams), tcfg, CPU)
+    return jcfg, jparams, tcfg, tparams

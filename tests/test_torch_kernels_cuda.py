@@ -148,6 +148,42 @@ def test_cuda_head_matches_plain_at_zamba2s_widths(cuda_device):
         assert not ((got["pred"] != want["pred"]) & clear).any()
 
 
+def test_cuda_head_matches_plain_at_seamless_vocab(cuda_device):
+    """seamless-m4t-medium's head, K 1024 and V 256206 = 2001 x 128 + 78
+    (V not a multiple of 4): the last tile is ragged.  Row 0's argmax is
+    planted in the last column, row 1's in the last tile's first column:
+    both kernels find them there, with p_max near 1; H/SE/MI/p_max within
+    2e-4 of the plain version, pred equal wherever p-bar's top-2 gap is
+    resolvable, with the xi operand and with the Philox stream; one
+    launch a call."""
+    V = 256206
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(25, 4, 1024, V, 10,
+                                                       sigma=0.05))
+    x = x.to(torch.bfloat16)
+    x32 = x.float()
+    for row, col in ((0, V - 1), (1, V - 78)):
+        mu[:, col] = x32[row] / x32[row].norm()      # a logit of ~32
+    for kw in ({"xi": xi}, {"seed": 4, "step": 9}):
+        launches.reset()
+        got = UH.uncertainty_head_cuda(x, mu, sg, num_samples=10, **kw)
+        assert launches.snapshot()["uncertainty_head"] == 1
+        want = UH.uncertainty_head_plain(x, mu, sg, num_samples=10, **kw)
+        for k in KEYS:
+            assert torch.isfinite(got[k]).all(), k
+            assert_close(got[k], want[k].cpu(), atol=2e-4, msg=k)
+        assert got["pred"][:2].tolist() == [V - 1, V - 78]
+        assert want["pred"][:2].tolist() == [V - 1, V - 78]
+        assert (got["p_max"][:2] > 0.9).all()
+        full = kw.get("xi")
+        if full is None:
+            full = rng.head_normal(4, 9, 10, 4,
+                                   torch.arange(V, device=cuda_device))
+        pbar = torch.softmax(ref.lrt_matmul(x, mu, sg, full), -1).mean(0)
+        top = pbar.topk(2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1]) > 1e-6
+        assert not ((got["pred"] != want["pred"]) & clear).any()
+
+
 def _bitwise(a: dict, b: dict) -> bool:
     return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
                for k in a)
@@ -382,6 +418,53 @@ def test_cuda_prefill_mma_matches_plain_at_zamba2s_mha(cuda_device, S,
     assert any("paged_prefill_mma<112>" in n for n in run["names"]), run
     assert not any("paged_prefill_simt" in n for n in run["names"]), run
     q, k, v, row = _prefill_bf16(cuda_device, S + offset, S, 32, 32, 112, 16,
+                                 span)
+    for kc in (1024, 64):
+        got = PA.paged_prefill_attention_cuda(q, k, v, row, offset, span,
+                                              kc)
+        want = PA.paged_prefill_attention_plain(q, k, v, row, offset, span,
+                                                kc)
+        assert not torch.isnan(got).any()
+        assert_close(got.float(), want.float().cpu(), atol=2e-2)
+
+
+def test_cuda_decode_mma_matches_plain_at_seamless_mha(cuda_device):
+    """seamless-m4t-medium's decoder self-attention (H = Hkv = 16, D 64,
+    bf16, ratio 1: 15 of the 16 mma rows are padding): the decode route
+    is the tensor-core kernel, paged_decode_mma<64> alone in one launch by
+    name, and it agrees with the plain version (atol 2e-2) at the served
+    depths, with NaN exactly on the empty slot."""
+    assert PA.decode_route(torch.bfloat16, 64) == "mma"
+    (names,) = _decode_kernels(("bfloat16", 64, None, 16, 16))
+    assert len(names) == 1 and "paged_decode_mma<64>" in names[0], names
+    for MB, lens in ((19, [288, 150, 17, 0]), (33, [520, 1, 16, 0])):
+        q, k, v, table, d = (t.to(cuda_device) for t in _decode_case(
+            MB, 16, 16, 64, 16, MB, lens))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        launches.reset()
+        out = PA.paged_decode_attention_cuda(q, k, v, table, d)
+        assert launches.snapshot()["paged_decode_attention"] == 1
+        want = PA.paged_decode_attention_plain(q, k, v, table, d)
+        torch.cuda.synchronize()
+        assert_close(out.float(), want.float().cpu(), atol=2e-2,
+                     equal_nan=True)
+        assert torch.isnan(out[3]).all() and not torch.isnan(out[:3]).any()
+
+
+@pytest.mark.parametrize("S,offset,span", [(64, 0, 256), (64, 192, 256),
+                                           (37, 192, 229)])
+def test_cuda_prefill_mma_matches_plain_at_seamless_mha(cuda_device, S,
+                                                        offset, span):
+    """seamless-m4t-medium's prompt chunks (64 tokens at offsets 0 and 192
+    of a 256-token prompt, and a ragged 37-token tail; H = Hkv = 16, D 64,
+    bf16): the tensor-core kernel, paged_prefill_mma<64> by name in one
+    launch, within 2e-2 of the plain version, no NaN."""
+    assert PA.prefill_route(torch.bfloat16, 64) == "mma"
+    (run,) = _prefill_kernels((S + offset, S, 16, 16, 64, offset, span))
+    assert run["launches"] == 1
+    assert any("paged_prefill_mma<64>" in n for n in run["names"]), run
+    assert not any("paged_prefill_simt" in n for n in run["names"]), run
+    q, k, v, row = _prefill_bf16(cuda_device, S + offset, S, 16, 16, 64, 16,
                                  span)
     for kc in (1024, 64):
         got = PA.paged_prefill_attention_cuda(q, k, v, row, offset, span,
@@ -1141,7 +1224,8 @@ def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4,
                   arch="qwen2_1_5b"):
     """A reduced ``arch`` (qwen2 or deepseek-moe: 2 layers, D 32, V 512;
     mamba2: 4 layers, d 128, N 16, V 512; zamba2: mamba2's blocks and 2
-    applications of the shared block, 4 MHA heads of D 32) runner on the
+    applications of the shared block, 4 MHA heads of D 32; seamless: 2
+    encoder and 2 decoder layers, 4 MHA heads of D 32) runner on the
     card: 3 slots,
     paged KV (the dense recurrent cache for mamba2, as the engine falls
     back), the chunk captured as a CUDA graph."""
@@ -1214,7 +1298,26 @@ def test_cuda_hybrid_captured_chunk_equals_the_eager_chunk(cuda_device,
     _check_replays_against_eager(runner, cuda_device)
 
 
-def _check_replays_against_eager(runner, cuda_device):
+def test_cuda_encdec_captured_chunk_equals_the_eager_chunk(cuda_device):
+    """The encdec family's chunk (12 decoder layers reduced to 2: paged
+    self-attention, cross-attention over each slot's ``ck`` / ``cv``) as
+    three replays with slots admitted between them through chunked
+    prefill, whose first chunk runs the encoder on random frames and
+    writes the slot's cross strips in place: each replay bit for bit the
+    eager chunk on a copy of its carry, the cross strips and pools
+    included."""
+    runner = _graph_runner(cuda_device, arch="seamless_m4t_medium")
+    assert runner.kv_layout == "paged"
+    ptrs = {k: v.data_ptr() for k, v in runner.cache.items()}
+    _check_replays_against_eager(runner, cuda_device, frames=True)
+    assert {k: v.data_ptr() for k, v in runner.cache.items()} == ptrs
+    assert runner.cache["ck"].abs().amax(dim=(0, 2, 3, 4)).gt(0).all()
+
+
+def _check_replays_against_eager(runner, cuda_device, frames=False):
+    """Replays against the eager chunk; ``frames``: admit each slot
+    through chunked prefill (8-token chunks, the first with random encoder
+    frames) and hold the cross strips and pools too."""
     from repro_torch.launch import steps as S
 
     assert runner.graph is not None
@@ -1228,8 +1331,21 @@ def _check_replays_against_eager(runner, cuda_device):
             runner.write_table(cache, table)
         for slot, step0 in ((0, 0), (1, 4), (2, 8)):
             prompt = r.integers(1, 511, size=9 + slot).astype(np.int32)
-            runner.prefill(cache, slot, prompt,
-                           table[slot] if paged else None)
+            if frames:
+                fr = torch.from_numpy(r.standard_normal(
+                    (1, 1024, runner.cfg.d_model)).astype(np.float32))
+                runner.set_len(cache, slot, 0)
+                span = -(-len(prompt) // 4) * 4
+                for off in range(0, len(prompt), 8):
+                    toks = np.zeros((8,), np.int32)
+                    real = min(8, len(prompt) - off)
+                    toks[:real] = prompt[off:off + real]
+                    runner.prefill_chunk(
+                        cache, slot, toks, off, off + real, span,
+                        frames=fr.to(cuda_device) if off == 0 else None)
+            else:
+                runner.prefill(cache, slot, prompt,
+                               table[slot] if paged else None)
             tok[slot] = int(prompt[-1])
             active[slot] = True
             copy = (tok.clone(), {k: v.clone() for k, v in cache.items()},
@@ -1249,6 +1365,11 @@ def _check_replays_against_eager(runner, cuda_device):
             # writes land there in no fixed order; it is never read)
             assert all(torch.equal(cache[k][:, :-1], want[1][k][:, :-1])
                        for k in ("attn_k", "attn_v") if k in cache)
+            if frames:
+                assert all(torch.equal(cache[k], want[1][k])
+                           for k in ("ck", "cv"))
+                assert all(torch.equal(cache[k][:, :-1], want[1][k][:, :-1])
+                           for k in ("k", "v"))
             assert all(torch.equal(flags[k], want[2][k]) for k in flags)
             live = out[3][:, S.OUTPUTS.index("MI"), :slot + 1]
             assert torch.isfinite(live).all() and (live >= 0).all()

@@ -314,7 +314,7 @@ def test_registry_gates_for_the_moe_family():
     assert TM.supports_prefix_cache(dataclasses.replace(tcfg,
                                                         family="dense"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TM.module_for(dataclasses.replace(tcfg, family="encdec"))
+        TM.module_for(dataclasses.replace(tcfg, family="vlm"))
 
 
 @pytest.mark.parametrize("flags", [
