@@ -21,7 +21,8 @@ Phases (any failure exits non-zero before the result line):
      ``PHILOX_INT_OPS`` in every seeded row's bound is taken from.  The
      three serving kernels are also held and timed at deepseek-moe-16b's
      shapes (MHA at H = Hkv = 16; the head at K 2048, V 102400);
-     zamba2-7b's come with phase 11, seamless-m4t-medium's with 12.
+     zamba2-7b's come with phase 11, seamless-m4t-medium's with 12,
+     phi-3-vision-4.2b's with 13.
   4. serve: qwen2-1.5B at full width (28 layers, d 1536, bf16 body, f32
      Bayesian head over V = 151936, S = 10 draws), random weights from a
      seed, paged KV + kernel decode attention + chunked prefill + kernel
@@ -108,10 +109,29 @@ Phases (any failure exits non-zero before the result line):
      the same frames; phase 5's profile of a short encdec serve in a
      fresh process, which must name paged_decode_mma<64>,
      paged_prefill_mma<64> and the fused head.
- 13. one JSON line of per-kernel numbers (eleven kernels; the serving
-     kernels' launches are phase 4's first run plus phases 9's, 11's and
-     12's, and phase 10's for the head), the card's nvidia-smi line, then
-     the result line.
+ 13. vlm: phi-3-vision-4.2b at full width (32 layers, d 3072, 32 MHA
+     heads of D 96, ff 8192, V 32064, 576 prefix embeds) on phase 4's
+     trace at prompt 640 through the kernel path's flags, where the engine
+     takes batch prefill (the family has no chunked prefill; asserted):
+     the decode kernel and the head at its shapes (``check_vlm_shapes``:
+     decode at the served depths, the head at K 3072, V 32064 with an
+     argmax planted in the ragged last tile; no prefill kernel on this
+     path); one graphed engine serving the trace three times (32 decode
+     launches and one head a step, no prefill launch; decode ms a step
+     against the step's bytes floor, tok/s, e2e, p99, prefill ms a
+     request, init and capture time, peak memory); every chunk against
+     the eager chunk bit for bit, pools included, in kernel entropy on
+     the kernel path and operand entropy on the gather / batch path; one
+     640-token prompt with random prefix embeds (the served trace feeds
+     zeros: the frontend is a stub) admitted through ``runner.prefill``
+     and held against ``registry.prefill`` and, for four decode steps,
+     the kernel read against the gather read; phase 5's profile of a
+     short vlm serve in a fresh process, which must name
+     paged_decode_mma<96> and the fused head.
+ 14. one JSON line of per-kernel numbers (eleven kernels; the serving
+     kernels' launches are phase 4's first run plus phases 9's, 11's, 12's
+     and 13's, and phase 10's for the head), the card's nvidia-smi line,
+     then the result line.
 
 Imports nothing of the JAX package.
 """
@@ -663,17 +683,24 @@ ZB_H, ZB_HKV, ZB_D, ZB_K, ZB_V = 32, 32, 112, 3584, 32000
 # seamless-m4t-medium's: MHA at H = Hkv = 16, D 64, and the head at K 1024,
 # V 256206 = 2001 x 128 + 78 (2,002 tiles, the last ragged)
 SM_H, SM_HKV, SM_D, SM_K, SM_V = 16, 16, 64, 1024, 256206
+# phi-3-vision-4.2b's: MHA at H = Hkv = 32, D 96, and the head at K 3072,
+# V 32064 = 250 x 128 + 64 (251 tiles, the last ragged)
+PV_H, PV_HKV, PV_D, PV_K, PV_V = 32, 32, 96, 3072, 32064
+# its served prompts: the 576 prefix embeds and 64 text tokens
+VLM_PROMPT = 640
 
 
 def check_shapes(dev, model: str, H: int, Hkv: int, D: int, K: int, V: int,
-                 decodes, prefills, head_seed: int) -> dict:
-    """The three serving kernels at a model's shapes, each against its
-    plain version, the tensor-core route asserted, timed beside its bound
-    and, where one exists, its library yardstick: decode attention at 4
-    slots of the given depths (``decodes``: (label, depths, table
-    width)), prefill attention (``prefills``: (S, offset, span)) and the
-    fused head (M 4, S 10, Philox and explicit xi).  Returns the times by
-    kernel and case."""
+                 decodes, prefills, head_seed: int, plant=()) -> dict:
+    """The serving kernels at a model's shapes, each against its plain
+    version, the tensor-core route asserted, timed beside its bound and,
+    where one exists, its library yardstick: decode attention at 4 slots
+    of the given depths (``decodes``: (label, depths, table width)),
+    prefill attention (``prefills``: (S, offset, span); none where the
+    model has no chunked prefill) and the fused head (M 4, S 10, Philox
+    and explicit xi; ``plant``: (row, column) pairs whose column of mu is
+    set to give the row a logit of about sqrt(K), an argmax both heads
+    must find there).  Returns the times by kernel and case."""
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import layers as L
     UH = kernel_module("uncertainty_head")
@@ -717,7 +744,7 @@ def check_shapes(dev, model: str, H: int, Hkv: int, D: int, K: int, V: int,
             "library_ms": device_ms(lib, 100)}
 
     g = torch.Generator(device=dev).manual_seed(6)
-    NB = 4 * -(-max(span for _, _, span in prefills) // BS)
+    NB = 4 * -(-max((span for _, _, span in prefills), default=0) // BS)
     k_pool, v_pool = (_pool(dev, g, NB, BS, Hkv, D) for _ in "kv")
     perm = torch.randperm(NB, generator=torch.Generator().manual_seed(7))
     for S, offset, span in prefills:
@@ -765,6 +792,8 @@ def check_shapes(dev, model: str, H: int, Hkv: int, D: int, K: int, V: int,
     mu, sigma, g = head_case(dev, head_seed, K, V)
     x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
     xi = torch.randn((S, M, V), generator=g, device=dev)
+    for row, col in plant:
+        mu[:, col] = x[row].float() / x[row].float().norm()
     from repro_torch.kernels import rng
     worst, plain_ms = 0.0, None
     for mode, kw in (("xi", {"xi": xi}), ("philox", {"seed": 7, "step": 3})):
@@ -774,6 +803,11 @@ def check_shapes(dev, model: str, H: int, Hkv: int, D: int, K: int, V: int,
         torch.cuda.synchronize()
         if mode == "philox":
             plain_ms = (time.perf_counter() - t0) * 1e3
+        for row, col in plant:
+            if not int(got["pred"][row]) == int(want["pred"][row]) == col:
+                fail(f"head at {model}'s widths {mode}: row {row}'s argmax "
+                     f"is {int(got['pred'][row])} (plain "
+                     f"{int(want['pred'][row])}), planted at {col}")
         xi_full = xi if mode == "xi" else rng.head_normal(
             7, 3, S, M, torch.arange(V, device=dev))
         worst = max(worst, compare_heads(f"head at {model}'s widths {mode}",
@@ -830,6 +864,19 @@ def check_encdec_shapes(dev) -> dict:
     return check_shapes(dev, "seamless-m4t-medium", SM_H, SM_HKV, SM_D, SM_K,
                         SM_V, [("served", [288, 150, 17, 0], 19)],
                         [(64, 0, 256), (64, 192, 256)], head_seed=12)
+
+
+def check_vlm_shapes(dev) -> dict:
+    """The serving kernels at phi-3-vision-4.2b's shapes (MHA at 32 heads
+    of D 96: six 16-wide k-steps, a 192-byte row; ratio 1, so 15 of the
+    decode kernel's 16 mma rows are padding): decode at the served depths
+    (prompt 640 + up to 32 generated, a 43-block table, 2 splits), no
+    prefill (the family serves batch prefill only, on the plain
+    attention), the head at K 3072, V 32064 = 250 x 128 + 64 with rows 0
+    and 2's argmax planted in the ragged last tile."""
+    return check_shapes(dev, "phi-3-vision-4.2b", PV_H, PV_HKV, PV_D, PV_K,
+                        PV_V, [("served", [672, 656, 641, 0], 43)], [],
+                        head_seed=14, plant=((0, PV_V - 1), (2, PV_V - 64)))
 
 
 def sass_opcodes(binary: Path) -> dict[str, dict[str, int]]:
@@ -1728,7 +1775,10 @@ def serve_runs(args, built, label: str, launches,
               f"{r['e2e_tok_per_s']:.1f} tok/s, {r['prefill_chunks']} "
               f"prefill chunks, {steps} decode steps ({ms[-1]:.2f} ms "
               f"each), latency p50 {r['latency_p50_s']:.2f}s p99 "
-              f"{r['latency_p99_s']:.2f}s, launches {got}", flush=True)
+              f"{r['latency_p99_s']:.2f}s, {r['prefill_mode']} prefill "
+              f"first shape {r['prefill_compile_s'] * 1e3:.1f} ms, steady "
+              f"{r['prefill_steady_s'] * 1e3:.1f} ms a call, launches {got}",
+              flush=True)
     print(f"{label} {cfg.name} full width, {SERVE_RUNS} runs of one graphed "
           f"engine: decode ms a step {spread(ms)}, decode tok/s "
           f"{spread(tps, '.1f')}, e2e tok/s {spread(e2e, '.1f')}, p99 s "
@@ -1783,8 +1833,8 @@ def graph_vs_eager(args, built, label: str) -> tuple[dict, str]:
                 "len": torch.equal(cache["len"], e_cache["len"]),
                 "flags": all(torch.equal(flags[k], e_flags[k])
                              for k in flags)}
-        for k in RECURRENT_CARRY + (ENCDEC_CARRY if cfg.family == "encdec"
-                                    else ()):
+        for k in RECURRENT_CARRY + (ENCDEC_CARRY if cfg.family in
+                                    ("encdec", "vlm") else ()):
             if k in cache:
                 a, b = cache[k], e_cache[k]
                 if "block_table" in cache and k in ("attn_k", "attn_v", "k",
@@ -1817,6 +1867,7 @@ def graph_vs_eager(args, built, label: str) -> tuple[dict, str]:
 # hybrid's pool planes
 RECURRENT_CARRY = ("ssm", "conv", "attn_k", "attn_v")
 # and the encdec family's: its cross strips and its self-attention pools
+# (the vlm family's pools too: it has no cross strips)
 ENCDEC_CARRY = ("ck", "cv", "k", "v")
 
 
@@ -1838,14 +1889,18 @@ def check_serve(r: dict, counts: dict, layers: int = 28,
                 attention: bool = True) -> None:
     """The run's launch counts (one attention launch a layer, or a
     hybrid application, a decode step and a prefill chunk, one head a
-    step; an attention-free family launches the head alone) and its
-    requests (finished, 32 tokens, finite H/SE/MI, MI >= 0)."""
+    step; an attention-free family launches the head alone, batch
+    prefill no prefill kernel) and its requests (finished, 32 tokens,
+    finite H/SE/MI, MI >= 0)."""
     steps, chunks = r["spec_decode"]["full_model_calls"], r["prefill_chunks"]
     want = {"paged_decode_attention": layers * steps * attention,
             "paged_prefill_attention": layers * chunks * attention,
             "uncertainty_head": steps}
+    none = {"paged_decode_attention": not attention,
+            "paged_prefill_attention": not attention
+            or r["prefill_mode"] == "batch", "uncertainty_head": False}
     for name, n in want.items():
-        if counts[name] != n or (n == 0 and attention) or steps == 0:
+        if counts[name] != n or (n == 0 and not none[name]) or steps == 0:
             fail(f"serve: {name} launched {counts[name]} times, expected "
                  f"{n}" + (" (> 0)" if attention else ""))
     for req in r["requests"]:
@@ -1935,6 +1990,8 @@ def top(table: dict, n: int) -> str:
 
 PROFILE_SERVE = KERNEL_PATH + ["--entropy", "kernel", "--num-requests", "4",
                                "--prompt-len", "64", "--gen-len", "16"]
+# a profiled serve whose prompts must hold more than 64 tokens
+PROFILE_PROMPT = {"vlm_serve": ["--prompt-len", str(VLM_PROMPT)]}
 
 
 def traced(kind: str) -> dict:
@@ -1953,16 +2010,17 @@ def traced(kind: str) -> dict:
 def trace_main(kind: str) -> dict:
     """A ``device_trace`` summary, without its output: ``serve`` (or
     ``moe_serve``, deepseek-moe-16b; ``ssm_serve``, mamba2-370m;
-    ``hybrid_serve``, zamba2-7b; ``encdec_serve``, seamless-m4t-medium),
+    ``hybrid_serve``, zamba2-7b; ``encdec_serve``, seamless-m4t-medium;
+    ``vlm_serve``, phi-3-vision-4.2b at prompt 640),
     the short kernel-path serve (the engine and its graph built before the
     window), or ``bnn_machine`` / ``bnn_mean``, the BNN's MC prediction
     on 800 images after one untraced call."""
     dev = torch.device("cuda")
     if kind in SERVED:
         flags = SERVED[kind][0]
-        _, built = build_serve(PROFILE_SERVE, flags)
-        t = device_trace(lambda: serve_full(PROFILE_SERVE, built, flags),
-                         kind)
+        extra = PROFILE_SERVE + PROFILE_PROMPT.get(kind, [])
+        _, built = build_serve(extra, flags)
+        t = device_trace(lambda: serve_full(extra, built, flags), kind)
         r = t.pop("out")
         return t | {"steps": r["spec_decode"]["full_model_calls"],
                     "prefill_chunks": r["prefill_chunks"],
@@ -1989,9 +2047,11 @@ def profile_serve(kind: str = "serve") -> str:
     (``moe_serve``), both 28 layers, mamba2-370m (``ssm_serve``, 48
     layers, batch prefill, no attention kernel) or zamba2-7b
     (``hybrid_serve``, 14 applications of the shared attention, D 112) or
-    seamless-m4t-medium (``encdec_serve``, 12 decoder layers, D 64):
-    device time by kind of kernel, how much of the traced window the
-    device sits idle, and the host syncs by cause."""
+    seamless-m4t-medium (``encdec_serve``, 12 decoder layers, D 64) or
+    phi-3-vision-4.2b (``vlm_serve``, 32 layers, D 96, batch prefill on
+    the plain attention: no prefill kernel): device time by kind of
+    kernel, how much of the traced window the device sits idle, and the
+    host syncs by cause."""
     t = traced(kind)
     steps = t["steps"]
     _, D, apps = SERVED[kind]
@@ -2002,10 +2062,14 @@ def profile_serve(kind: str = "serve") -> str:
         if prefill or decode or sum(v[1] for v in head.values()) != steps:
             fail(f"profile {kind}: attention kernels ran, or the head did "
                  f"not run once a step ({top(head, 4) or 'no head'})")
+    elif kind == "vlm_serve":
+        if prefill or t["prefill_chunks"]:
+            fail(f"profile {kind}: batch prefill ran prefill chunks or a "
+                 f"prefill kernel ({top(prefill, 4)})")
     elif not any(f"paged_prefill_mma<{D}>" in k for k in prefill):
         fail(f"profile {kind}: the served prefill did not run "
              f"paged_prefill_mma<{D}> ({top(prefill, 4) or 'no prefill'})")
-    if kind in ("hybrid_serve", "encdec_serve") and not head:
+    if kind in ("hybrid_serve", "encdec_serve", "vlm_serve") and not head:
         fail(f"profile {kind}: the fused head did not run")
     if any("paged_prefill_simt<__nv_bfloat16>" in k for k in prefill):
         fail("profile: the served bf16 prefill ran the SIMT kernel")
@@ -2367,10 +2431,13 @@ HYBRID_LONG = 8192
 # the profiled serves: their flags, the served attention's head dim and
 # its launches a decode step
 ENCDEC_FLAGS = ["--arch", "seamless_m4t_medium", *SERVE_FLAGS[2:]]
+VLM_FLAGS = ["--arch", "phi_3_vision_4_2b", *SERVE_FLAGS[2:], "--prompt-len",
+             str(VLM_PROMPT)]
 SERVED = {"serve": (SERVE_FLAGS, 128, 28), "moe_serve": (MOE_FLAGS, 128, 28),
           "ssm_serve": (SSM_FLAGS, 0, 0),
           "hybrid_serve": (HYBRID_FLAGS, ZB_D, 14),
-          "encdec_serve": (ENCDEC_FLAGS, SM_D, 12)}
+          "encdec_serve": (ENCDEC_FLAGS, SM_D, 12),
+          "vlm_serve": (VLM_FLAGS, PV_D, 32)}
 
 
 def hybrid_phase(launches) -> dict:
@@ -2648,8 +2715,7 @@ def bf16_close(name: str, got, want, rel: float = 2e-2) -> str:
     g, w = got.double(), want.double()
     r = float((g - w).norm() / w.norm())
     if not torch.isfinite(g).all() or not r <= rel:
-        fail(f"encdec frames walk: {name} relative error {r:.3g} > {rel}, "
-             "or not finite")
+        fail(f"{name} relative error {r:.3g} > {rel}, or not finite")
     return f"{r:.3g} (max |err| {max_err(got, want):.3g})"
 
 
@@ -2708,12 +2774,13 @@ def encdec_frames_walk(params, cfg) -> str:
         for n in ("k", "v"):
             walked = torch.stack([L.paged_gather(cache[n][i], row)[0]
                                   for i in range(E.n_dec(cfg))])
-            errs[n] = bf16_close(f"self {n}", walked, ref[n][:, 0, :P])
+            errs[n] = bf16_close(f"encdec frames walk: self {n}", walked,
+                                 ref[n][:, 0, :P])
         last = toks[:, -1]
         h_walk, _ = E.decode_hidden(params, kcfg, last, cache)
         h_ref, _ = E.decode_hidden(params, gcfg, last, ref)
-        errs["hidden"] = bf16_close("first decode step's hidden", h_walk,
-                                    h_ref)
+        errs["hidden"] = bf16_close(
+            "encdec frames walk: first decode step's hidden", h_walk, h_ref)
     gap = max_err(ref["ck"], torch.zeros_like(ref["ck"]))
     return (f"encdec frames walk: one {P}-token prompt, random frames, "
             f"{P // C} chunks of {C} on the kernel path in {walk_s:.3f}s: "
@@ -2721,6 +2788,227 @@ def encdec_frames_walk(params, cfg) -> str:
             f"and of batch prefill (max |ck| {gap:.3g}); error against batch "
             f"prefill on the gather path, relative: "
             + ", ".join(f"{k} {e}" for k, e in errs.items()))
+
+
+# --------------------------------------------------------------------------
+# phase 13: the vlm family at full width
+# --------------------------------------------------------------------------
+
+def vlm_phase(launches) -> dict:
+    """phi-3-vision-4.2b at full width and depth (32 layers, d 3072, 32 MHA
+    heads of D 96, ff 8192 gated silu, V 32064; bf16 body, f32 head,
+    random weights from the seed) on the serve trace of phase 4 at prompt
+    640 with the kernel path's flags and kernel entropy: paged KV, the
+    decode kernel, and batch prefill (the family has no chunked prefill:
+    the engine falls back, asserted) of each prompt whose first 576
+    positions are the engine's zero prefix embeds.  One engine, its decode
+    chunk one CUDA graph replay (32 decode launches and the head a step),
+    serves the trace SERVE_RUNS times, then once more with every chunk
+    held bit for bit against the eager chunk, pools included; then
+    operand entropy on the gather / batch path the same way on a second
+    engine; then ``vlm_prefix_check`` on the first engine's runner.
+    Returns the first run's counts."""
+    import gc
+
+    from repro_torch import resolve_device
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import registry as M
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], VLM_FLAGS)
+    dev = resolve_device(args.device)
+    t0 = time.perf_counter()
+    params = M.init_params(get_config(args.arch), torch.Generator(
+        device=dev).manual_seed(args.seed), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    built = build_engine(args, params)
+    engine, cfg = built
+    runner = engine.runner
+    served = (engine.kv_layout, engine.decode_attn, engine.prefill_mode)
+    if served != ("paged", "kernel", "batch"):
+        fail(f"vlm: the engine serves {served}, expected paged / kernel / "
+             "batch (chunked prefill asked for, which vlm does not have)")
+    want = {"paged_decode_attention": cfg.num_layers * args.chunk,
+            "uncertainty_head": args.chunk}
+    if runner.captured != want:
+        fail(f"vlm: a replay records {runner.captured}, expected {want}")
+    # a decode step reads every layer's weights, the final norm and the
+    # head (f32), and each slot's K/V at its depth (the trace's mean
+    # depth, prompt + gen / 2); the embedding only a row a slot
+    body = tree_bytes(params["blocks"]) + tree_bytes(params["final_norm"])
+    head = tree_bytes(params["head"])
+    total = tree_bytes(params)
+    kv_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim \
+        * runner.cache["k"].element_size()
+    attended = args.slots * (args.prompt_len + args.gen_len / 2) * kv_token
+    floor_ms = (body + head + attended) / HBM_BYTES_PER_S * 1e3
+    print(f"vlm engine {cfg.name}: {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads of D {cfg.head_dim}, ff "
+          f"{cfg.d_ff}, {cfg.num_prefix_embeds} prefix embeds; V "
+          f"{cfg.vocab_size}; parameters {total / 1e9:.3f} GB (layers "
+          f"{tree_bytes(params['blocks']) / 1e9:.3f}, embedding "
+          f"{tree_bytes(params['embed']) / 1e9:.3f}, head "
+          f"{head / 1e9:.3f}), drawn in {init_s:.2f}s, peak memory after "
+          f"the draw {init_peak / 1e9:.2f} GB ({init_peak / total:.2f}x the "
+          f"parameters); KV pool {M.kv_bytes(runner.cache) / 1e9:.3f} GB "
+          f"({kv_token} bytes a token); served {served}; decode chunk graph "
+          f"warm-up + capture {runner.capture_s:.3f}s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; bytes floor a "
+          f"decode step {floor_ms:.4f} ms (layers {body / 1e9:.3f} + head "
+          f"{head / 1e9:.3f} + KV {attended / 1e9:.3f} GB); launches a "
+          f"replay {runner.captured}", flush=True)
+    counts = serve_runs(args, built, "vlm serve", launches)
+    print(f"vlm peak memory after the runs "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(graph_vs_eager(args, built, "vlm, kernel path, kernel "
+                         "entropy")[1], flush=True)
+    print(vlm_prefix_check(engine), flush=True)
+    del built, engine, runner
+    gc.collect()
+
+    o_args = serve_args(GATHER_PATH + ["--entropy", "operand"], VLM_FLAGS)
+    print(graph_vs_eager(o_args, build_engine(o_args, params),
+                         "vlm, gather path, operand entropy")[1],
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def vlm_prefix_check(engine) -> str:
+    """One 640-token prompt with random prefix embeds from a seed (the
+    served trace feeds zeros, whose prefix K/V are exactly 0 in every
+    layer: this is the splice's check on the card), admitted through
+    ``runner.prefill`` into slot 0 of the engine's paged pool through a
+    shuffled block row: the slot's pool rows (through its table) not
+    zero under the prefix and bit-equal to the K/V of ``registry.
+    prefill`` with the same embeds on the dense layout; the last hidden
+    state far from the zero-embeds prefill's.  Then four decode steps
+    from that cache, layer by layer: each layer's decode attention read
+    through the kernel against the gather read of the same query and
+    pool, within ``bf16_close`` (the step goes on from the gather read);
+    the fused head's outputs finite.  The two whole decode paths are
+    also run side by side and their hidden states' distance reported:
+    two bf16 paths part by an ulp here and there and the parts grow
+    through the 32 layers (``tools/decode_drift.py`` measures it against
+    reads each within a bf16 rounding of an f64 read), so that distance
+    is no check of the kernel."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models import uncertain_head as U
+
+    runner, cfg, params = engine.runner, engine.cfg, engine.params
+    dev = runner.device
+    P, S = cfg.num_prefix_embeds, VLM_PROMPT
+    g = torch.Generator(device=dev).manual_seed(26)
+    embeds = torch.randn((1, P, cfg.d_model), generator=g, device=dev)
+    toks = torch.randint(1, cfg.vocab_size - 1, (1, S), generator=g,
+                         device=dev)
+    kcfg = dataclasses.replace(cfg, decode_attn="kernel")
+    gcfg = dataclasses.replace(cfg, decode_attn="gather")
+    with torch.inference_mode():
+        _, cache, _, _ = runner.start()
+        table = torch.full(tuple(cache["block_table"].shape), -1,
+                           dtype=torch.int32)
+        table[0] = torch.randperm(
+            runner.kv_blocks, generator=torch.Generator().manual_seed(5))[
+            :table.shape[1]].to(torch.int32)
+        runner.write_table(cache, table.numpy())
+        t0 = time.perf_counter()
+        runner.prefill(cache, 0, toks[0].cpu().numpy(), table[0].numpy(),
+                       embeds)
+        runner.sync()
+        prefill_s = time.perf_counter() - t0
+        h_emb, ref = M.prefill(params, gcfg, toks, S, embeds)
+        h_zero, _ = M.prefill(params, gcfg, toks, S, torch.zeros_like(embeds))
+        row = cache["block_table"][:1]
+        for n in ("k", "v"):
+            pooled = torch.stack([L.paged_gather(cache[n][i], row)[0, :S]
+                                  for i in range(cfg.num_layers)])
+            if not pooled[:, :P].ne(0).any(dim=(1, 2, 3)).all():
+                fail(f"vlm prefix: a layer's {n} rows 0-{P - 1} are all 0")
+            if not torch.equal(pooled, ref[n][:, 0, :S]):
+                fail(f"vlm prefix: the slot's {n} pool rows differ from "
+                     f"registry.prefill's (max |err| "
+                     f"{max_err(pooled, ref[n][:, 0, :S]):.3g})")
+        moved = float((h_emb.double() - h_zero.double()).norm()
+                      / h_zero.double().norm())
+        if not moved > 0.1:
+            fail(f"vlm prefix: random embeds moved the last hidden state by "
+                 f"{moved:.3g} of its norm (zero embeds), not > 0.1")
+
+        # the two whole paths side by side, from copies of the cache
+        kc = {k: v.clone() for k, v in cache.items()}
+        gc_ = {k: v.clone() for k, v in cache.items()}
+        tok = torch.full((runner.num_slots,), int(toks[0, -1]),
+                         dtype=torch.int32, device=dev)
+        apart = []
+        for t in range(4):
+            hk, _ = T.decode_hidden(params, kcfg, tok, kc)
+            hg, _ = T.decode_hidden(params, gcfg, tok, gc_)
+            if not torch.isfinite(hk[0]).all():
+                fail(f"vlm prefix: decode step {t}'s hidden is not finite")
+            apart.append(float((hk[0].double() - hg[0].double()).norm()
+                               / hg[0].double().norm()))
+            tok[0].fill_(int((hg[0].float() @ params["head"]["mu"]).argmax()))
+
+        # each layer's kernel read against the gather read, same input
+        tok.fill_(int(toks[0, -1]))
+        worst = 0.0
+        for t in range(4):
+            lens, tab = cache["len"], cache["block_table"]
+            x = L.apply_embed(params["embed"], tok[:, None])
+            rot = L.rope_tables(lens.reshape(-1, 1), cfg.head_dim,
+                                cfg.rope_theta)
+            at = L.paged_index(cache["k"].shape[1], cache["k"].shape[2], tab,
+                               lens, 1)
+            eff = L.mapped_span(tab, cache["k"].shape[2], lens + 1)
+            for i in range(cfg.num_layers):
+                bp = T.layer(params["blocks"], i)
+                q, k, v = L._qkv(bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
+                                 rot)
+                for pool, new in ((cache["k"][i], k), (cache["v"][i], v)):
+                    L.paged_scatter(pool, tab, lens, new, at)
+                o_k = ops.paged_decode_attention(q, cache["k"][i],
+                                                 cache["v"][i], tab, lens + 1)
+                o_g = L.decode_attention(q, L.paged_gather(cache["k"][i], tab),
+                                         L.paged_gather(cache["v"][i], tab),
+                                         eff)
+                bf16_close(f"vlm prefix: decode step {t} layer {i}'s "
+                           "attention, kernel read vs gather read",
+                           o_k[:1], o_g[:1])
+                worst = max(worst, float((o_k[0].double() - o_g[0].double())
+                                         .norm() / o_g[0].double().norm()))
+                x = x + L._mm(o_g.reshape(x.shape[0], 1, -1),
+                              bp["attn"]["wo"])
+                x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+            x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)[:, 0]
+            out = U.head_outputs(params, kcfg, x, lens.clone(), (0, t))
+            lens.add_(1)
+            if not all(torch.isfinite(out[k][0]) for k in ("H", "SE", "MI",
+                                                           "p_max")):
+                fail(f"vlm prefix: decode step {t}'s head outputs are not "
+                     "finite")
+            tok[0].fill_(int(out["next_token"][0]))
+    return (f"vlm prefix: one {S}-token prompt with random prefix embeds "
+            f"through runner.prefill ({prefill_s * 1e3:.1f} ms) into a "
+            f"shuffled block row: pool K/V bit-equal to registry.prefill's, "
+            f"rows 0-{P - 1} not zero; last hidden {moved:.3g} of its norm "
+            f"from the zero-embeds prefill's; 4 decode steps x "
+            f"{cfg.num_layers} layers, kernel read against gather read of "
+            f"the same query and pool: worst relative error {worst:.3g} "
+            f"(<= 2e-2); head outputs finite; the whole kernel and gather "
+            f"paths' hidden states apart by "
+            + ", ".join(f"{a:.4f}" for a in apart) + " of the norm")
 
 
 # --------------------------------------------------------------------------
@@ -3150,6 +3438,16 @@ def main():
     print(f"encdec launches {encdec_counts}", flush=True)
     print(profile_serve("encdec_serve"), flush=True)
     print(f"phase encdec: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    check_vlm_shapes(dev)
+    vlm_counts = vlm_phase(launches)
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "uncertainty_head"):
+        counts[name] += vlm_counts[name]
+    print(f"vlm launches {vlm_counts}", flush=True)
+    print(profile_serve("vlm_serve"), flush=True)
+    print(f"phase vlm: {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

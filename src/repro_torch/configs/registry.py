@@ -4,8 +4,8 @@ plus ``get_bnn_config`` for the paper's own BNN.
 ``get_config(name)`` returns the full published config; ``reduced(cfg)``
 scales any config down to a CPU-smoke-testable size while preserving the
 family's structural features (GQA ratio, QKV bias, activation flavor,
-Bayesian head).  Every architecture is listed so the serving CLI can name
-a family it does not serve yet; ``PORTED_FAMILIES`` is what the port runs.
+Bayesian head).  ``PORTED_FAMILIES`` is what the port runs: every
+family of ``ARCH_IDS``.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ ARCH_IDS = [
     "mamba2_370m",
 ]
 
-# families the port's models serve (ROADMAP.md lists the rest)
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
+# families the port's models serve
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def normalize(name: str) -> str:

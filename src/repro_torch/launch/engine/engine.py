@@ -127,21 +127,27 @@ class ServeEngine:
             kv_blocks=self.kv_blocks, device=self.device,
             head_noise=head_noise)
         self.params = params
-        self._frames: dict[int, torch.Tensor] = {}
+        self._modalities: dict[int, torch.Tensor] = {}
 
     def _modality(self, batch: int) -> Optional[torch.Tensor]:
         """The modality input of a ``batch``-prompt prefill: the encdec
-        family's encoder frames, (batch, ENC_LEN, d) f32 zeros on the
-        engine's device (the frontend is a stub, as in the reference),
-        allocated once per engine; None for the other families."""
-        if self.cfg.family != "encdec":
-            return None
-        if batch not in self._frames:
+        family's encoder frames, (batch, ENC_LEN, d), or the vlm family's
+        prefix embeds, (batch, num_prefix_embeds, d); f32 zeros on the
+        engine's device (the frontends are stubs, as in the reference),
+        allocated once per engine and batch size; None for the other
+        families."""
+        if self.cfg.family == "encdec":
             from repro_torch.models.encdec import ENC_LEN
-            self._frames[batch] = torch.zeros(
-                (batch, ENC_LEN, self.cfg.d_model), dtype=torch.float32,
+            rows = ENC_LEN
+        elif self.cfg.family == "vlm":
+            rows = self.cfg.num_prefix_embeds
+        else:
+            return None
+        if batch not in self._modalities:
+            self._modalities[batch] = torch.zeros(
+                (batch, rows, self.cfg.d_model), dtype=torch.float32,
                 device=self.device)
-        return self._frames[batch]
+        return self._modalities[batch]
 
     def _bucket(self, n: int) -> int:
         """Prompt-length bucket: next kv_block multiple (dense strips

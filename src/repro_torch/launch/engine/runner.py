@@ -164,7 +164,8 @@ class ModelRunner:
         """Batch prefill of one prompt (bucketed width W) into ``slot``:
         paged prefill builds a W-token strip that the slot write pages
         out; dense builds the engine-wide max_len strip.  ``modality``:
-        the encdec family's (1, ENC_LEN, d) encoder frames."""
+        the encdec family's (1, ENC_LEN, d) encoder frames or the vlm
+        family's (1, num_prefix_embeds, d) prefix embeds."""
         paged = self.kv_layout == "paged"
         width = len(toks) if paged else self.max_len
         _, sub = M.prefill(self.params, self.cfg, self.tokens(toks), width,
@@ -264,12 +265,12 @@ def decode_loop_reference(params, cfg, tokens, gen_len: int, *,
 
     ``decode_fn`` (a ``steps.build_decode_step`` step) lets a caller pass
     its own step, e.g. with a ``head_noise`` provider.  ``modality`` is
-    the encdec family's (B, ENC_LEN, d) encoder frames; the vlm / audio
-    prefix is not ported yet and raises.
+    the encdec family's (B, ENC_LEN, d) encoder frames or the vlm
+    family's (B, num_prefix_embeds, d) prefix embeds; another family
+    given one raises ``ValueError``.
     """
-    if modality is not None and cfg.family != "encdec":
-        raise NotImplementedError("modality prefixes are not ported yet "
-                                  "(see ROADMAP.md)")
+    if modality is not None and cfg.family not in ("encdec", "vlm"):
+        raise ValueError(f"family {cfg.family!r} takes no modality input")
     dev = params["head"]["mu"].device
     with torch.inference_mode():
         tokens = torch.as_tensor(np.asarray(tokens, np.int32), device=dev)

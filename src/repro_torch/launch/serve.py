@@ -6,8 +6,7 @@ missing GPU raises, ``--device cpu`` runs the plain PyTorch paths).
 Flags of features the port does not have yet raise
 ``NotImplementedError`` (see ROADMAP.md): ``--prefix-cache on``,
 ``--spec-decode on``, ``--policy priority``, ``--escalate-mi`` and
-``--mesh``, and any ``--arch`` outside the dense, moe, ssm, hybrid and
-encdec families.
+``--mesh``.  Every ``--arch`` is served.
 The ssm family (``mamba2_370m``) keeps no KV: ``--kv-layout paged``,
 ``--decode-attn kernel`` and ``--prefill chunked`` fall back silently to
 the dense layout, the gather read and batch prefill at the exact prompt
@@ -16,7 +15,12 @@ hybrid family (``zamba2_7b``) pages the KV of its shared attention and
 prefills in chunks rounded up to ``ssm_chunk``, its prompts at their
 exact length.  The encdec family (``seamless_m4t_medium``) feeds its
 encoder zero frames (the frontend is a stub, as in the JAX engine) at
-each prompt's first chunk, which writes the cross-attention K/V.
+each prompt's first chunk, which writes the cross-attention K/V.  The
+vlm family (``phi_3_vision_4_2b``) feeds zero prefix embeds (a stub
+frontend too) in place of each prompt's first ``num_prefix_embeds``
+positions (576; 8 reduced), so a prompt needs at least 577 tokens (9
+reduced), and takes batch prefill whatever ``--prefill`` asks, as in the
+JAX engine.
 
 ``--reduced`` is ``store_true`` with ``default=True``, as in the JAX
 CLI, so the CLI always serves the reduced config; the full-width model
@@ -36,6 +40,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch seamless_m4t_medium --device cpu --kv-layout paged \
       --decode-attn kernel --prefill chunked
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi_3_vision_4_2b --device cpu --kv-layout paged \
+      --decode-attn kernel --prefill chunked
 """
 
 from __future__ import annotations
@@ -49,7 +56,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.configs.registry import PORTED_FAMILIES, get_config, reduced
+from repro_torch.configs.registry import get_config, reduced
 from repro_torch.core.entropy import KernelEntropy
 from repro_torch.data.synthetic import TokenStreamState, token_batch
 from repro_torch.launch.engine import Request, ServeEngine
@@ -90,12 +97,8 @@ def make_requests(args, cfg) -> list[Request]:
     return reqs
 
 
-def check_ported(args, cfg) -> None:
+def check_ported(args) -> None:
     """Refuse the flags of features the port does not have yet."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"--arch {args.arch} (family {cfg.family!r}) {_ROADMAP}; the "
-            f"port serves the {', '.join(PORTED_FAMILIES)} families")
     refused = {"--prefix-cache on": args.prefix_cache == "on",
                "--spec-decode on": args.spec_decode == "on",
                "--policy priority": args.policy == "priority",
@@ -113,7 +116,7 @@ def build_engine(args, params=None) -> tuple[ServeEngine, ArchConfig]:
     this captures the decode chunk's graph (``ModelRunner``); the engine
     serves any number of ``run`` calls with it."""
     cfg = get_config(args.arch)
-    check_ported(args, cfg)
+    check_ported(args)
     if args.reduced:
         cfg = reduced(cfg)
     cfg = dataclasses.replace(cfg, head_entropy=args.entropy)

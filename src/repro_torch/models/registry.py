@@ -1,8 +1,9 @@
-"""Model dispatch for the port (dense, moe, ssm, hybrid and encdec
+"""Model dispatch for the port (dense, vlm, moe, ssm, hybrid and encdec
 families) and the weight bridge.
 
-PyTorch counterpart of the dense, moe, ssm, hybrid and encdec rows of
-``repro.models.registry``.  The uniform serving API:
+PyTorch counterpart of ``repro.models.registry``'s family table (the
+config-less ``audio`` family maps to encdec, as there).  The uniform
+serving API:
 
     init_params(cfg, generator, device) -> params
     params_from_numpy(tree, cfg, device) -> params
@@ -23,8 +24,10 @@ shared attention (``attn_k``, ``attn_v``) and keeps its recurrent state
 per slot; its prompts keep their exact length too.  The encdec family
 pages its decoder's self-attention KV and keeps the cross-attention
 memory (``ck``, ``cv``) a dense strip a slot; its modality input is the
-encoder's frames.  Paged KV pools
-carry one trailing sink block that no table maps
+encoder's frames.  The vlm family is the dense transformer whose
+modality input, its prefix embeds, replaces the first prompt positions
+at batch prefill; it has no chunked prefill, as in the reference.  Paged
+KV pools carry one trailing sink block that no table maps
 (``layers.paged_index``); ``kv_bytes`` leaves it out.
 """
 
@@ -44,14 +47,13 @@ PAGED_KV_LEAVES = ("k", "v", "attn_k", "attn_v")
 # per-slot recurrent state leaves (ssm, hybrid): written whole at admission
 RECURRENT_LEAVES = ("ssm", "conv")
 
-_FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm,
-             "hybrid": hybrid, "encdec": encdec}
+_FAMILIES = {"dense": transformer, "vlm": transformer, "audio": encdec,
+             "encdec": encdec, "moe": moe, "ssm": ssm, "hybrid": hybrid}
 
 
 def module_for(cfg: ArchConfig):
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (see ROADMAP.md)")
+        raise ValueError(f"unknown model family {cfg.family!r}")
     return _FAMILIES[cfg.family]
 
 
@@ -129,10 +131,14 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
 
 def prefill(params, cfg: ArchConfig, tokens, max_len: int, modality=None):
     """Batch prefill; ``modality`` is the encdec family's encoder frames
-    (B, ENC_LEN, d), unused by the others."""
+    (B, ENC_LEN, d) or the vlm family's prefix embeds (B,
+    num_prefix_embeds, d), unused by the others."""
     mod = module_for(cfg)
     if cfg.family == "encdec":
         return mod.prefill(params, cfg, tokens, max_len, frames=modality)
+    if cfg.family == "vlm":
+        return mod.prefill(params, cfg, tokens, max_len,
+                           prefix_embeds=modality)
     return mod.prefill(params, cfg, tokens, max_len)
 
 

@@ -1,9 +1,14 @@
-"""Dense decoder-only transformer (qwen2*, codeqwen, nemotron), serving path.
+"""Dense decoder-only transformer (qwen2*, codeqwen, nemotron,
+phi-3-vision), serving path.
 
-PyTorch counterpart of ``repro.models.transformer``.  Layers are stacked
-on a leading L axis exactly as in the JAX parameter tree; where the JAX
-package scans over that axis, the port loops over it in Python (each
-layer's weights are views of the stacked tensors).
+PyTorch counterpart of ``repro.models.transformer``; it covers the
+``dense`` and ``vlm`` families.  The vlm frontend is a stub, as in the
+JAX package: ``prefix_embeds`` (precomputed patch embeddings, (B, P, d))
+replace the first P positions of the embedded prompt at prefill; the
+positions stay ``arange(S)``, and decode reads only the cache.  Layers
+are stacked on a leading L axis exactly as in the JAX parameter tree;
+where the JAX package scans over that axis, the port loops over it in
+Python (each layer's weights are views of the stacked tensors).
 
 Caches are slot-indexed dicts: ``len`` (B,) int32 per-slot depths plus
 either dense strips (L, B, max_len, Hkv, hd) or, under the paged layout,
@@ -82,11 +87,26 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device):
 # prefill
 # ---------------------------------------------------------------------------
 
+def splice_prefix(x: torch.Tensor, prefix_embeds: torch.Tensor):
+    """The embedded prompt x (B, S, d) with its first P rows replaced by
+    ``prefix_embeds`` (B, P, d) cast to x's dtype, as a new tensor."""
+    P = prefix_embeds.shape[1]
+    if P > x.shape[1]:
+        raise ValueError(f"a prompt of {x.shape[1]} tokens cannot hold the "
+                         f"{P} prefix embeds")
+    return torch.cat([prefix_embeds.to(x.dtype), x[:, P:]], dim=1)
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+            prefix_embeds: torch.Tensor | None = None,
             return_kv: bool = False):
     """tokens: (B, S) -> hidden (B, S, d); optionally the per-layer (k, v)
-    stacked to (L, B, S, Hkv, hd)."""
+    stacked to (L, B, S, Hkv, hd).  ``prefix_embeds`` (B, P, d), P <= S,
+    take the place of the first P embedded tokens, cast to the body's
+    dtype (the tokens under them are ignored)."""
     x = L.apply_embed(params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = splice_prefix(x, prefix_embeds)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     ks, vs = [], []
@@ -125,10 +145,13 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
             "v": torch.zeros(shape, dtype=dt, device=device), "len": lens}
 
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
-    """Run the full prompt; returns (hidden_last, cache) with (L, B,
-    max_len, Hkv, hd) strips and ``len`` = prompt length."""
-    hidden, (k, v) = forward(params, cfg, tokens, return_kv=True)
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int,
+            prefix_embeds: torch.Tensor | None = None):
+    """Run the full prompt (its first positions ``prefix_embeds``, if
+    given); returns (hidden_last, cache) with (L, B, max_len, Hkv, hd)
+    strips and ``len`` = prompt length."""
+    hidden, (k, v) = forward(params, cfg, tokens, prefix_embeds,
+                             return_kv=True)
     B, S = tokens.shape
     pad = (0, 0, 0, 0, 0, max_len - S)
     cache = {"k": torch.nn.functional.pad(k, pad),

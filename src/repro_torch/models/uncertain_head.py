@@ -15,6 +15,14 @@ Two entropy modes, as in the JAX package:
   (seed, slot, depth) (``layers.decode_head_noise``, or the caller's
   ``head_noise`` provider with the same signature), then the plain
   logits path.
+
+By design, the kernel mode takes the fused head for EVERY family.  The
+JAX package takes its fused kernel for the dense and vlm families only
+and gives the moe, ssm, hybrid and encdec families its plain operand
+tail, whose xi is keyed by (step-folded key, slot, depth).  Both draw
+the same LRT distribution, so the two agree in distribution, not draw
+for draw (``tests/test_torch_head.py::test_kernel_mode_head_moments_
+match_the_reference_tail``).
 """
 
 from __future__ import annotations

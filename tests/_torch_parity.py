@@ -73,12 +73,14 @@ def operand_cfgs(arch="qwen2_1_5b"):
 
 
 @functools.lru_cache(maxsize=None)
-def dense_pair(seed=0):
-    """(jcfg, jax params, tcfg, port params) from one JAX init."""
+def dense_pair(arch="qwen2_1_5b", seed=0):
+    """(jcfg, jax params, tcfg, port params) of a reduced dense arch (2
+    layers, d 128, 4 query heads of D 32, V 512, f32) from one JAX
+    init."""
     import jax
     from repro.models import registry as JM
     from repro_torch.models import registry as TM
-    jcfg, tcfg = operand_cfgs()
+    jcfg, tcfg = operand_cfgs(arch)
     jparams = JM.init_params(jax.random.key(seed), jcfg)
     tparams = TM.params_from_numpy(to_numpy_tree(jparams), tcfg, CPU)
     return jcfg, jparams, tcfg, tparams
@@ -161,3 +163,10 @@ def encdec_pair(arch="seamless_m4t_medium", seed=0):
     jparams = JM.init_params(jax.random.key(seed), jcfg)
     tparams = TM.params_from_numpy(to_numpy_tree(jparams), tcfg, CPU)
     return jcfg, jparams, tcfg, tparams
+
+
+def vlm_pair(seed=0):
+    """(jcfg, jax params, tcfg, port params) of the reduced vlm arch
+    (phi-3-vision: 2 layers, d 128, 4 MHA heads of D 32, ff 256, silu,
+    8 prefix embeds, V 512, f32) from one JAX init."""
+    return dense_pair("phi_3_vision_4_2b", seed)

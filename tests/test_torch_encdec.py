@@ -409,7 +409,8 @@ def test_kernel_path_equals_gather_path():
 
 def test_decode_loop_reference_matches_jax_in_operand_mode():
     """The per-token loop with random frames as its modality, against the
-    JAX loop given the same frames; a vlm-style prefix still raises."""
+    JAX loop given the same frames; a family that takes no modality
+    refuses one."""
     jcfg, jparams, tcfg, tparams = encdec_pair()
     prompts, fr = _tokens(5, 3, 7), _frames(5, 3)
     want = jax_decode_loop_reference(jparams, jcfg, prompts, 6,
@@ -421,7 +422,7 @@ def test_decode_loop_reference_matches_jax_in_operand_mode():
     for k in STEP_KEYS:
         assert_close(got[k], want[k], atol=ATOL, msg=k)
     dense = dataclasses.replace(tcfg, family="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="no modality"):
         decode_loop_reference(tparams, dense, prompts, 2, modality=fr)
 
 

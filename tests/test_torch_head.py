@@ -157,3 +157,61 @@ def test_ops_dispatch_cpu_to_plain_and_entropy_bytes():
             assert ops.entropy_bytes(kind, **kw) == JO.entropy_bytes(kind,
                                                                      **kw)
 
+
+
+@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "encdec"])
+def test_kernel_mode_head_moments_match_the_reference_tail(family):
+    """By design the port's kernel mode takes the fused head for every
+    family, where the reference gives these families its plain operand
+    tail (xi keyed by (key, slot, depth)).  From one decode hidden state
+    of the same prefill in both packages (random frames for encdec), N
+    draws of the port's head (its plain version, Philox keyed by (seed,
+    step)) and of the reference's tail (N keys): the mean H, SE and MI of
+    each slot agree within 4 sigma / sqrt(N), sigma the two draws' pooled
+    standard deviation.  Doubling the head's sigma in one package fails
+    this by far."""
+    import dataclasses
+
+    import jax
+
+    from _torch_parity import encdec_pair, hybrid_pair, moe_pair, ssm_pair
+    from repro.models import registry as JM
+    from repro.models import uncertain_head as JU
+    from repro_torch.models import registry as TM
+    from repro_torch.models import uncertain_head as TU
+
+    pair = {"moe": moe_pair, "ssm": ssm_pair, "hybrid": hybrid_pair,
+            "encdec": encdec_pair}[family]
+    jcfg, jparams, tcfg, tparams = pair()
+    jcfg = dataclasses.replace(jcfg, head_entropy="kernel")
+    tcfg = dataclasses.replace(tcfg, head_entropy="kernel")
+    r = np.random.default_rng(21)
+    toks = r.integers(1, 511, size=(2, 16)).astype(np.int32)
+    frames = r.standard_normal((2, 1024, 128)).astype(np.float32) \
+        if family == "encdec" else None
+    _, jc = JM.prefill(jparams, jcfg, jnp.asarray(toks), 20,
+                       None if frames is None else jnp.asarray(frames))
+    _, tc = TM.prefill(tparams, tcfg, torch.from_numpy(toks), 20,
+                       None if frames is None else torch.from_numpy(frames))
+    jh, _ = JM.module_for(jcfg).decode_hidden(jparams, jcfg,
+                                              jnp.asarray(toks[:, -1]), jc)
+    th, _ = TM.module_for(tcfg).decode_hidden(tparams, tcfg,
+                                              torch.from_numpy(toks[:, -1]),
+                                              tc)
+    assert_close(th, jh, atol=1e-5)
+    N, depth = 64, jnp.asarray([16, 16], jnp.int32)
+    port = [TU.head_outputs(tparams, tcfg, th, torch.tensor([16, 16]),
+                            (5, step)) for step in range(N)]
+    ref = jax.jit(jax.vmap(
+        lambda k: JU.head_outputs(jparams, jcfg, jh, depth, k)))(
+        jax.random.split(jax.random.PRNGKey(5), N))
+    far = {}                       # gap / standard error, where > 4
+    for k in ("H", "SE", "MI"):
+        a = torch.stack([o[k] for o in port]).double().numpy()     # (N, B)
+        b = np.asarray(ref[k], np.float64)
+        assert a.shape == b.shape == (N, 2)
+        se = np.sqrt((a.var(0, ddof=1) + b.var(0, ddof=1)) / N)
+        gap = np.abs(a.mean(0) - b.mean(0))
+        if not (gap <= 4 * se).all():
+            far[k] = np.round(gap / se, 1).tolist()
+    assert not far, far

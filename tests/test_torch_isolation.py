@@ -93,8 +93,7 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--prefix-cache", "on"], ["--spec-decode", "on"],
-    ["--policy", "priority"], ["--escalate-mi", "0.5"], ["--mesh", "1x4"],
-    ["--arch", "phi_3_vision_4_2b"]])
+    ["--policy", "priority"], ["--escalate-mi", "0.5"], ["--mesh", "1x4"]])
 def test_cli_refuses_unported_features(flags):
     from repro_torch.launch.serve import build_parser, serve
     args = build_parser().parse_args(["--device", "cpu", *flags])

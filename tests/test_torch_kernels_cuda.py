@@ -184,6 +184,41 @@ def test_cuda_head_matches_plain_at_seamless_vocab(cuda_device):
         assert not ((got["pred"] != want["pred"]) & clear).any()
 
 
+def test_cuda_head_matches_plain_at_phi3_vision_widths(cuda_device):
+    """phi-3-vision's head, K 3072 and V 32064 = 250 x 128 + 64: the last
+    tile is ragged.  Row 0's argmax is planted in the last column, row
+    2's in the last tile's first column: both kernels find them there,
+    with p_max near 1; H/SE/MI/p_max within 2e-4 of the plain version,
+    pred equal wherever p-bar's top-2 gap is resolvable, with the xi
+    operand and with the Philox stream; one launch a call."""
+    V = 32064
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(26, 4, 3072, V, 10,
+                                                       sigma=0.05))
+    x = x.to(torch.bfloat16)
+    x32 = x.float()
+    for row, col in ((0, V - 1), (2, V - 64)):
+        mu[:, col] = x32[row] / x32[row].norm()      # a logit of ~55
+    for kw in ({"xi": xi}, {"seed": 4, "step": 9}):
+        launches.reset()
+        got = UH.uncertainty_head_cuda(x, mu, sg, num_samples=10, **kw)
+        assert launches.snapshot()["uncertainty_head"] == 1
+        want = UH.uncertainty_head_plain(x, mu, sg, num_samples=10, **kw)
+        for k in KEYS:
+            assert torch.isfinite(got[k]).all(), k
+            assert_close(got[k], want[k].cpu(), atol=2e-4, msg=k)
+        assert got["pred"][[0, 2]].tolist() == [V - 1, V - 64]
+        assert want["pred"][[0, 2]].tolist() == [V - 1, V - 64]
+        assert (got["p_max"][[0, 2]] > 0.9).all()
+        full = kw.get("xi")
+        if full is None:
+            full = rng.head_normal(4, 9, 10, 4,
+                                   torch.arange(V, device=cuda_device))
+        pbar = torch.softmax(ref.lrt_matmul(x, mu, sg, full), -1).mean(0)
+        top = pbar.topk(2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1]) > 1e-6
+        assert not ((got["pred"] != want["pred"]) & clear).any()
+
+
 def _bitwise(a: dict, b: dict) -> bool:
     return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
                for k in a)
@@ -449,6 +484,38 @@ def test_cuda_decode_mma_matches_plain_at_seamless_mha(cuda_device):
         assert_close(out.float(), want.float().cpu(), atol=2e-2,
                      equal_nan=True)
         assert torch.isnan(out[3]).all() and not torch.isnan(out[:3]).any()
+
+
+def test_cuda_decode_mma_matches_plain_at_phi3_vision_mha(cuda_device):
+    """phi-3-vision's attention (H = Hkv = 32, D 96: six 16-wide k-steps,
+    a 192-byte row; ratio 1, so 15 of the 16 mma rows are padding): the
+    decode route is the tensor-core kernel, paged_decode_mma<96> alone in
+    one launch by name, and it agrees with the plain version (atol 2e-2)
+    at the served depths over a 43-block table (2 splits), with 4 tiles a
+    split (11 splits) and at 2 slots (3 splits), with NaN exactly on the
+    empty slot."""
+    assert PA.decode_route(torch.bfloat16, 96) == "mma"
+    (names,) = _decode_kernels(("bfloat16", 96, None, 32, 32))
+    assert len(names) == 1 and "paged_decode_mma<96>" in names[0], names
+    assert PA.decode_tiles(4, 32, 43, 16) == 22
+    assert PA.decode_tiles(2, 32, 43, 16) == 15
+    for lens, tiles in (([672, 656, 641, 0], None), ([672, 656, 641, 0], 4),
+                        ([672, 300], None)):
+        q, k, v, table, d = (t.to(cuda_device) for t in _decode_case(
+            len(lens), 32, 32, 96, 16, 43, lens))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        launches.reset()
+        out = PA.paged_decode_attention_cuda(q, k, v, table, d, tiles=tiles)
+        assert launches.snapshot()["paged_decode_attention"] == 1
+        want = PA.paged_decode_attention_plain(q, k, v, table, d,
+                                               tiles=tiles)
+        torch.cuda.synchronize()
+        assert_close(out.float(), want.float().cpu(), atol=2e-2,
+                     equal_nan=True)
+        live = [b for b, n in enumerate(lens) if n]
+        assert not torch.isnan(out[live]).any()
+        assert all(torch.isnan(out[b]).all() for b, n in enumerate(lens)
+                   if not n)
 
 
 @pytest.mark.parametrize("S,offset,span", [(64, 0, 256), (64, 192, 256),
@@ -1225,8 +1292,9 @@ def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4,
     """A reduced ``arch`` (qwen2 or deepseek-moe: 2 layers, D 32, V 512;
     mamba2: 4 layers, d 128, N 16, V 512; zamba2: mamba2's blocks and 2
     applications of the shared block, 4 MHA heads of D 32; seamless: 2
-    encoder and 2 decoder layers, 4 MHA heads of D 32) runner on the
-    card: 3 slots,
+    encoder and 2 decoder layers, 4 MHA heads of D 32; phi-3-vision: 2
+    layers, 4 MHA heads of D 32, 8 prefix embeds) runner on the card: 3
+    slots,
     paged KV (the dense recurrent cache for mamba2, as the engine falls
     back), the chunk captured as a CUDA graph."""
     import dataclasses
@@ -1314,10 +1382,30 @@ def test_cuda_encdec_captured_chunk_equals_the_eager_chunk(cuda_device):
     assert runner.cache["ck"].abs().amax(dim=(0, 2, 3, 4)).gt(0).all()
 
 
-def _check_replays_against_eager(runner, cuda_device, frames=False):
+def test_cuda_vlm_captured_chunk_equals_the_eager_chunk(cuda_device):
+    """The vlm family's chunk (the dense transformer over a paged pool
+    whose first 8 rows a slot hold the prefix embeds' K/V) as three
+    replays with slots admitted between them through batch prefill with
+    random prefix embeds: each replay bit for bit the eager chunk on a
+    copy of its carry, the pools included; the prefix rows are not
+    zero."""
+    runner = _graph_runner(cuda_device, arch="phi_3_vision_4_2b")
+    assert runner.kv_layout == "paged"
+    assert runner.captured == {"paged_decode_attention": 2 * 4,
+                               "uncertainty_head": 4}
+    _check_replays_against_eager(runner, cuda_device, prefix=True)
+    table = runner.cache["block_table"][:, :2].long()     # rows 0-7
+    assert runner.cache["k"][:, table].abs().amax(dim=(0, 3, 4, 5)) \
+        .gt(0).all()
+
+
+def _check_replays_against_eager(runner, cuda_device, frames=False,
+                                 prefix=False):
     """Replays against the eager chunk; ``frames``: admit each slot
     through chunked prefill (8-token chunks, the first with random encoder
-    frames) and hold the cross strips and pools too."""
+    frames) and hold the cross strips and pools too; ``prefix``: admit
+    each slot through batch prefill with random prefix embeds and hold
+    the pools too."""
     from repro_torch.launch import steps as S
 
     assert runner.graph is not None
@@ -1344,8 +1432,11 @@ def _check_replays_against_eager(runner, cuda_device, frames=False):
                         cache, slot, toks, off, off + real, span,
                         frames=fr.to(cuda_device) if off == 0 else None)
             else:
+                emb = torch.from_numpy(r.standard_normal(
+                    (1, runner.cfg.num_prefix_embeds, runner.cfg.d_model))
+                    .astype(np.float32)).to(cuda_device) if prefix else None
                 runner.prefill(cache, slot, prompt,
-                               table[slot] if paged else None)
+                               table[slot] if paged else None, emb)
             tok[slot] = int(prompt[-1])
             active[slot] = True
             copy = (tok.clone(), {k: v.clone() for k, v in cache.items()},
@@ -1368,6 +1459,7 @@ def _check_replays_against_eager(runner, cuda_device, frames=False):
             if frames:
                 assert all(torch.equal(cache[k], want[1][k])
                            for k in ("ck", "cv"))
+            if frames or prefix:
                 assert all(torch.equal(cache[k][:, :-1], want[1][k][:, :-1])
                            for k in ("k", "v"))
             assert all(torch.equal(flags[k], want[2][k]) for k in flags)

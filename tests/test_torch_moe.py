@@ -313,8 +313,12 @@ def test_registry_gates_for_the_moe_family():
     assert not TM.supports_prefix_cache(tcfg)
     assert TM.supports_prefix_cache(dataclasses.replace(tcfg,
                                                         family="dense"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TM.module_for(dataclasses.replace(tcfg, family="vlm"))
+    with pytest.raises(ValueError, match="unknown model family"):
+        TM.module_for(dataclasses.replace(tcfg, family="retnet"))
+    from repro_torch.models import encdec, transformer
+    assert TM.module_for(dataclasses.replace(tcfg, family="vlm")) \
+        is transformer
+    assert TM.module_for(dataclasses.replace(tcfg, family="audio")) is encdec
 
 
 @pytest.mark.parametrize("flags", [
