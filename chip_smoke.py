@@ -18,7 +18,10 @@ Phases (any failure exits non-zero before the result line):
      served case is also timed with the L2 cold).  The photonic convs
      also print their conversion and MUFU counts from the SASS, and one
      Philox call's instructions (a probe built beside the kernels), which
-     ``PHILOX_INT_OPS`` in every seeded row's bound is taken from.  The
+     ``PHILOX_INT_OPS`` in every seeded row's bound is taken from.  Each
+     head time is printed beside its stream plan (``head_plan``) and a
+     yardstick that is not its library time: two cuBLAS f32 GEMVs that
+     read the same mu and sigma bytes.  The
      three serving kernels are also held and timed at deepseek-moe-16b's
      shapes (MHA at H = Hkv = 16; the head at K 2048, V 102400);
      zamba2-7b's come with phase 11, seamless-m4t-medium's with 12,
@@ -314,6 +317,25 @@ def head_case(dev, seed, K=1536, V=151936):
     return mu, sigma, g
 
 
+def gemv_ms(x, mu, sigma) -> float:
+    """A yardstick for the head's stream, not its library time: two cuBLAS
+    f32 GEMVs on the same bytes, ``x32 @ mu`` and ``(x32*x32) @ sigma^2``,
+    sigma^2 formed beforehand (not timed).  What the card's own GEMV
+    reaches reading mu and sigma once."""
+    x32 = x.float()
+    xx, s2 = x32 * x32, sigma * sigma
+    return device_ms(lambda: (x32 @ mu, xx @ s2), 10)
+
+
+def plan_text(M: int, K: int, V: int, mu, sigma) -> str:
+    UH = kernel_module("uncertainty_head")
+    p = UH.head_plan(M, K, V, UH._alignment(mu, sigma))
+    return (f"plan: rows {p.rows} x {p.groups}, {p.tile} columns a block, "
+            f"{p.splits} K slices of {p.k_slice}, route {p.route}, "
+            f"{p.blocks} blocks, busiest SM {p.balance:.3f}x the mean, "
+            f"scratch {p.scratch_bytes / 1e6:.2f} MB")
+
+
 def check_head(dev) -> dict:
     from repro_torch.kernels import rng
     UH = kernel_module("uncertainty_head")
@@ -359,9 +381,22 @@ def check_head(dev) -> dict:
             rows = {"ms": device_ms(run, 10), "cold_ms": cold_ms(run),
                     "plain_ms": time_ms(plain, 1, 0),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            g_ms = gemv_ms(x, mu, sigma)
             print(f"  head M=4 timed: {rows['ms']:.4f} ms (L2 cold "
-                  f"{rows['cold_ms']:.4f}), bound {b_ms:.4f} ({b_by})",
-                  flush=True)
+                  f"{rows['cold_ms']:.4f}), bound {b_ms:.4f} ({b_by}, "
+                  f"{b_ms / rows['ms']:.0%} of it); the GEMV pair on the "
+                  f"same bytes {g_ms:.4f} ms ({b_ms / g_ms:.0%}); "
+                  f"{plan_text(M, K, V, mu, sigma)}", flush=True)
+        else:
+            run16 = lambda: UH.uncertainty_head_cuda(  # noqa: E731
+                x, mu, sigma, num_samples=S, seed=7, step=3)
+            ms16 = device_ms(run16, 10)
+            b16, _ = bound(M * K * 2 + 2 * K * V * 4 + 5 * M * 4,
+                           4.0 * M * K * V, F32_FLOPS)
+            print(f"  head M={M} timed: {ms16:.4f} ms (L2 cold "
+                  f"{cold_ms(run16):.4f}), bound {b16:.4f} "
+                  f"({b16 / ms16:.0%} of it); "
+                  f"{plan_text(M, K, V, mu, sigma)}", flush=True)
     rows["max_abs_err"] = worst
     return rows
 
@@ -820,6 +855,10 @@ def check_shapes(dev, model: str, H: int, Hkv: int, D: int, K: int, V: int,
         "max_abs_err": worst, "ms": device_ms(run, 10), "cold_ms": cold_ms(run),
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}
+    g_ms = gemv_ms(x, mu, sigma)
+    print(f"  uncertainty_head at {model}'s widths: the GEMV pair on the "
+          f"same bytes {g_ms:.4f} ms ({b_ms / g_ms:.0%} of the bound); "
+          f"{plan_text(M, K, V, mu, sigma)}", flush=True)
     for name, t in out.items():
         print(f"  {name} at {model}'s shapes: ok (max |err| "
               f"{t['max_abs_err']:.3g}), {t['ms']:.4f} ms"
@@ -2057,7 +2096,12 @@ def profile_serve(kind: str = "serve") -> str:
     _, D, apps = SERVED[kind]
     prefill = {k: v for k, v in t["by_name"].items() if "paged_prefill_" in k}
     decode = {k: v for k, v in t["by_name"].items() if "paged_decode_" in k}
-    head = {k: v for k, v in t["by_name"].items() if "head_pass1" in k}
+    # the head's five launches a call; its stream (mu/sigma read once) is
+    # the one counted
+    head = {k: v for k, v in t["by_name"].items() if "head_stream" in k}
+    heads = {k: v for k, v in t["by_name"].items()
+             if any(f"head_{n}" in k for n in
+                    ("stream", "stats", "merge", "pass2", "final"))}
     if kind == "ssm_serve":
         if prefill or decode or sum(v[1] for v in head.values()) != steps:
             fail(f"profile {kind}: attention kernels ran, or the head did "
@@ -2102,7 +2146,7 @@ def profile_serve(kind: str = "serve") -> str:
             f"  top kernels: {top(t['by_name'], 8)}\n"
             f"  prefill kernels: {top(prefill, 4) or 'none'}\n"
             f"  decode kernels: {top(decode, 4) or 'none'}\n"
-            f"  head kernels: {top(head, 4)}")
+            f"  head kernels: {top(heads, 5)}")
 
 
 def compare_plain(kernel_run: dict, ref_run: dict) -> str:
@@ -2414,11 +2458,14 @@ def check_ssm_head(dev) -> dict:
     row = {"max_abs_err": worst, "ms": device_ms(run, 10),
            "cold_ms": cold_ms(run), "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "library_ms": None}
+    g_ms = gemv_ms(x, mu, sigma)
     print(f"  uncertainty_head at mamba2-370m's widths (K {SSM_K}, V "
           f"{SSM_V}, ragged last tile): ok (max |err| {worst:.3g}), "
           f"{row['ms']:.4f} ms (L2 cold {row['cold_ms']:.4f}), bound "
           f"{b_ms:.6f} ms ({b_by}, {b_ms / row['ms']:.0%} of it), plain "
-          f"{plain_ms:.3f} ms, library none", flush=True)
+          f"{plain_ms:.3f} ms, library none; the GEMV pair on the same "
+          f"bytes {g_ms:.4f} ms ({b_ms / g_ms:.0%}); "
+          f"{plan_text(M, SSM_K, SSM_V, mu, sigma)}", flush=True)
     return row
 
 

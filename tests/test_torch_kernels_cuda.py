@@ -8,6 +8,7 @@ which leaves the conftest out):
     PYTHONPATH=src python tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
 import importlib
 import sys
 
@@ -217,6 +218,128 @@ def test_cuda_head_matches_plain_at_phi3_vision_widths(cuda_device):
         top = pbar.topk(2, dim=-1).values
         clear = (top[:, 0] - top[:, 1]) > 1e-6
         assert not ((got["pred"] != want["pred"]) & clear).any()
+
+
+def _sliced(M, K, V, k_slice=None):
+    """head_plan of the shape, its K slices forced to ``k_slice`` rows."""
+    plan = UH.head_plan(M, K, V)
+    return plan if k_slice is None else dataclasses.replace(plan,
+                                                            k_slice=k_slice)
+
+
+@pytest.mark.parametrize("M", [1, 4, 5, 16, 20])
+def test_cuda_head_row_templates_match_plain(cuda_device, M):
+    """Each row template (4, 8 and 16 rows; M 20 takes two groups of 16)
+    with K 300 cut into 64-row slices (the last of 44 rows), fused head in
+    both modes and two-pass head, against the plain versions under the
+    same plan."""
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(40 + M, M, 300, 1000,
+                                                       10))
+    plan = _sliced(M, 300, 1000, 64)
+    assert plan.rows == {1: 4, 4: 4, 5: 8, 16: 16, 20: 16}[M]
+    assert plan.splits == 5
+    for kw in ({"xi": xi}, {"seed": 4, "step": 9}):
+        got = UH.uncertainty_head_cuda(x, mu, sg, num_samples=10, plan=plan,
+                                       **kw)
+        want = UH.uncertainty_head_plain(x, mu, sg, num_samples=10,
+                                         plan=plan, **kw)
+        for k in KEYS:
+            assert_close(got[k], want[k].cpu(), atol=2e-5, msg=k)
+        assert torch.equal(got["pred"].cpu(), want["pred"].cpu())
+    got = UH.uncertainty_head_two_pass_cuda(x, mu, sg, xi, plan=plan)
+    want = UH.uncertainty_head_two_pass_plain(x, mu, sg, xi, plan=plan)
+    for k in KEYS:
+        assert_close(got[k], want[k].cpu(), atol=2e-5, msg=k)
+    assert torch.equal(got["pred"].cpu(), want["pred"].cpu())
+
+
+@pytest.mark.parametrize("V,route", [(1000, "bulk"), (1002, "async8"),
+                                     (1001, "async4"), (77, "async4"),
+                                     (130, "async8")])
+def test_cuda_head_copy_routes_match_plain(cuda_device, V, route):
+    """Each copy route by V's alignment (TMA bulk rows, 8- and 4-byte
+    cp.async), a ragged last tile and a V below one tile, K 200 in
+    three 72-row slices (the last of 56), in both modes."""
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(V, 4, 200, V, 10))
+    plan = _sliced(4, 200, V, 72)
+    assert plan.route == route
+    for kw in ({"xi": xi}, {"seed": 4, "step": 9}):
+        got = UH.uncertainty_head_cuda(x, mu, sg, num_samples=10, plan=plan,
+                                       **kw)
+        want = UH.uncertainty_head_plain(x, mu, sg, num_samples=10,
+                                         plan=plan, **kw)
+        for k in KEYS:
+            assert_close(got[k], want[k].cpu(), atol=2e-5, msg=k)
+        assert torch.equal(got["pred"].cpu(), want["pred"].cpu())
+
+
+def test_cuda_head_route_follows_the_operands_alignment(cuda_device):
+    """mu/sigma that start 8 bytes past a 16-byte boundary (V % 4 == 0)
+    take the 8-byte route and match the plain version; a bulk plan
+    forced on them is refused, never replaced."""
+    K, V = 64, 1000
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(9, 4, K, V, 10))
+    mu_v, sg_v = (torch.empty(K * V + 2, device=cuda_device)[2:].view(K, V)
+                  .copy_(t) for t in (mu, sg))
+    assert mu_v.data_ptr() % 16 == 8
+    got = UH.uncertainty_head_cuda(x, mu_v, sg_v, num_samples=10, xi=xi)
+    want = UH.uncertainty_head_plain(x, mu, sg, num_samples=10, xi=xi)
+    for k in KEYS:
+        assert_close(got[k], want[k].cpu(), atol=2e-5, msg=k)
+    assert UH.head_plan(4, K, V, UH._alignment(mu_v, sg_v)).route == "async8"
+    with pytest.raises(RuntimeError):
+        UH.uncertainty_head_cuda(x, mu_v, sg_v, num_samples=10, xi=xi,
+                                 plan=UH.head_plan(4, K, V))
+
+
+def test_cuda_head_matches_plain_at_seamless_vocab_split_k(cuda_device):
+    """V 256206 (the 8-byte cp.async route: every odd row of mu/sigma is
+    8-byte aligned only) with K 1000 in four slices of 256 (the last of
+    232): H/SE/MI/p_max within 2e-4, pred equal wherever p-bar's top-2
+    gap is resolvable, the planted argmax found in the ragged last
+    tile."""
+    V = 256206
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(27, 4, 1000, V, 10,
+                                                       sigma=0.05))
+    x = x.to(torch.bfloat16)
+    x32 = x.float()
+    mu[:, V - 3] = x32[1] / x32[1].norm()
+    plan = _sliced(4, 1000, V, 256)
+    assert plan.route == "async8" and plan.splits == 4
+    for kw in ({"xi": xi}, {"seed": 4, "step": 9}):
+        got = UH.uncertainty_head_cuda(x, mu, sg, num_samples=10, plan=plan,
+                                       **kw)
+        want = UH.uncertainty_head_plain(x, mu, sg, num_samples=10,
+                                         plan=plan, **kw)
+        for k in KEYS:
+            assert torch.isfinite(got[k]).all(), k
+            assert_close(got[k], want[k].cpu(), atol=2e-4, msg=k)
+        assert int(got["pred"][1]) == int(want["pred"][1]) == V - 3
+        full = kw.get("xi")
+        if full is None:
+            full = rng.head_normal(4, 9, 10, 4,
+                                   torch.arange(V, device=cuda_device))
+        pbar = torch.softmax(ref.lrt_matmul(x, mu, sg, full), -1).mean(0)
+        top = pbar.topk(2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1]) > 1e-6
+        assert not ((got["pred"] != want["pred"]) & clear).any()
+
+
+@pytest.mark.parametrize("M", [4, 16])
+def test_cuda_two_pass_head_matches_plain_split_k(cuda_device, M):
+    """The two-pass head at M 4 and 16 with K 520 cut into 128-row slices
+    (the last of 8) and V 20000: within 2e-5 of its plain version, the
+    same bits twice."""
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(60 + M, M, 520, 20000,
+                                                       10, sigma=0.1))
+    plan = _sliced(M, 520, 20000, 128)
+    got = UH.uncertainty_head_two_pass_cuda(x, mu, sg, xi, plan=plan)
+    want = UH.uncertainty_head_two_pass_plain(x, mu, sg, xi, plan=plan)
+    for k in KEYS:
+        assert_close(got[k], want[k].cpu(), atol=2e-5, msg=k)
+    assert torch.equal(got["pred"].cpu(), want["pred"].cpu())
+    again = UH.uncertainty_head_two_pass_cuda(x, mu, sg, xi, plan=plan)
+    assert all(torch.equal(got[k], again[k]) for k in got)
 
 
 def _bitwise(a: dict, b: dict) -> bool:

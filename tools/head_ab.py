@@ -1,5 +1,5 @@
-"""Time the fused uncertainty head at the serving shape, in turns across
-source trees, on one GPU.
+"""Time the fused uncertainty head at the six served widths, in turns
+across source trees, on one GPU.
 
     python3 tools/head_ab.py SRC [SRC ...]
 
@@ -8,10 +8,14 @@ checkout's, or an unpacked earlier commit's, so that two versions of the
 kernel are compared inside one run on one card).  Each runs in its own
 process in the order given (give parent, change, change, parent), builds
 its own kernels, and prints one line: the head's device time per call at
-M 4, K 1536, V 151936, S 10 (qwen2-1.5B's decode head) by CUDA-graph
-replay with the L2 warm and cold, with the step as an int and, where the
-tree's head takes one, as a one-element device tensor.  The first line
-is the card's name and power limit.
+M 4, S 10 and bf16 x, at each served family's head widths (K, V: qwen2
+1536 x 151936, deepseek 2048 x 102400, mamba2 1024 x 50280, zamba2
+3584 x 32000, seamless 1024 x 256206, phi-3-vision 3072 x 32064), by
+CUDA-graph replay with the L2 warm and cold, with the step as an int
+and, where the tree's head takes one, as a one-element device tensor,
+and each of the head's kernels' device time a call from a torch.profiler
+trace of five eager calls.  The first line is the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import inspect
 import json
 import math
+import re
 import subprocess
 import sys
 
@@ -54,15 +59,36 @@ def cold_ms(fn) -> float:
         - device_ms(lambda: flush.fill_(1.0))
 
 
-def one(src: str) -> dict:
-    sys.path.insert(0, src)
-    import importlib
+WIDTHS = {"qwen2": (1536, 151936), "deepseek": (2048, 102400),
+          "mamba2": (1024, 50280), "zamba2": (3584, 32000),
+          "seamless": (1024, 256206), "phi3v": (3072, 32064)}
 
+
+def pieces(fn, calls: int = 5) -> dict:
+    """Device ms a call of each kernel ``fn`` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = re.search(r"(\w+)(?:<[^(]*>)?\(", e.key)
+            out[name.group(1) if name else e.key[:40]] = round(
+                e.device_time_total / calls / 1e3, 4)
+    return out
+
+
+def width(UH, K: int, V: int) -> dict:
     import torch
 
-    UH = importlib.import_module("repro_torch.kernels.uncertainty_head")
     dev = torch.device("cuda")
-    M, K, V, S = 4, 1536, 151936, 10
+    M, S = 4, 10
     g = torch.Generator(device=dev).manual_seed(1)
     mu = torch.randn((K, V), generator=g, device=dev) / math.sqrt(K)
     sigma = 0.01 + 0.05 * torch.rand((K, V), generator=g, device=dev)
@@ -72,8 +98,8 @@ def one(src: str) -> dict:
         return UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, seed=7,
                                         step=3)
 
-    out = {"src": src, "int_ms": device_ms(run_int),
-           "int_cold_ms": cold_ms(run_int)}
+    out = {"int_ms": device_ms(run_int), "int_cold_ms": cold_ms(run_int),
+           "kernels_ms": pieces(run_int)}
     if "step_offset" in inspect.signature(UH.uncertainty_head_cuda).parameters:
         step = torch.full((1,), 1, dtype=torch.int32, device=dev)
 
@@ -84,6 +110,15 @@ def one(src: str) -> dict:
         out["tensor_ms"] = device_ms(run_tensor)
         out["tensor_cold_ms"] = cold_ms(run_tensor)
     return out
+
+
+def one(src: str) -> dict:
+    sys.path.insert(0, src)
+    import importlib
+
+    UH = importlib.import_module("repro_torch.kernels.uncertainty_head")
+    return {"src": src, **{name: width(UH, K, V)
+                           for name, (K, V) in WIDTHS.items()}}
 
 
 def main() -> None:
