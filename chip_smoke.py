@@ -15,7 +15,9 @@ Phases (any failure exits non-zero before the result line):
      attention, the LRT GEMMs and the weight-space GEMMs are each
      checked, the route of every case asserted, with route sweeps for the
      two GEMM families and a split sweep for decode attention (whose
-     served case is also timed with the L2 cold).  The photonic convs
+     served case is also timed with the L2 cold; prefill also at a prefix
+     hit's mid-block offsets, 200 and 264, and a hit's rows against the
+     cold walk's bit for bit).  The photonic convs
      also print their conversion and MUFU counts from the SASS, and one
      Philox call's instructions (a probe built beside the kernels), which
      ``PHILOX_INT_OPS`` in every seeded row's bound is taken from.  Each
@@ -131,10 +133,21 @@ Phases (any failure exits non-zero before the result line):
      the kernel read against the gather read; phase 5's profile of a
      short vlm serve in a fresh process, which must name
      paged_decode_mma<96> and the fused head.
- 14. one JSON line of per-kernel numbers (eleven kernels; the serving
-     kernels' launches are phase 4's first run plus phases 9's, 11's, 12's
-     and 13's, and phase 10's for the head), the card's nvidia-smi line,
-     then the result line.
+ 14. prefix cache and speculative decoding: qwen2-1.5B at full width on
+     phase 4's trace with a 200-token shared prefix through the kernel
+     path, six engines on one copy of the parameters (``spec_phase``):
+     the prefix cache in kernel entropy (4 hits, 4 misses, 800 of 2,048
+     prompt tokens saved, 4 copy-on-write copies, the pool balanced, the
+     prefill kernel launched at the hits' offset 200), beside the cache
+     off; the operand streams with the cache on and off bit for bit;
+     speculative decoding over the cache, k 4 forced and adaptive k 2-6,
+     bit for bit against spec off (rounds, acceptance, rollbacks,
+     full-model calls, graph capture time, ms a step and tok/s printed,
+     none claimed); every replayed spec round against the eager round.
+ 15. one JSON line of per-kernel numbers (eleven kernels; the serving
+     kernels' launches are phase 4's first run plus phases 9's, 11's,
+     12's, 13's and 14's, and phase 10's for the head), the card's
+     nvidia-smi line, then the result line.
 
 Imports nothing of the JAX package.
 """
@@ -603,11 +616,15 @@ def check_decode(dev) -> dict:
 
 def check_prefill(dev) -> dict:
     """The prefill kernel (bf16, D 128: the tensor-core kernel) at the four
-    chunk offsets of the serve trace's 256-token prompts and at a 37-token
-    last chunk, against its plain version and the gather + flash
-    reference; offsets 0 and 192 timed beside their bounds and SDPA.  The
-    SIMT kernel (f32, and bf16 at D 72) is held against the plain version
-    at the served chunk shape."""
+    chunk offsets of the serve trace's 256-token prompts, at a 37-token
+    last chunk, and at the mid-block offsets where a prefix hit's suffix
+    walk starts (200 of span 256, the served 200-token shared prefix; 264
+    of a 320-token prompt), against its plain version and the gather +
+    flash reference; offsets 0, 192, 200 and 264 timed beside their
+    bounds and SDPA.  A row of a chunk at offset 200 must equal the same
+    row of the chunk at offset 192 bit for bit (the hit's suffix against
+    the cold walk).  The SIMT kernel (f32, and bf16 at D 72) is held
+    against the plain version at the served chunk shape."""
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import layers as L
 
@@ -617,17 +634,20 @@ def check_prefill(dev) -> dict:
     k_pool = _pool(dev, g, NB, BS, Hkv, D)
     v_pool = _pool(dev, g, NB, BS, Hkv, D)
     perm = torch.randperm(NB, generator=torch.Generator().manual_seed(5))
-    full_row = perm[:256 // BS].to(torch.int32).reshape(1, -1).to(dev)
+    long_row = perm[:320 // BS].to(torch.int32).reshape(1, -1).to(dev)
+    full_row = long_row[:, :256 // BS].contiguous()
     if PA.prefill_route(torch.bfloat16, D) != "mma":
         fail("prefill attention: bf16 at D 128 must take the tensor-core "
              "kernel")
     tol = 2e-2                       # one bf16 ulp of O(1) outputs
     worst, timed = 0.0, {}
-    # (S, offset, span): a 256-token prompt's four 64-token chunks, and the
-    # 37-token last chunk of a 229-token prompt (rows cross replicas)
+    # (S, offset, span): a 256-token prompt's four 64-token chunks, the
+    # 37-token last chunk of a 229-token prompt (rows cross replicas), and
+    # the first suffix chunks after mid-block prefix hits
     for S, offset, span in [(64, 0, 256), (64, 64, 256), (64, 128, 256),
-                            (64, 192, 256), (37, 192, 229)]:
-        row = full_row[:, :-(-span // BS)]
+                            (64, 192, 256), (37, 192, 229), (64, 200, 256),
+                            (64, 264, 320)]:
+        row = long_row[:, :-(-span // BS)].contiguous()
         q = torch.randn((1, S, H, D), generator=g,
                         device=dev).to(torch.bfloat16)
         for kc in (1024, 64):
@@ -648,7 +668,7 @@ def check_prefill(dev) -> dict:
                      f"kv_chunk={kc}: max |err| {e:.3g} > {tol} or NaN")
             print(f"  prefill attention S={S} offset={offset} span={span} "
                   f"kv_chunk={kc}: ok (max |err| {e:.3g})", flush=True)
-        if S != 64 or offset not in (0, 192):
+        if S != 64 or offset not in (0, 192, 200, 264):
             continue
         # the work this chunk needs: Q in, out, and K and V of the keys
         # up to the last query position, each moved once
@@ -676,7 +696,25 @@ def check_prefill(dev) -> dict:
             "plain_ms": time_ms(lambda: PA.paged_prefill_attention_plain(
                 q, k_pool, v_pool, row, offset, span, 1024), 5),
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": device_ms(lib, 50)}
+            "library_ms": device_ms(lib, 50), "span": span}
+    # a prefix hit's suffix chunk against the cold walk's chunk: the rows
+    # at positions 200-255 bit for bit (the offset-200 rows' blocks walk
+    # the same four 64-key tiles, the last one further masked)
+    qa = torch.randn((1, 64, H, D), generator=g,
+                     device=dev).to(torch.bfloat16)
+    qb = torch.cat([qa[:, 8:], torch.randn((1, 8, H, D), generator=g,
+                                           device=dev).to(torch.bfloat16)],
+                   dim=1)
+    oa = PA.paged_prefill_attention_cuda(qa, k_pool, v_pool, full_row, 192,
+                                         256, 1024)
+    ob = PA.paged_prefill_attention_cuda(qb, k_pool, v_pool, full_row, 200,
+                                         256, 1024)
+    if not torch.equal(oa[:, 8:].view(torch.int16),
+                       ob[:, :56].view(torch.int16)):
+        fail("prefill attention: rows at positions 200-255 differ between "
+             "the chunk at offset 192 and the chunk at offset 200")
+    print("  prefill attention offset 200 vs 192: rows 200-255 bit for bit",
+          flush=True)
     # the SIMT kernel, which f32 operands and bf16 head dims that are not a
     # multiple of 16 take: f32 at the served chunk shape, bf16 at D 72
     for dtype, Dx, tol_x in ((torch.float32, D, 2e-5),
@@ -700,7 +738,8 @@ def check_prefill(dev) -> dict:
                   f"offset=192 span=256 kv_chunk={kc}: ok (max |err| "
                   f"{e:.3g})", flush=True)
     for offset, t in timed.items():
-        print(f"  prefill attention timed, S 64 offset {offset} span 256: "
+        print(f"  prefill attention timed, S 64 offset {offset} span "
+              f"{t.pop('span')}: "
               f"{t['ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
               f"({t['bound_by']}), SDPA {t['library_ms']:.4f} ms, plain "
               f"{t['plain_ms']:.3f} ms", flush=True)
@@ -3059,6 +3098,272 @@ def vlm_prefix_check(engine) -> str:
 
 
 # --------------------------------------------------------------------------
+# phase 14: the prefix cache and speculative decoding (qwen2-1.5B)
+# --------------------------------------------------------------------------
+
+SHARED = ["--shared-prefix", "200"]
+PREFIX_ON = ["--prefix-cache", "on"]
+SPEC_FORCED = ["--spec-decode", "on", "--spec-k", "4", "--spec-draft-s", "1",
+               "--spec-mi-threshold", "inf"]
+SPEC_ADAPTIVE = SPEC_FORCED + ["--spec-k-min", "2", "--spec-k-max", "6"]
+# operand noise keys the slot, and speculation moves finish times: a hit
+# of the second wave (one prefill chunk) can then finish before a slot of
+# the first and change where the last request lands.  The spec runs pin
+# the admission schedule: the second wave arrives once the first has
+# drained (the idle engine skips ahead to it), four admissions at once
+PINNED = ["--arrivals", ",".join(["0"] * 4 + ["1000000"] * 4)]
+STREAMS = ("slot", "tokens", "H", "SE", "MI", "p_max", "epistemic_flags",
+           "aleatoric_flags")
+
+
+def phase_serve(args, built, launches, counts: dict) -> tuple[dict, int]:
+    """One serve of ``args``' trace by the engine ``built``, the launch
+    counts zeroed just before it and read just after (added to
+    ``counts``): one decode launch a layer a decode step (a chunk's
+    steps, or a speculative round's k draft steps), one prefill launch a
+    layer a chunk, one head a step in kernel entropy and none in operand
+    entropy (its head is plain PyTorch); every request finished with 32
+    finite tokens.  Returns the run and its decode steps."""
+    from repro_torch.launch.serve import serve
+
+    engine, cfg = built
+    runner = engine.runner
+    depths = []
+    real = runner.spec_round
+
+    def counted(k, lens0):
+        depths.append(k)
+        return real(k, lens0)
+
+    runner.spec_round = counted
+    launches.reset()
+    torch.cuda.synchronize()
+    try:
+        r = serve(args, built)
+    finally:
+        del runner.spec_round
+    got = launches.snapshot()
+    steps = r["chunks_run"] * args.chunk + sum(depths)
+    layers = cfg.num_layers
+    want = {"paged_decode_attention": layers * steps,
+            "paged_prefill_attention": layers * r["prefill_chunks"],
+            "uncertainty_head": steps if args.entropy == "kernel" else 0}
+    for name, n in want.items():
+        if got[name] != n or steps == 0:
+            fail(f"prefix/spec serve: {name} launched {got[name]} times, "
+                 f"expected {n}")
+    for name, n in got.items():
+        counts[name] += n
+    for req in r["requests"]:
+        u = torch.tensor([req.H, req.SE, req.MI])
+        if req.state != "finished" or len(req.tokens) != args.gen_len \
+                or not torch.isfinite(u).all() or (u[2] < 0).any():
+            fail(f"prefix/spec serve: request {req.rid} unfinished or "
+                 "non-finite")
+    return r, steps
+
+
+def same_streams(label: str, a: dict, b: dict) -> None:
+    """Every request's slot, tokens, H, SE, MI, p_max and flag counts bit
+    for bit (the floats compared as stored)."""
+    for x, y in zip(a["requests"], b["requests"]):
+        for name in STREAMS:
+            if getattr(x, name) != getattr(y, name):
+                fail(f"{label}: request {x.rid} differs in {name} "
+                     f"(slots {x.slot}, {y.slot})")
+
+
+def spec_graph_vs_eager(args, built) -> str:
+    """Every speculative round of a serve that replays a captured graph,
+    against the same round run eagerly (``runner.spec_fns``) on a copy of
+    the carry it started from: proposals, tokens, H, SE, MI, p_max and
+    flags bit for bit, and the carry after (token, depths, the pools
+    without the sink block)."""
+    from repro_torch.launch.serve import make_requests
+
+    engine, cfg = built
+    runner = engine.runner
+    real = runner.spec_round
+    checked = [0]
+
+    def bits(t):
+        return t.contiguous().view(torch.int32) if t.element_size() == 4 \
+            else t.contiguous().view(torch.int16)
+
+    def compare(k, lens0):
+        if k not in runner.spec_graphs:
+            return real(k, lens0)
+        tok = runner.tok.clone()
+        cache = {n: t.clone() for n, t in runner.cache.items()}
+        ys = real(k, lens0).clone()
+        hid = torch.empty_like(runner.spec_hid)
+        eys = torch.empty_like(runner.spec_ys)
+        states = {n: torch.empty_like(t)
+                  for n, t in runner.spec_states.items()}
+        draft, verify = runner.spec_fns(k)
+        draft(runner.params, tok, cache, hid, eys, states)
+        verify(runner.params, hid,
+               torch.as_tensor(lens0, dtype=torch.int32, device=tok.device),
+               eys)
+        same = {"outputs": torch.equal(bits(ys), bits(eys[:k])),
+                "token": torch.equal(tok, runner.tok),
+                "len": torch.equal(cache["len"], runner.cache["len"])}
+        for n in ("k", "v"):
+            same[n] = torch.equal(bits(cache[n][:, :-1]),
+                                  bits(runner.cache[n][:, :-1]))
+        if not all(same.values()):
+            fail(f"spec graph vs eager: round {checked[0]} (k {k}) differs "
+                 f"in {', '.join(n for n, v in same.items() if not v)}")
+        checked[0] += 1
+        return runner.spec_ys[:k]
+
+    runner.spec_round = compare
+    try:
+        engine.run(make_requests(args, cfg))
+    finally:
+        del runner.spec_round
+    if checked[0] == 0:
+        fail("spec graph vs eager: no replayed round compared")
+    return (f"spec graph vs eager: {checked[0]} rounds of depth "
+            f"{sorted(runner.spec_graphs)} replayed from their graphs, bit "
+            "for bit against the eager rounds (outputs, token, depths, "
+            "pools)")
+
+
+def spec_phase(launches, smi: str) -> dict:
+    """Phase 14: qwen2-1.5B at full width on phase 4's trace with a
+    200-token shared prefix, the kernel path, every engine on one copy of
+    the parameters.  (1) Kernel entropy, the prefix cache on: 4 hits, 4
+    misses, 800 of 2,048 prompt tokens saved, 4 copy-on-write copies, the
+    pool balanced, and the prefill kernel launched at the hits' offset
+    200; beside the cache off.  (2) Operand entropy: the streams with the
+    cache on and off bit for bit.  (3) Speculative decoding over the
+    cache (operand entropy), the second wave arriving once the first has
+    drained (``PINNED``): k 4 forced and adaptive k 2-6 against spec off,
+    bit for bit.  (4) A replayed spec round against the eager round.
+    Returns the launches of the served runs."""
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch.serve import build_engine
+
+    counts = dict.fromkeys(launches.COUNTS, 0)
+    kernel = KERNEL_PATH + SHARED + ["--entropy", "kernel"]
+    operand = KERNEL_PATH + SHARED + ["--entropy", "operand"]
+    t0 = time.perf_counter()
+    args_on = serve_args(kernel + PREFIX_ON)
+    built_on = build_engine(args_on)
+    params = built_on[0].params
+    engines = {"on": (args_on, built_on)}
+    for key, extra in (("off", kernel), ("op_on", operand + PREFIX_ON),
+                       ("op_off", operand),
+                       ("forced", operand + PREFIX_ON + SPEC_FORCED),
+                       ("adaptive", operand + PREFIX_ON + SPEC_ADAPTIVE)):
+        a = serve_args(extra)
+        engines[key] = (a, build_engine(a, params))
+    print(f"prefix/spec: 6 engines on one copy of the parameters built in "
+          f"{time.perf_counter() - t0:.1f}s ({smi})", flush=True)
+
+    # (1) kernel entropy, the cache on, the prefill offsets recorded
+    offsets = []
+    real = PA.paged_prefill_attention_cuda
+
+    def recorded(q, k_pool, v_pool, block_row, offset, span, kv_chunk=1024):
+        before = launches.COUNTS["paged_prefill_attention"]
+        out = real(q, k_pool, v_pool, block_row, offset, span, kv_chunk)
+        offsets.append((int(offset),
+                        launches.COUNTS["paged_prefill_attention"] - before))
+        return out
+
+    PA.paged_prefill_attention_cuda = recorded
+    try:
+        r_on, _ = phase_serve(*engines["on"], launches, counts)
+    finally:
+        PA.paged_prefill_attention_cuda = real
+    r_off, _ = phase_serve(*engines["off"], launches, counts)
+    pc = r_on["prefix_cache"]
+    eng_on = engines["on"][1][0]
+    alloc, tree = eng_on._last_alloc, eng_on._last_pcache
+    got = (pc["hits"], pc["misses"], pc["prompt_tokens_saved"],
+           pc["prompt_tokens"], pc["cow_copies"])
+    if got != (4, 4, 800, 2048, 4):
+        fail(f"prefix cache: (hits, misses, saved, prompt tokens, copies) "
+             f"{got}, expected (4, 4, 800, 2048, 4)")
+    if alloc._reserved or alloc.in_use != tree.cached_blocks():
+        fail(f"prefix cache: pool unbalanced ({alloc.in_use} in use, "
+             f"{tree.cached_blocks()} cached, {alloc._reserved} reserved)")
+    at = {}
+    for off, n in offsets:
+        if n != 1:
+            fail(f"prefix cache: a prefill call at offset {off} counted {n}")
+        at[off] = at.get(off, 0) + 1
+    layers = engines["on"][1][1].num_layers
+    if at.get(200) != 4 * layers or r_on["prefill_chunks"] != 20 \
+            or r_off["prefill_chunks"] != 32:
+        fail(f"prefix cache: prefill launches by offset {at}, chunks "
+             f"{r_on['prefill_chunks']} (cache on) / "
+             f"{r_off['prefill_chunks']} (off)")
+    print(f"prefix cache, kernel entropy ({smi}): {pc['hits']} hits, "
+          f"{pc['misses']} misses, {pc['prompt_tokens_saved']} of "
+          f"{pc['prompt_tokens']} prompt tokens saved, {pc['cow_copies']} "
+          f"CoW copies, {pc['blocks_cached_end']} blocks cached at exit, "
+          f"pool balanced; paged_prefill_mma launches by offset {at}",
+          flush=True)
+    for label, r in (("cache on", r_on), ("cache off", r_off)):
+        print(f"  {label}: {r['prefill_chunks']} prefill chunks, e2e "
+              f"{r['e2e_tok_per_s']:.1f} tok/s, decode "
+              f"{r['decode_tok_per_s']:.1f} tok/s, p99 "
+              f"{r['latency_p99_s']:.3f} s, p50 {r['latency_p50_s']:.3f} s, "
+              f"total {r['total_s']:.3f} s", flush=True)
+
+    # (2) operand entropy: noise keyed by (slot, depth), streams equal
+    r_op_on, _ = phase_serve(*engines["op_on"], launches, counts)
+    r_op_off, _ = phase_serve(*engines["op_off"], launches, counts)
+    same_streams("prefix cache, operand entropy", r_op_on, r_op_off)
+    print(f"prefix cache, operand entropy: cache on = cache off bit for bit "
+          f"({r_op_on['gen_tokens']} tokens: tokens, H, SE, MI, p_max, "
+          f"flags, slots)", flush=True)
+
+    # (3) speculative decoding over the cache against spec off, the
+    # schedule pinned
+    base_args = serve_args(operand + PREFIX_ON + PINNED)
+    base, steps_off = phase_serve(base_args, engines["op_on"][1], launches,
+                                  counts)
+    base_ms = base["decode_s"] / steps_off * 1e3
+    for key in ("forced", "adaptive"):
+        _, built = engines[key]
+        args = serve_args(operand + PREFIX_ON + PINNED + (
+            SPEC_FORCED if key == "forced" else SPEC_ADAPTIVE))
+        r, steps = phase_serve(args, built, launches, counts)
+        same_streams(f"spec decode ({key})", r, base)
+        if r["prefix_cache"]["hits"] != 4:
+            fail(f"spec decode ({key}): {r['prefix_cache']['hits']} hits")
+        sd = r["spec_decode"]
+        runner = built[0].runner
+        print(f"spec decode {key} ({smi}): = spec off bit for bit; "
+              f"{sd['rounds']} rounds of k {sd['round_k_min']}-"
+              f"{sd['round_k_max']} ({sd['k_up']} grows, {sd['k_down']} "
+              f"shrinks), acceptance {sd['acceptance_rate']:.3f} "
+              f"({sd['accepted']}/{sd['drafted']}), "
+              f"{sd['tokens_per_round']:.2f} tokens a round, "
+              f"{sd['rollbacks']} rollbacks, {sd['gated_slot_rounds']} "
+              f"gated; full-model calls {sd['full_model_calls']} against "
+              f"{base['spec_decode']['full_model_calls']} spec off; "
+              f"{steps} decode steps against {steps_off}; graphs "
+              f"{ {k: round(v, 3) for k, v in runner.spec_capture_s.items()} }"
+              f" s to run + capture; decode "
+              f"{r['decode_s'] / steps * 1e3:.2f} ms a step against "
+              f"{base_ms:.2f}, {r['decode_tok_per_s']:.1f} tok/s against "
+              f"{base['decode_tok_per_s']:.1f}, e2e "
+              f"{r['e2e_tok_per_s']:.1f} against "
+              f"{base['e2e_tok_per_s']:.1f}", flush=True)
+
+    # (4) a replayed round against the eager round
+    print(spec_graph_vs_eager(serve_args(operand + PREFIX_ON + PINNED
+                                         + SPEC_FORCED),
+                              engines["forced"][1]), flush=True)
+    return counts
+
+
+# --------------------------------------------------------------------------
 # phase 7: the paper's path through the port's entry points
 # --------------------------------------------------------------------------
 
@@ -3495,6 +3800,14 @@ def main():
     print(f"vlm launches {vlm_counts}", flush=True)
     print(profile_serve("vlm_serve"), flush=True)
     print(f"phase vlm: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    spec_counts = spec_phase(launches, smi)
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "uncertainty_head"):
+        counts[name] += spec_counts[name]
+    print(f"prefix/spec launches {spec_counts}", flush=True)
+    print(f"phase prefix/spec: {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

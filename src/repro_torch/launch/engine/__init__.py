@@ -2,8 +2,9 @@
 ``repro.launch.engine``), one layer per module:
 
   engine.py     -- ServeEngine: serving policy + the per-chunk loop
-  scheduler.py  -- Request lifecycle / SlotScheduler (admission, grants,
-                   preemption, block tables; numpy only)
+  scheduler.py  -- Request lifecycle / SlotScheduler (admission through
+                   the prefix cache, grants, rollback, preemption, block
+                   tables; numpy only)
   policy.py     -- SchedPolicy: the admission decision layer (fifo)
   block_pool.py -- BlockAllocator: refcounted KV block accounting
   runner.py     -- ModelRunner: ALL device placement and dispatch
@@ -14,11 +15,12 @@ from repro_torch.launch.engine.block_pool import BlockAllocator
 from repro_torch.launch.engine.engine import ServeEngine
 from repro_torch.launch.engine.policy import FifoPolicy, SchedPolicy
 from repro_torch.launch.engine.runner import ModelRunner
-from repro_torch.launch.engine.scheduler import (LIFECYCLE, Request,
-                                                 SlotScheduler)
+from repro_torch.launch.engine.scheduler import (LIFECYCLE, PrefixAdmit,
+                                                 Request, SlotScheduler)
 from repro_torch.launch.engine.stats import ServeStats
 
 __all__ = [
-    "BlockAllocator", "FifoPolicy", "LIFECYCLE", "ModelRunner", "Request",
-    "SchedPolicy", "ServeEngine", "ServeStats", "SlotScheduler",
+    "BlockAllocator", "FifoPolicy", "LIFECYCLE", "ModelRunner",
+    "PrefixAdmit", "Request", "SchedPolicy", "ServeEngine", "ServeStats",
+    "SlotScheduler",
 ]

@@ -3,10 +3,11 @@
 Pure host-side (no torch): the physical pool tensors live in the model
 cache (``models.registry.make_cache(layout="paged")``); this module owns WHICH
 block belongs to WHOM.  A copy of the JAX package's allocator: ``alloc``
-hands a block out at refcount 1, ``incref`` adds a holder (the JAX
-package's prefix cache shares blocks this way; the port has no prefix
-cache yet), and ``free`` is a decref that only returns the block to the
-free list when the last holder lets go.
+hands a block out at refcount 1, ``incref`` adds a holder (the prefix
+cache, ``launch.prefix_cache``, shares blocks this way: a tree node
+adopting a block, a slot mapping a cached prefix), and ``free`` is a
+decref that only returns the block to the free list when the last holder
+lets go.
 """
 
 from __future__ import annotations

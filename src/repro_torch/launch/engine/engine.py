@@ -8,11 +8,18 @@ block pool, decode ``chunk`` steps, harvest the chunk's outputs with one
 host transfer, account into ``stats.ServeStats``.  On CUDA a decode chunk
 is one replay of the runner's CUDA graph: every write between chunks
 (token carry, active mask, flag counters, block table, depths, prefill
-KV) lands in place in the tensors the graph was captured over.
+KV, copy-on-write block copies, a speculative round's commit) lands in
+place in the tensors the graph was captured over.
 
-The prefix cache, speculative decoding, the priority policy, the MI
-escalation lane and the tensor-parallel mesh are not ported yet
-(ROADMAP.md); the port's CLI refuses their flags.
+With ``prefix_cache`` a radix tree over the block pool
+(``launch.prefix_cache``) lets admissions map a cached prompt prefix and
+prefill only the suffix; with ``spec_decode`` the loop runs
+uncertainty-gated speculative rounds (a k-step draft, a full-S verify at
+each draft position, acceptance of the longest agreeing prefix) in place
+of decode chunks, whose accepted stream equals spec-decode off bit for
+bit in operand-entropy mode.  The priority policy, the MI escalation lane
+and the tensor-parallel mesh are not ported yet (ROADMAP.md); the port's
+CLI refuses their flags.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from repro_torch.core.entropy import KernelEntropy
 from repro_torch.kernels.paged_attention import kv_blocks_read
 from repro_torch.launch.engine.block_pool import BlockAllocator
 from repro_torch.launch.engine.runner import ModelRunner
+from repro_torch.launch.prefix_cache import RadixPrefixCache
 from repro_torch.launch.engine.scheduler import Request, SlotScheduler
 from repro_torch.launch.engine.stats import ServeStats
 from repro_torch.models import registry as M
@@ -50,6 +58,20 @@ class ServeEngine:
     ``'chunked'`` (paged only) interleaves ``prefill_chunk``-token prompt
     chunks with decode; ``'batch'`` prefills whole prompts at admission.
 
+    ``prefix_cache`` (paged only) walks a radix tree of cached prompt
+    prefixes at admission: the matched blocks are mapped read-only into
+    the slot's table, a partially matched tail block is copied first
+    (copy-on-write), and prefill runs on the suffix only; a whole-prompt
+    hit runs none.  Families whose prompt KV is not a pure function of
+    the tokens (``registry.supports_prefix_cache``) serve cold.
+    ``spec_decode`` (operand entropy only) replaces a decode chunk with a
+    speculative round whenever a decoding slot's carried MI lies strictly
+    below ``spec_mi_threshold`` (default ``mi_threshold``): a
+    ``spec_k``-step draft with a ``spec_draft_s``-draw head, the full-S
+    verify at each position, and each slot keeps its longest agreeing
+    prefix plus the verified correction; ``spec_k_min`` /
+    ``spec_k_max`` let a per-slot acceptance EMA walk each slot's depth.
+
     ``device`` defaults to CUDA and raises when no GPU is present; the
     parameters must already live there.  ``head_noise`` replaces the
     operand-mode noise provider (``layers.decode_head_noise``), e.g. to
@@ -63,11 +85,18 @@ class ServeEngine:
                  kv_block: int = 16, kv_blocks: Optional[int] = None,
                  decode_attn: str = "gather", prefill_mode: str = "batch",
                  prefill_chunk: int = 32, trace_every: int = 1,
-                 device="cuda", head_noise=None):
+                 device="cuda", head_noise=None, prefix_cache: bool = False,
+                 spec_decode: bool = False, spec_k: int = 4,
+                 spec_mi_threshold: Optional[float] = None,
+                 spec_draft_s: int = 1, spec_k_min: Optional[int] = None,
+                 spec_k_max: Optional[int] = None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if kv_block < 1:
             raise ValueError(f"kv_block must be >= 1, got {kv_block}")
+        if prefix_cache and kv_layout != "paged":
+            raise ValueError("prefix cache shares blocks of the paged "
+                             "pool; run with kv_layout='paged'")
         if decode_attn not in ("gather", "kernel"):
             raise ValueError(f"unknown decode_attn {decode_attn!r}")
         if decode_attn == "kernel" and kv_layout != "paged":
@@ -85,6 +114,39 @@ class ServeEngine:
                              f"{prefill_chunk}")
         if trace_every < 1:
             raise ValueError(f"trace_every must be >= 1, got {trace_every}")
+        if spec_decode:
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if spec_draft_s < 0:
+                raise ValueError(
+                    f"spec_draft_s must be >= 0, got {spec_draft_s}")
+            # losslessness needs head noise that is a pure function of
+            # (slot, depth): the kernel stream keys the global step, so a
+            # verify at the same depth but another step draws otherwise
+            if entropy is not None or cfg.head_entropy == "kernel":
+                raise ValueError(
+                    "speculative decoding requires the operand entropy "
+                    "mode (depth-keyed head noise); the kernel stream "
+                    "keys the global step and cannot replay plain "
+                    "decode's draws at draft positions")
+            if not M.supports_spec_decode(cfg):
+                raise ValueError(f"family {cfg.family!r} does not support "
+                                 "speculative decoding")
+        self.spec_decode = spec_decode
+        self.spec_k = spec_k
+        self.spec_mi_threshold = mi_threshold if spec_mi_threshold is None \
+            else spec_mi_threshold
+        self.spec_draft_s = spec_draft_s
+        # adaptive depth: each slot's acceptance EMA walks its k inside
+        # [k_min, k_max]; the defaults pin both to spec_k (fixed depth)
+        self.spec_k_min = spec_k if spec_k_min is None else spec_k_min
+        self.spec_k_max = spec_k if spec_k_max is None else spec_k_max
+        if spec_decode and not (1 <= self.spec_k_min <= spec_k
+                                <= self.spec_k_max):
+            raise ValueError(
+                f"adaptive spec-k bounds must satisfy 1 <= k_min <= k "
+                f"<= k_max, got k_min={self.spec_k_min} k={spec_k} "
+                f"k_max={self.spec_k_max}")
         self.device = resolve_device(device)
         if params["head"]["mu"].device != self.device:
             raise ValueError(f"params live on {params['head']['mu'].device},"
@@ -101,6 +163,10 @@ class ServeEngine:
         # decode_attn rides the config so the model layers see it
         self.cfg = cfg = dataclasses.replace(cfg,
                                              decode_attn=self.decode_attn)
+        # unsupported families serve cold, silently, like the ssm family's
+        # dense fallback
+        self.prefix_cache = (prefix_cache and self.kv_layout == "paged"
+                             and M.supports_prefix_cache(cfg))
         self.kv_block = kv_block
         self.table_width = M.paged_table_width(max_len, kv_block)
         self.kv_blocks = (kv_blocks if kv_blocks is not None
@@ -125,7 +191,9 @@ class ServeEngine:
             se_threshold=se_threshold,
             kv_layout=self.kv_layout, kv_block=kv_block,
             kv_blocks=self.kv_blocks, device=self.device,
-            head_noise=head_noise)
+            head_noise=head_noise,
+            spec_k_max=self.spec_k_max if spec_decode else 0,
+            spec_draft_s=spec_draft_s)
         self.params = params
         self._modalities: dict[int, torch.Tensor] = {}
 
@@ -157,14 +225,15 @@ class ServeEngine:
         w = -(-n // self.kv_block) * self.kv_block
         return min(w, self.max_len) if self.kv_layout == "dense" else w
 
-    def _start_job(self, req: Request) -> dict:
-        """Open a chunked-prefill walk over ``req``'s prompt: the walk
-        offset, plus what the family's ``prefill_chunk`` threads between
-        chunks: ``ex_off``, the running expert load (moe), or ``state``,
-        the prompt's zero (ssm, conv) recurrent state (hybrid); ``first``
-        marks the walk's first chunk (encdec: it runs the encoder)."""
+    def _start_job(self, req: Request, hit_len: int) -> dict:
+        """Open a chunked-prefill walk over ``req``'s prompt from offset
+        ``hit_len`` (a prefix hit's resident span), plus what the
+        family's ``prefill_chunk`` threads between chunks: ``ex_off``,
+        the running expert load (moe), or ``state``, the prompt's zero
+        (ssm, conv) recurrent state (hybrid); ``first`` marks the walk's
+        first chunk (encdec: it runs the encoder)."""
         P = len(req.prompt)
-        job = {"req": req, "P": P, "span": self._bucket(P), "off": 0,
+        job = {"req": req, "P": P, "span": self._bucket(P), "off": hit_len,
                "first": True}
         if self.cfg.family == "moe":
             job["ex_off"] = self.runner.expert_offsets()
@@ -209,11 +278,111 @@ class ServeEngine:
         job["off"] = new_len
         return cache, done, ("chunk", S_len, W, variant)
 
+    def _spec_round(self, sched, stats, decoding, k: int) -> None:
+        """One uncertainty-gated speculative round in place of a decode
+        chunk: a k-step draft on the full model body proposes cheap-head
+        tokens for every slot, the full-S head verifies each position at
+        the same (slot, depth) noise sites, and each drafting slot keeps
+        its longest agreeing prefix plus the first verified correction
+        (the runner's graph of depth k, one host transfer).  Since the
+        draft runs plain decode's body and the verify plain decode's head,
+        the accepted stream is plain decode's bit for bit.  A slot whose
+        carried MI sits at or above the gate emits position 1's verified
+        token only.  A rejected tail rolls back on the host
+        (``scheduler.rollback`` frees the decode blocks past the kept
+        depth) and on the device (the commit pins token, depth and
+        recurrent state in place)."""
+        runner = self.runner
+        stats.record_round_k(k)
+        parts = [(slot, req) for slot, req in sched.active()
+                 if slot in decoding]
+        B = self.num_slots
+        lens0 = np.zeros((B,), np.int32)
+        for slot, req in parts:
+            lens0[slot] = len(req.prompt) + len(req.tokens)
+        t0 = time.perf_counter()
+        host = runner.fetch_spec(runner.spec_round(k, lens0))  # one sync
+        stats.arrivals.append(time.perf_counter())
+        stats.decode_s += time.perf_counter() - t0
+        stats.spec_rounds += 1
+        stats.full_model_calls += 1          # ONE verify dispatch a round
+        stats.steps_run += k
+        commit = {n: np.zeros((B,), np.int32) for n in
+                  ("mask", "tok", "len", "idx", "epi", "alea")}
+        for slot, req in parts:
+            if req.last_mi < self.spec_mi_threshold:
+                a = 0
+                while a < k and host["draft"][a, slot] \
+                        == host["token"][a, slot]:
+                    a += 1
+                stats.spec_drafted += k
+                stats.spec_accepted += a
+                # adaptive depth: the acceptance EMA walks the slot's k
+                # inside [k_min, k_max]; pinned bounds make it inert
+                rate = a / k
+                req.spec_ema = rate if req.spec_ema is None \
+                    else 0.5 * req.spec_ema + 0.5 * rate
+                cur = req.spec_k_cur or self.spec_k
+                if req.spec_ema >= 0.8 and cur < self.spec_k_max:
+                    req.spec_k_cur = cur + 1
+                    stats.spec_k_up += 1
+                elif req.spec_ema <= 0.4 and cur > self.spec_k_min:
+                    req.spec_k_cur = cur - 1
+                    stats.spec_k_down += 1
+                else:
+                    req.spec_k_cur = cur
+            else:
+                # carried MI at or above the gate: no drafting credit,
+                # position 1's verified token only (one plain step)
+                a = 0
+                stats.spec_gated += 1
+            emitted, finished = 0, False
+            for j in range(min(a + 1, k)):
+                tk = int(host["token"][j, slot])
+                req.tokens.append(tk)
+                for name in ("H", "SE", "MI", "p_max"):
+                    getattr(req, name).append(float(host[name][j, slot]))
+                epi = int(host["epistemic"][j, slot])
+                alea = int(host["aleatoric"][j, slot])
+                req.epistemic_flags += epi
+                req.aleatoric_flags += alea
+                commit["epi"][slot] += epi
+                commit["alea"][slot] += alea
+                req.last_mi = float(host["MI"][j, slot])
+                emitted = j + 1
+                done_eos = self.eos_id is not None and tk == self.eos_id
+                if done_eos or len(req.tokens) >= req.max_new_tokens:
+                    req.transition("finished",
+                                   reason="eos" if done_eos else "length")
+                    sched.evict(slot)
+                    decoding.discard(slot)
+                    runner.active[slot].fill_(False)
+                    finished = True
+                    break
+            stats.spec_emitted += emitted
+            if finished:
+                continue
+            # keep depth lens0 + emitted: free the decode blocks the
+            # rejected tail grew into (host) and pin the slot's carry
+            # token, depth and recurrent state (device).  emitted == k
+            # commits too: the carry token must be the VERIFIED token,
+            # not the draft's last proposal
+            if emitted < k:
+                stats.spec_rollbacks += 1
+                sched.rollback(slot, int(lens0[slot]) + emitted)
+            commit["mask"][slot] = 1
+            commit["tok"][slot] = host["token"][emitted - 1, slot]
+            commit["len"][slot] = lens0[slot] + emitted
+            commit["idx"][slot] = emitted - 1
+        runner.spec_commit(commit["mask"], commit["tok"], commit["len"],
+                           commit["idx"], commit["epi"], commit["alea"])
+
     def run(self, requests: list[Request]) -> dict:
         """Serve ``requests`` to completion; returns engine metrics.
 
         One host sync per admission (prefill timing) and one per decoded
-        chunk (the stacked (chunk, B) outputs) — never per token."""
+        chunk or speculative round (its stacked outputs) — never per
+        token."""
         with torch.inference_mode():
             return self._run(requests)
 
@@ -231,7 +400,7 @@ class ServeEngine:
                     f"request {r.rid}: prompt {len(r.prompt)} + "
                     f"max_new_tokens {r.max_new_tokens} exceeds the "
                     f"slot capacity max_len={self.max_len}")
-        alloc = None
+        alloc = pcache = None
         if paged:
             alloc = BlockAllocator(self.kv_blocks, self.kv_block)
             for r in requests:
@@ -240,9 +409,12 @@ class ServeEngine:
                     raise ValueError(
                         f"request {r.rid}: needs {need} KV blocks but the "
                         f"pool only has {self.kv_blocks}")
+            if self.prefix_cache:
+                pcache = RadixPrefixCache(alloc, self.kv_block)
         sched = SlotScheduler(self.num_slots, allocator=alloc,
-                              table_width=self.table_width)
-        self._last_alloc = alloc
+                              table_width=self.table_width,
+                              prefix_cache=pcache)
+        self._last_alloc, self._last_pcache = alloc, pcache
         stats = ServeStats(trace_every=self.trace_every)
         pending = collections.deque(
             sorted((r for r in requests if r.arrival_step > 0),
@@ -266,6 +438,7 @@ class ServeEngine:
         # stage it through a host-to-device copy that synchronises
         def activate(slot, req):
             req.transition("decoding")
+            req.spec_k_cur = self.spec_k
             tok[slot].fill_(int(req.prompt[-1]))
             active[slot].fill_(True)
             for v in flags.values():
@@ -295,26 +468,60 @@ class ServeEngine:
                     sync_table()
                 for slot, req in admitted:
                     t0 = time.perf_counter()
+                    info = sched.prefix_admit(slot) if paged else None
+                    hit_len = info.tokens if info is not None else 0
                     P = len(req.prompt)
                     W = self._bucket(P)
-                    if self.prefill_mode == "chunked":
-                        # pin the depth now: interleaved decode steps write
-                        # junk at [len, len + chunk) for every slot
-                        runner.set_len(cache, slot, 0)
-                        prefilling[slot] = self._start_job(req)
+                    if info is not None and info.cow is not None:
+                        # the shared tail block is about to be written at
+                        # the divergence point: copy it on the device into
+                        # the block already in the table, then drop this
+                        # slot's reference on the original
+                        runner.copy_block(cache, *info.cow)
+                        sched.finish_cow(slot)
+                        stats.pc_cow += 1
+                    if info is not None:
+                        stats.record_admission(P, hit_len)
+                    if hit_len == P:
+                        # the whole prompt is resident: no prefill at all
+                        runner.set_len(cache, slot, P)
+                        activate(slot, req)
+                        shape_key = ("hit",)
+                    elif self.prefill_mode == "chunked":
+                        # pin the depth to the resident span now:
+                        # interleaved decode steps write junk at [len,
+                        # len + chunk) for every slot, and a stale len
+                        # would point into shared prefix blocks
+                        runner.set_len(cache, slot, hit_len)
+                        prefilling[slot] = self._start_job(req, hit_len)
                         jobs.append(slot)
                         continue
-                    toks = np.zeros((W,), np.int32)
-                    toks[:P] = req.prompt
-                    runner.prefill(cache, slot, toks,
-                                   sched.block_tables[slot] if paged
-                                   else None, self._modality(1))
-                    if W > P:
-                        # junk pad KV stays masked above the true len
-                        runner.set_len(cache, slot, P)
-                    activate(slot, req)
+                    elif hit_len:
+                        # the suffix padded to the cold bucket: the same
+                        # attention extent as the cold path keeps a hit
+                        # and a miss bit-identical
+                        stoks = np.zeros((W - hit_len,), np.int32)
+                        stoks[:P - hit_len] = req.prompt[hit_len:]
+                        runner.prefill_suffix(cache, slot, stoks,
+                                              sched.block_tables[slot],
+                                              hit_len)
+                        if W > P:
+                            runner.set_len(cache, slot, P)
+                        activate(slot, req)
+                        shape_key = ("suffix", hit_len, W - hit_len)
+                    else:
+                        toks = np.zeros((W,), np.int32)
+                        toks[:P] = req.prompt
+                        runner.prefill(cache, slot, toks,
+                                       sched.block_tables[slot] if paged
+                                       else None, self._modality(1))
+                        if W > P:
+                            # junk pad KV stays masked above the true len
+                            runner.set_len(cache, slot, P)
+                        activate(slot, req)
+                        shape_key = ("cold", W)
                     runner.sync()
-                    stats.classify(("cold", W), time.perf_counter() - t0)
+                    stats.classify(shape_key, time.perf_counter() - t0)
 
                 if jobs:
                     # at most ONE prompt chunk per iteration, then the
@@ -332,13 +539,28 @@ class ServeEngine:
                         del prefilling[slot]
                         activate(slot, job["req"])
 
+                # a speculative round replaces this iteration's chunk when
+                # any decoding slot's carried MI lies strictly below the
+                # gate (threshold 0 never drafts: the loop is then the
+                # plain chunk path); decided before the grants, which map
+                # the k positions a round writes.  The round drafts at the
+                # drafting slots' smallest current depth
+                drafting = [req for slot, req in sched.active()
+                            if slot in decoding
+                            and req.last_mi < self.spec_mi_threshold]
+                run_spec = self.spec_decode and bool(drafting)
+                k_round = min(req.spec_k_cur or self.spec_k
+                              for req in drafting) if run_spec \
+                    else self.spec_k
+                ahead = k_round if run_spec else self.chunk
                 if paged:
-                    # map the blocks the coming chunk can write, on demand
+                    # map the blocks the coming chunk or round can write,
+                    # on demand
                     for slot, req in sched.active():
                         if slot in prefilling:
                             continue     # prompt blocks mapped at admission
                         ids = sched.grant(slot, len(req.prompt)
-                                          + min(len(req.tokens) + self.chunk,
+                                          + min(len(req.tokens) + ahead,
                                                 req.max_new_tokens))
                         if ids is None:
                             sched.preempt(slot)
@@ -355,7 +577,7 @@ class ServeEngine:
                     continue             # prefill-only iteration
                 if paged:
                     MB = sched.block_tables.shape[1]
-                    stats.attn_blocks_span += self.num_slots * MB * self.chunk
+                    stats.attn_blocks_span += self.num_slots * MB * ahead
                     if self.decode_attn == "kernel":
                         for slot, occupant in sched.active():
                             if slot in prefilling:
@@ -366,9 +588,14 @@ class ServeEngine:
                             stats.attn_blocks_read += sum(
                                 kv_blocks_read(len0 + t + 1, mapped,
                                                self.kv_block, MB)
-                                for t in range(self.chunk))
+                                for t in range(ahead))
+
+                if run_spec:
+                    self._spec_round(sched, stats, decoding, k_round)
+                    continue
 
                 stats.chunks_run += 1
+                stats.full_model_calls += self.chunk
                 stats.steps_run += self.chunk
                 t0 = time.perf_counter()
                 tok, cache, flags, ys = runner.scan(tok, cache, step0,
@@ -389,6 +616,7 @@ class ServeEngine:
                                 float(ys[name][t, slot]))
                         req.epistemic_flags += int(ys["epistemic"][t, slot])
                         req.aleatoric_flags += int(ys["aleatoric"][t, slot])
+                        req.last_mi = float(ys["MI"][t, slot])
                         done_eos = self.eos_id is not None \
                             and tk == self.eos_id
                         if done_eos or len(req.tokens) >= req.max_new_tokens:
@@ -401,15 +629,20 @@ class ServeEngine:
                             break
         except BaseException:
             # slots mid-decode still hold blocks: release them so the pool
-            # balances even when the run dies
+            # balances even when the run dies (eviction also settles a
+            # pending CoW reference and gives the prompt blocks to the tree)
             for slot, _ in list(sched.active()):
                 sched.evict(slot)
             raise
         finally:
-            if alloc is not None and (alloc._reserved or alloc.in_use):
-                raise RuntimeError(
-                    f"block leak after drain: {alloc.in_use} in use, "
-                    f"{alloc._reserved} reserved")
+            # every block is free or held by the prefix cache, and no
+            # reservation is outstanding
+            if alloc is not None:
+                cached = pcache.cached_blocks() if pcache else 0
+                if alloc._reserved or alloc.in_use != cached:
+                    raise RuntimeError(
+                        f"block leak after drain: {alloc.in_use} in use vs "
+                        f"{cached} cached, {alloc._reserved} reserved")
 
         return stats.results(self, requests, sched=sched, alloc=alloc,
-                             cache=cache, flags=flags)
+                             pcache=pcache, cache=cache, flags=flags)

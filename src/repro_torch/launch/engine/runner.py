@@ -14,10 +14,20 @@ CUDA graph: the runner owns the decode carry (token, cache, active mask,
 flag counters), the chunk's step and its output buffer, allocated once,
 and on a CUDA device captures the chunk over them when it is built.  A
 chunk is then one graph replay; between replays the engine writes the
-carry in place (``start``, ``write_table``, slot writes, prefill).  On
-the CPU the chunk runs eagerly on the same buffers.  Prefill chunks run
-eagerly between replays.  The mesh (tensor-parallel) mode of the JAX
-runner is not ported yet.
+carry in place (``start``, ``write_table``, slot writes, prefill, the
+copy-on-write of a shared prefix block, the suffix prefill of a prefix
+hit).  On the CPU the chunk runs eagerly on the same buffers.  Prefill
+chunks run eagerly between replays.
+
+Speculative decoding (``spec_decode``): the JAX runner jit-compiles one
+draft and one verify per draft depth k (``spec_fns(k)``).  Here a round's
+draft + verify of depth k is ONE CUDA graph over the carry and the
+round's own buffers (the stacked hiddens, the (k, 1 + outputs, B) ``ys``
+and the stacked recurrent states), captured lazily at the first round of
+that depth, whose eager run is that round's result; every depth's graph
+allocates from one shared memory pool.  The commit writes the carry in
+place between replays.  The mesh (tensor-parallel) mode of the JAX runner
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import torch
 from repro_torch.core.entropy import KernelEntropy
 from repro_torch.kernels import launches
 from repro_torch.launch import steps as S
+from repro_torch.models import layers as L
 from repro_torch.models import registry as M
 
 FLAGS = ("epistemic", "aleatoric")
@@ -46,13 +57,16 @@ class ModelRunner:
     over it.  The graph is fixed by (num_slots, chunk, table width,
     layout, decode_attn, head_entropy), all fixed for the runner
     (``graph_key``).  A failed capture raises: there is no eager fallback
-    on CUDA."""
+    on CUDA.  ``spec_k_max`` (speculative decoding on) sizes the spec
+    round's buffers for the deepest draft; ``spec_draft_s`` is the draft
+    head's sample count."""
 
     def __init__(self, params, cfg, *, num_slots: int, max_len: int,
                  chunk: int, entropy: Optional[KernelEntropy],
                  mi_threshold: float, se_threshold: float, kv_layout: str,
                  kv_block: int, kv_blocks: int, device: torch.device,
-                 head_noise=None):
+                 head_noise=None, spec_k_max: int = 0,
+                 spec_draft_s: int = 1):
         self.params = params
         self.cfg = cfg
         self.num_slots = num_slots
@@ -81,6 +95,34 @@ class ModelRunner:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captured: dict[str, int] = {}     # kernel launches a replay
         self.capture_s = 0.0
+        self._entropy = entropy
+        self._mi_threshold = mi_threshold
+        self._se_threshold = se_threshold
+        self._head_noise = head_noise
+        self.spec_draft_s = spec_draft_s
+        self.spec_k_max = spec_k_max
+        self._spec_k_fns: dict[int, tuple] = {}
+        self._spec_commit = S.build_spec_commit(cfg)
+        self.spec_graphs: dict[int, torch.cuda.CUDAGraph] = {}
+        self.spec_captured: dict[int, dict[str, int]] = {}
+        self.spec_capture_s: dict[int, float] = {}
+        self._spec_pool = None
+        if spec_k_max:
+            # the round's own buffers, sized for the deepest draft: the
+            # draft hiddens, the proposals + verify outputs (row 0 the
+            # proposal, then OUTPUTS), the pre-round depths, and the
+            # post-step recurrent leaves for rollback
+            self.spec_hid = torch.zeros((spec_k_max, num_slots, cfg.d_model),
+                                        dtype=L.dtype_of(cfg), device=dev)
+            self.spec_ys = torch.zeros(
+                (spec_k_max, 1 + len(S.OUTPUTS), num_slots),
+                dtype=torch.float32, device=dev)
+            self.spec_lens0 = torch.zeros((num_slots,), dtype=torch.int32,
+                                          device=dev)
+            self.spec_states = {
+                leaf: torch.zeros((spec_k_max, *self.cache[leaf].shape),
+                                  dtype=self.cache[leaf].dtype, device=dev)
+                for leaf in M.RECURRENT_LEAVES if leaf in self.cache}
         if dev.type == "cuda":
             self._capture()
 
@@ -211,6 +253,124 @@ class ModelRunner:
     def set_len(self, cache: dict, slot: int, n: int) -> dict:
         cache["len"][slot].fill_(n)      # no host copy (see engine.py)
         return cache
+
+    def copy_block(self, cache: dict, src: int, dst: int) -> dict:
+        """The copy-on-write of a shared prefix block: ``src`` into
+        ``dst`` in every pool, in place."""
+        return M.copy_block(self.cfg, cache, src, dst)
+
+    def prefill_suffix(self, cache: dict, slot: int, toks: np.ndarray,
+                       row: np.ndarray, hit_len: int) -> dict:
+        """Batch prefill of a prefix hit's suffix ``toks`` (padded to the
+        cold bucket) into ``slot``: gather the slot's cached strips over
+        the blocks the hit spans, run ``registry.prefill_suffix`` against
+        them, and scatter the suffix K/V through the slot's table row
+        from logical offset ``hit_len``."""
+        table = self.place_table(row)
+        nb = -(-hit_len // self.kv_block)
+        idx = table[:nb].long()
+        strips = {}
+        for n in M.PAGED_KV_LEAVES:
+            if n in cache:
+                pool = cache[n]                  # (L, NB + 1, BS, Hkv, D)
+                strips[n] = pool[:, idx].reshape(
+                    pool.shape[0], 1, nb * pool.shape[2], *pool.shape[3:])
+        _, sub = M.prefill_suffix(self.params, self.cfg, self.tokens(toks),
+                                  strips, hit_len)
+        return M.write_slot(self.cfg, cache, slot, sub, table,
+                            offset=hit_len)
+
+    def spec_fns(self, k: int):
+        """(draft, verify) of draft depth ``k`` (``steps.build_spec_draft``
+        / ``build_spec_verify``), built once per depth."""
+        if k not in self._spec_k_fns:
+            if not 1 <= k <= self.spec_k_max:
+                raise ValueError(f"draft depth {k} outside the runner's "
+                                 f"buffers (1..{self.spec_k_max})")
+            self._spec_k_fns[k] = (
+                S.build_spec_draft(self.cfg, entropy=self._entropy, k=k,
+                                   draft_samples=self.spec_draft_s,
+                                   head_noise=self._head_noise),
+                S.build_spec_verify(self.cfg, entropy=self._entropy, k=k,
+                                    mi_threshold=self._mi_threshold,
+                                    se_threshold=self._se_threshold,
+                                    head_noise=self._head_noise))
+        return self._spec_k_fns[k]
+
+    def _spec_body(self, k: int) -> None:
+        draft, verify = self.spec_fns(k)
+        draft(self.params, self.tok, self.cache, self.spec_hid, self.spec_ys,
+              self.spec_states)
+        verify(self.params, self.spec_hid, self.spec_lens0, self.spec_ys)
+
+    def spec_round(self, k: int, lens0: np.ndarray) -> torch.Tensor:
+        """One speculative round of depth ``k`` on the runner's carry:
+        ``lens0`` (B,) the pre-round depths, staged to the device; returns
+        ``spec_ys[:k]``, valid until the next round.  On CUDA the round is
+        a replay of depth k's graph; the first round of a depth runs
+        eagerly on a side stream (its result is the round's) and then
+        captures the graph, whose launches each replay adds to
+        ``launches.COUNTS``."""
+        self.spec_lens0.copy_(self._staged(np.asarray(lens0, np.int32)),
+                              non_blocking=True)
+        if self.device.type != "cuda":
+            self._spec_body(k)
+        elif k in self.spec_graphs:
+            self.spec_graphs[k].replay()
+            for name, n in self.spec_captured[k].items():
+                launches.COUNTS[name] += n
+        else:
+            self._spec_capture(k)
+        return self.spec_ys[:k]
+
+    def _spec_capture(self, k: int) -> None:
+        t0 = time.perf_counter()
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._spec_body(k)
+        cur.wait_stream(side)
+        if self._spec_pool is None:
+            self._spec_pool = torch.cuda.graph_pool_handle()
+        before = launches.snapshot()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._spec_pool):
+            self._spec_body(k)
+        after = launches.snapshot()
+        launches.COUNTS.update(before)
+        self.spec_captured[k] = {n: after[n] - before[n] for n in after
+                                 if after[n] != before[n]}
+        self.spec_graphs[k] = graph
+        torch.cuda.synchronize(self.device)
+        self.spec_capture_s[k] = time.perf_counter() - t0
+
+    def spec_commit(self, mask: np.ndarray, new_tok: np.ndarray,
+                    new_len: np.ndarray, idx: np.ndarray,
+                    epi_add: np.ndarray, alea_add: np.ndarray) -> None:
+        """Commit a round in place: the ``mask``ed slots' carry token,
+        depth and recurrent state (``steps.build_spec_commit``), and the
+        emitted positions' flags added to the device counters.  The six
+        (B,) vectors travel in ONE staged host-to-device copy."""
+        packed = np.stack([np.asarray(v, np.int32) for v in
+                           (mask, new_tok, new_len, idx, epi_add, alea_add)])
+        dev = self._to_device(packed)
+        self._spec_commit(self.cache, self.tok, dev[0] > 0, dev[1], dev[2],
+                          self.spec_states, dev[3])
+        self.flags["epistemic"].add_(dev[4])
+        self.flags["aleatoric"].add_(dev[5])
+
+    @staticmethod
+    def fetch_spec(ys: torch.Tensor) -> dict[str, np.ndarray]:
+        """A round's proposals and verify outputs on the host, each (k,
+        B): ONE device-to-host copy."""
+        host = ys.cpu().numpy()
+        out = {name: host[:, 1 + i] for i, name in enumerate(S.OUTPUTS)}
+        out["draft"] = host[:, 0].astype(np.int32)
+        out["token"] = out["token"].astype(np.int32)
+        out["epistemic"] = out["epistemic"] > 0.5
+        out["aleatoric"] = out["aleatoric"] > 0.5
+        return out
 
     def scan(self, tok, cache, step0: int, active, flags):
         """One decode chunk from global step ``step0`` over the runner's

@@ -2,16 +2,17 @@
 
 Counterpart of ``repro.launch.engine.stats``.  ``ServeStats`` owns the
 counters one ``ServeEngine.run`` accumulates — prefill first-vs-repeat
-shape timing, the decode-attention block tally, the downsampled
-scheduler trace, decode-chunk arrival times — and builds the results
-dict.  The payload keeps the JAX engine's schema key for key (the CLI's
-``--stats-json``); features the port does not have yet (prefix cache,
-escalation, speculative decoding) report as disabled with zero counts.
+shape timing, prefix-cache hit accounting, speculative rounds, the
+decode-attention block tally, the downsampled scheduler trace, decode
+arrival times — and builds the results dict.  The payload keeps the JAX
+engine's schema key for key (the CLI's ``--stats-json``); the escalation
+lane, not ported yet, reports as disabled with zero counts.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -40,6 +41,10 @@ class ServeStats:
         self.compile_times: list[float] = []
         self.steady_times: list[float] = []
         self.seen_prefill_shapes: set[tuple] = set()
+        # prefix cache: admissions that hit / missed, prompt tokens and
+        # those already resident, copy-on-write block copies
+        self.pc_hits = self.pc_misses = self.pc_cow = 0
+        self.pc_tokens = self.pc_saved = 0
         self.sched_trace: list[dict] = []
         self.chunks_run = 0
         # decode-attention block accounting (paged): blocks the selected
@@ -47,6 +52,18 @@ class ServeStats:
         self.attn_blocks_read = 0
         self.attn_blocks_span = 0
         self.prefill_chunks = 0
+        # speculative decoding: rounds, proposals drafted / accepted,
+        # tokens emitted, rounds a slot rolled back, MI-gated slot-rounds,
+        # the adaptive depth's grow / shrink events and the range of round
+        # depths.  full_model_calls counts full-S head dispatches (chunk
+        # per decode chunk, one per round); steps_run the KV-advancing
+        # steps either path ran
+        self.spec_rounds = self.spec_drafted = self.spec_accepted = 0
+        self.spec_emitted = self.spec_rollbacks = self.spec_gated = 0
+        self.spec_k_up = self.spec_k_down = 0
+        self.spec_round_k_min: Optional[int] = None
+        self.spec_round_k_max: Optional[int] = None
+        self.full_model_calls = 0
         self.steps_run = 0
         # one timestamp per decode chunk that served a decoding slot
         self.arrivals: list[float] = []
@@ -58,12 +75,26 @@ class ServeStats:
             self.seen_prefill_shapes.add(shape_key)
             self.compile_times.append(dt)
 
+    def record_round_k(self, k: int) -> None:
+        """Track the range of draft depths the rounds used."""
+        self.spec_round_k_min = k if self.spec_round_k_min is None \
+            else min(self.spec_round_k_min, k)
+        self.spec_round_k_max = k if self.spec_round_k_max is None \
+            else max(self.spec_round_k_max, k)
+
+    def record_admission(self, prompt_len: int, hit_len: int) -> None:
+        """Prefix-cache hit accounting for one paged admission."""
+        self.pc_hits += bool(hit_len)
+        self.pc_misses += not hit_len
+        self.pc_tokens += prompt_len
+        self.pc_saved += hit_len
+
     def trace(self, sched) -> None:
         """Downsampled pool/queue snapshot."""
         if self.chunks_run % self.trace_every == 0:
             self.sched_trace.append(sched.pool_stats())
 
-    def results(self, engine, requests, *, sched, alloc, cache,
+    def results(self, engine, requests, *, sched, alloc, pcache, cache,
                 flags) -> dict:
         paged = engine.kv_layout == "paged"
         total_s = time.perf_counter() - self.t_start
@@ -142,10 +173,18 @@ class ServeStats:
             "kv": kv_stats,
             "decode_attn": decode_attn_stats,
             "prefix_cache": {
-                "enabled": False, "hits": 0, "misses": 0, "hit_rate": 0.0,
-                "prompt_tokens": 0, "prompt_tokens_saved": 0,
-                "saved_frac": 0.0, "cow_copies": 0, "cache_evictions": 0,
-                "blocks_cached_end": 0,
+                "enabled": engine.prefix_cache,
+                "hits": self.pc_hits,
+                "misses": self.pc_misses,
+                "hit_rate": self.pc_hits / max(self.pc_hits
+                                               + self.pc_misses, 1),
+                "prompt_tokens": self.pc_tokens,
+                "prompt_tokens_saved": self.pc_saved,
+                "saved_frac": self.pc_saved / max(self.pc_tokens, 1),
+                "cow_copies": self.pc_cow,
+                "cache_evictions": pcache.evictions if pcache else 0,
+                "blocks_cached_end": (pcache.cached_blocks()
+                                      if pcache else 0),
             },
             "sched_trace": self.sched_trace,
             "sched_trace_every": self.trace_every,
@@ -163,15 +202,25 @@ class ServeStats:
                 "steps": 0,
             },
             "spec_decode": {
-                "enabled": False, "k": 4,
-                "mi_threshold": engine.mi_threshold, "draft_samples": 1,
-                "rounds": 0, "drafted": 0, "accepted": 0,
-                "acceptance_rate": 0.0, "emitted": 0,
-                "tokens_per_round": 0.0, "rollbacks": 0,
-                "gated_slot_rounds": 0,
-                "full_model_calls": self.steps_run,
-                "k_min": 4, "k_max": 4, "k_up": 0, "k_down": 0,
-                "round_k_min": None, "round_k_max": None,
+                "enabled": engine.spec_decode,
+                "k": engine.spec_k,
+                "mi_threshold": engine.spec_mi_threshold,
+                "draft_samples": engine.spec_draft_s,
+                "rounds": self.spec_rounds,
+                "drafted": self.spec_drafted,
+                "accepted": self.spec_accepted,
+                "acceptance_rate": self.spec_accepted
+                / max(self.spec_drafted, 1),
+                "emitted": self.spec_emitted,
+                "tokens_per_round": self.spec_emitted
+                / max(self.spec_rounds, 1),
+                "rollbacks": self.spec_rollbacks,
+                "gated_slot_rounds": self.spec_gated,
+                "full_model_calls": self.full_model_calls,
+                "k_min": engine.spec_k_min, "k_max": engine.spec_k_max,
+                "k_up": self.spec_k_up, "k_down": self.spec_k_down,
+                "round_k_min": self.spec_round_k_min,
+                "round_k_max": self.spec_round_k_max,
             },
             "decode_interarrival_p99_s": float(np.percentile(
                 np.diff(self.arrivals), 99, method="higher"))

@@ -3,10 +3,13 @@
 PyTorch counterpart of ``repro.launch.serve``: the same flags, defaults
 and ``--stats-json`` schema, plus ``--device`` (default ``cuda``; a
 missing GPU raises, ``--device cpu`` runs the plain PyTorch paths).
+``--prefix-cache on`` adds the copy-on-write radix prefix cache over the
+paged pool (the dense family; the others serve cold), and ``--spec-decode
+on`` runs uncertainty-gated speculative rounds, whose accepted stream
+equals spec-decode off bit for bit (it needs ``--entropy operand``).
 Flags of features the port does not have yet raise
-``NotImplementedError`` (see ROADMAP.md): ``--prefix-cache on``,
-``--spec-decode on``, ``--policy priority``, ``--escalate-mi`` and
-``--mesh``.  Every ``--arch`` is served.
+``NotImplementedError`` (see ROADMAP.md): ``--policy priority``,
+``--escalate-mi`` and ``--mesh``.  Every ``--arch`` is served.
 The ssm family (``mamba2_370m``) keeps no KV: ``--kv-layout paged``,
 ``--decode-attn kernel`` and ``--prefill chunked`` fall back silently to
 the dense layout, the gather read and batch prefill at the exact prompt
@@ -30,6 +33,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_1_5b \
       --slots 4 --num-requests 8 --prompt-len 32 --gen-len 16 --chunk 8 \
       --kv-layout paged --decode-attn kernel --prefill chunked
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --kv-layout paged --prefill chunked --shared-prefix 20 \
+      --prefix-cache on --entropy operand --spec-decode on --spec-k 4
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek_moe_16b --device cpu --kv-layout paged \
       --decode-attn kernel --prefill chunked
@@ -99,9 +105,7 @@ def make_requests(args, cfg) -> list[Request]:
 
 def check_ported(args) -> None:
     """Refuse the flags of features the port does not have yet."""
-    refused = {"--prefix-cache on": args.prefix_cache == "on",
-               "--spec-decode on": args.spec_decode == "on",
-               "--policy priority": args.policy == "priority",
+    refused = {"--policy priority": args.policy == "priority",
                "--escalate-mi": args.escalate_mi is not None,
                "--mesh": args.mesh not in (None, "", "none")}
     for flag, asked in refused.items():
@@ -141,7 +145,11 @@ def build_engine(args, params=None) -> tuple[ServeEngine, ArchConfig]:
         kv_block=args.kv_block, kv_blocks=kv_blocks,
         decode_attn=args.decode_attn, prefill_mode=args.prefill,
         prefill_chunk=args.prefill_chunk, trace_every=args.trace_every,
-        device=device)
+        device=device, prefix_cache=args.prefix_cache == "on",
+        spec_decode=args.spec_decode == "on", spec_k=args.spec_k,
+        spec_mi_threshold=args.spec_mi_threshold,
+        spec_draft_s=args.spec_draft_s, spec_k_min=args.spec_k_min,
+        spec_k_max=args.spec_k_max)
     return engine, cfg
 
 
@@ -221,17 +229,36 @@ def build_parser() -> argparse.ArgumentParser:
                     help="record the scheduler/pool snapshot every N "
                          "chunks")
     ap.add_argument("--prefix-cache", choices=("on", "off"), default="off",
-                    help="not ported: 'on' raises")
+                    help="'on': radix prefix cache over the paged pool — "
+                         "prompts sharing a cached prefix map its blocks "
+                         "read-only (no prefill for the hit span, "
+                         "copy-on-write at divergence); needs --kv-layout "
+                         "paged")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="make the first N prompt tokens identical "
                          "across requests")
     ap.add_argument("--spec-decode", choices=("on", "off"), default="off",
-                    help="not ported: 'on' raises")
-    ap.add_argument("--spec-k", type=int, default=4)
-    ap.add_argument("--spec-mi-threshold", type=float, default=None)
-    ap.add_argument("--spec-draft-s", type=int, default=1)
-    ap.add_argument("--spec-k-min", type=int, default=None)
-    ap.add_argument("--spec-k-max", type=int, default=None)
+                    help="'on': uncertainty-gated speculative decoding — a "
+                         "k-step draft on the full body with a cheap head, "
+                         "the full-sample head verifying each position at "
+                         "the same (slot, depth) noise, only slots whose "
+                         "carried MI lies below --spec-mi-threshold "
+                         "drafting; the stream equals spec-decode off bit "
+                         "for bit (needs --entropy operand)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft positions per speculative round")
+    ap.add_argument("--spec-mi-threshold", type=float, default=None,
+                    help="MI gate for drafting (default: --mi-threshold); "
+                         "0 never speculates")
+    ap.add_argument("--spec-draft-s", type=int, default=1,
+                    help="head samples of the draft proposals (0 = the "
+                         "mean head)")
+    ap.add_argument("--spec-k-min", type=int, default=None,
+                    help="adaptive draft-depth floor: a per-slot "
+                         "acceptance EMA walks k between --spec-k-min and "
+                         "--spec-k-max (default: both --spec-k)")
+    ap.add_argument("--spec-k-max", type=int, default=None,
+                    help="adaptive draft-depth ceiling (see --spec-k-min)")
     ap.add_argument("--policy", choices=("fifo", "priority"),
                     default="fifo",
                     help="scheduling policy; only 'fifo' is ported")
@@ -290,6 +317,29 @@ def main():
               f"vs {da['kv_bytes_span_per_step'] / 1e3:.1f} KB span")
     else:
         print(f"kv: dense strips, {kv['bytes_in_use_peak'] / 1e6:.2f} MB")
+    sd = r["spec_decode"]
+    if sd["enabled"]:
+        print(f"spec decode: k={sd['k']}, {sd['rounds']} rounds, "
+              f"{sd['accepted']}/{sd['drafted']} proposals accepted "
+              f"({sd['acceptance_rate']:.0%}), "
+              f"{sd['tokens_per_round']:.2f} tokens/round, "
+              f"{sd['rollbacks']} rollbacks, "
+              f"{sd['gated_slot_rounds']} MI-gated slot-rounds, "
+              f"{sd['full_model_calls']} full-model calls for "
+              f"{r['gen_tokens']} tokens")
+        if sd["k_min"] != sd["k_max"]:
+            print(f"  adaptive k in [{sd['k_min']}, {sd['k_max']}]: "
+                  f"round depths {sd['round_k_min']}-{sd['round_k_max']}, "
+                  f"{sd['k_up']} grows / {sd['k_down']} shrinks")
+    pc = r["prefix_cache"]
+    if pc["enabled"]:
+        print(f"prefix cache: {pc['hits']}/{pc['hits'] + pc['misses']} "
+              f"admissions hit ({pc['hit_rate']:.0%}), "
+              f"{pc['prompt_tokens_saved']}/{pc['prompt_tokens']} prefill "
+              f"tokens saved ({pc['saved_frac']:.0%}), "
+              f"{pc['cow_copies']} CoW copies, "
+              f"{pc['cache_evictions']} LRU evictions, "
+              f"{pc['blocks_cached_end']} blocks cached at exit")
     print("MI per request:")
     for r_ in r["requests"]:
         print(f"  #{r_.rid} ({r_.finish_reason}): "

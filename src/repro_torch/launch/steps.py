@@ -1,4 +1,5 @@
-"""Serving step builders: one decode step, and chunked decode.
+"""Serving step builders: one decode step, chunked decode, and the
+draft / verify / commit of uncertainty-gated speculative decoding.
 
 PyTorch counterpart of the serving half of ``repro.launch.steps``.  The
 JAX package's ``jax.lax.scan`` over ``chunk`` decode steps becomes a
@@ -17,6 +18,13 @@ In operand mode the step is unused and ``layers.decode_head_noise`` keys
 by (seed, slot, depth) instead, so a slot's draws depend only on its own
 token position.  The seed is ``entropy.seed``, or 17 without an entropy
 source (the JAX package's legacy ``PRNGKey(17)`` stream).
+
+Speculative decoding runs in operand mode only (the engine refuses the
+kernel stream, whose key folds the global step): the noise then depends
+on (slot, depth) alone, so a verify at a draft position draws plain
+decode's variates.  The draft and the verify write into buffers the
+caller owns, as the chunk does, so the runner captures both as one CUDA
+graph per draft depth.
 """
 
 from __future__ import annotations
@@ -82,3 +90,105 @@ def build_scan_decode(cfg: ArchConfig, entropy=None, chunk: int = 8,
         return token, cache, flags, ys
 
     return scan_decode
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding (draft / verify / commit)
+# ---------------------------------------------------------------------------
+
+def build_spec_draft(cfg: ArchConfig, entropy=None, k: int = 4,
+                     draft_samples: int = 1, head_noise=None):
+    """``k``-step draft of a speculative round.
+
+    Returns ``spec_draft(params, token, cache, hiddens, ys, states) ->
+    (token, cache)``.  Each step runs the full model body
+    (``M.decode_hidden``: the same code at the same shapes as a chunk's
+    step, so its KV and state writes at the slot's depth are plain
+    decode's for the same fed token) and proposes with a
+    ``draft_samples``-draw head (0: the mean head).  Written in place:
+    ``hiddens[j]`` (B, d) the body's hidden at step j, ``ys[j, 0]`` the
+    proposal (a float, exact below 2^24), ``states[leaf][j]`` the
+    post-step recurrent leaves (hybrid, ssm) for rollback, and ``token``
+    the last proposal.  No separate draft cache exists: a rejected tail
+    leaves junk KV above the kept depth, which decode masks and later
+    steps overwrite.
+    """
+    seed = decode_seed(entropy)
+
+    def spec_draft(params, token, cache, hiddens, ys, states):
+        for j in range(k):
+            depth = cache["len"].clone()     # the body advances len in place
+            hidden, cache = M.decode_hidden(params, cfg, token, cache)
+            if hidden.dtype != hiddens.dtype:
+                raise TypeError(f"draft hidden is {hidden.dtype}, the "
+                                f"buffer {hiddens.dtype}")
+            out = M.head_outputs(params, cfg, hidden, depth, (seed, 0),
+                                 num_samples=draft_samples,
+                                 head_noise=head_noise)
+            hiddens[j].copy_(hidden)
+            ys[j, 0].copy_(out["next_token"])
+            token.copy_(out["next_token"])
+            for leaf, st in states.items():
+                st[j].copy_(cache[leaf])
+        return token, cache
+
+    return spec_draft
+
+
+def build_spec_verify(cfg: ArchConfig, entropy=None, k: int = 4,
+                      mi_threshold: float = 0.05, se_threshold: float = 1.0,
+                      head_noise=None):
+    """The full-S verify of a speculative round over the k draft hiddens.
+
+    Returns ``spec_verify(params, hiddens, lens0, ys) -> ys``: position j
+    runs the family's uncertain head (``M.head_outputs``) on
+    ``hiddens[j]`` (B, d) at depth ``lens0 + j``, once per position at
+    exactly plain decode's shapes (B rows), so that its outputs are the
+    ones plain decode emits there: a (k * B)-row product need not equal k
+    B-row products, and the operand noise keys column b by row b, the
+    slot.  Writes ``ys[j, 1:]`` = OUTPUTS (with the epistemic / aleatoric
+    flags) in place.
+    """
+    seed = decode_seed(entropy)
+
+    def spec_verify(params, hiddens, lens0, ys):
+        for j in range(k):
+            out = M.head_outputs(params, cfg, hiddens[j], lens0 + j,
+                                 (seed, 0), head_noise=head_noise)
+            is_epi = out["MI"] > mi_threshold
+            is_alea = (out["SE"] > se_threshold) & ~is_epi
+            torch.stack([out["next_token"].float(), out["H"], out["SE"],
+                         out["MI"], out["p_max"], is_epi.float(),
+                         is_alea.float()], out=ys[j, 1:])
+        return ys
+
+    return spec_verify
+
+
+def build_spec_commit(cfg: ArchConfig):
+    """The commit / rollback after a speculative round, in place.
+
+    ``spec_commit(cache, token, mask, new_tok, new_len, states, idx)``:
+    the slots in ``mask`` (B,) keep the round's results: their carry
+    token and depth are pinned to ``new_tok`` / ``new_len`` (the pre-round
+    depth + the tokens emitted), and their recurrent leaves rewind to
+    ``states[leaf][idx[b], :, b]``, the state after the last kept step
+    (``idx`` = emitted - 1).  KV above the kept depth needs no cleanup.
+    Other slots keep their junk-advanced carry, as inactive slots do
+    under a chunk.  Every write lands in the tensors given
+    (``torch.where`` then ``copy_``), so graphs captured over them stay
+    valid.
+    """
+    del cfg
+
+    def spec_commit(cache, token, mask, new_tok, new_len, states, idx):
+        token.copy_(torch.where(mask, new_tok, token))
+        cache["len"].copy_(torch.where(mask, new_len, cache["len"]))
+        rows = torch.arange(mask.shape[0], device=mask.device)
+        for leaf, st in states.items():
+            picked = st[idx.long(), :, rows].movedim(0, 1)   # (L, B, ...)
+            keep = mask.reshape((1, -1) + (1,) * (picked.ndim - 2))
+            cache[leaf].copy_(torch.where(keep, picked, cache[leaf]))
+        return token, cache
+
+    return spec_commit

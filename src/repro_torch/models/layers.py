@@ -203,6 +203,16 @@ def paged_scatter(pool: torch.Tensor, block_table: torch.Tensor,
     return pool
 
 
+def copy_block(pool: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+    """Copy-on-write: duplicate physical block ``src`` into ``dst`` of a
+    layer-stacked pool (L, NB + 1, BS, ...), IN PLACE over the layer
+    axis.  The pool is never rebound (a captured decode graph holds its
+    address); the engine swaps the slot's table entry to ``dst`` before
+    the slot's first write at the divergence point."""
+    pool[:, dst].copy_(pool[:, src])
+    return pool
+
+
 def paged_gather(pool: torch.Tensor, block_table: torch.Tensor):
     """Each slot's logical KV strip (B, MB*BS, ...) gathered block by
     block.  Unmapped entries gather block 0, so callers mask by
@@ -329,6 +339,35 @@ def apply_attention(p, cfg: ArchConfig, x: torch.Tensor, *,
         new_kv = (kc, vc)
     out = out.reshape(B, S, H * hd)
     return _mm(out, p["wo"]), new_kv
+
+
+def apply_attention_suffix(p, cfg: ArchConfig, x: torch.Tensor, *,
+                           prefix_kv: tuple, prefix_len: int, rot: tuple):
+    """Prefill continuation: attention for the UNCACHED suffix of a prompt
+    whose first ``prefix_len`` positions already live in the KV cache (a
+    prefix-cache hit).
+
+    x: (B, S, d) suffix hidden states at absolute positions ``prefix_len
+    + [0, S)``; ``prefix_kv``: (k, v) logical strips (B, prefix_len, Hkv,
+    D), exactly the cached span; ``rot``: ``rope_tables`` at the suffix
+    positions.  Returns (out, (k_suffix, v_suffix)), the suffix K/V that
+    the caller scatters into the pool at logical offset ``prefix_len``.
+
+    Bit for bit against the cold batch prefill: the same
+    ``flash_attention`` over exactly ``prefix_len + S`` keys, the cached
+    prefix concatenated with the suffix K/V, so the suffix rows see the
+    cold path's operands at the same indices and the same reduction
+    extent (the engine pads the suffix to the cold bucket).  Query rows
+    are independent, so the query chunking may differ."""
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = _qkv(p, cfg, x, rot)
+    kc, vc = prefix_kv
+    ks = torch.cat([kc.to(k.dtype), k], dim=1)
+    vs = torch.cat([vc.to(v.dtype), v], dim=1)
+    out = flash_attention(q, ks, vs, causal=True, q_chunk=cfg.attn_q_chunk,
+                          kv_chunk=cfg.attn_kv_chunk, q_offset=prefix_len)
+    return _mm(out.reshape(B, S, H * hd), p["wo"]), (k, v)
 
 
 def apply_attention_chunk(p, cfg: ArchConfig, x: torch.Tensor, *,

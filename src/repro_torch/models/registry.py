@@ -12,7 +12,12 @@ serving API:
     prefill_chunk(params, cfg, tokens, cache, slot, offset, new_len, span,
                   **family_kw)
     decode_step(params, cfg, token, cache, key, head_noise=None)
-    write_slot(cfg, cache, slot, sub, block_row=None)
+    decode_hidden(params, cfg, token, cache) -> (hidden, cache)
+    head_outputs(params, cfg, hidden, cache_len, key, num_samples=None,
+                 head_noise=None)
+    prefill_suffix(params, cfg, tokens, prefix_kv, prefix_len)
+    write_slot(cfg, cache, slot, sub, block_row=None, offset=0)
+    copy_block(cfg, cache, src, dst)
 
 Caches are slot-indexed and updated in place: every leaf carries the
 slot axis at position 1 ((L, B, ...) KV strips, SSM states, conv tails)
@@ -39,12 +44,16 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, hybrid, moe, ssm, transformer
+from repro_torch.models import layers as L
+from repro_torch.models import uncertain_head as U
 from repro_torch.models.layers import paged_index, paged_table_width  # noqa: F401
 
 # cache leaves that live in the global block pool under the paged layout
 PAGED_KV_LEAVES = ("k", "v", "attn_k", "attn_v")
 
-# per-slot recurrent state leaves (ssm, hybrid): written whole at admission
+# per-slot recurrent state leaves (ssm, hybrid): written whole at admission,
+# and rewound to the accepted step after a speculative round
+# (``steps.build_spec_commit``)
 RECURRENT_LEAVES = ("ssm", "conv")
 
 _FAMILIES = {"dense": transformer, "vlm": transformer, "audio": encdec,
@@ -112,10 +121,34 @@ def supports_chunked_prefill(cfg: ArchConfig) -> bool:
 
 
 def supports_prefix_cache(cfg: ArchConfig) -> bool:
-    """Only the dense token-only family: moe couples tokens through the
-    expert-capacity cumsum, so a suffix-only prefill sees another
-    contention set and can drop other assignments."""
+    """Whether prompt KV can be shared across requests by token prefix:
+    only where per-position prompt state is a pure function of the token
+    prefix.  vlm and encdec mix modality inputs into the cache, ssm and
+    hybrid carry recurrent state that a KV-block prefix cannot rebuild,
+    and moe couples tokens through the expert-capacity cumsum (a
+    suffix-only prefill sees another contention set).  That leaves the
+    dense family."""
     return cfg.family == "dense"
+
+
+def supports_spec_decode(cfg: ArchConfig) -> bool:
+    """Every family has the ``decode_hidden`` / ``head_outputs`` split, so
+    every family speculates.  Losslessness rests on per-slot decode state
+    being independent across slots given the fed tokens; the one
+    cross-slot coupling is moe's capacity cumsum, which bites only when an
+    expert overflows during a one-token decode dispatch."""
+    return True
+
+
+def prefill_suffix(params, cfg: ArchConfig, tokens, prefix_kv: dict,
+                   prefix_len: int):
+    """Prefill only the uncached suffix of a prefix-cache hit
+    (``transformer.prefill_suffix``); ``supports_prefix_cache`` gates it."""
+    if not supports_prefix_cache(cfg):
+        raise ValueError(f"family {cfg.family!r} cannot prefix-share "
+                         "prompt KV")
+    return module_for(cfg).prefill_suffix(params, cfg, tokens, prefix_kv,
+                                          prefix_len)
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
@@ -162,6 +195,37 @@ def decode_step(params, cfg: ArchConfig, token, cache, key, head_noise=None):
                                        head_noise=head_noise)
 
 
+def decode_hidden(params, cfg: ArchConfig, token, cache):
+    """The KV-writing decode BODY alone: ``(hidden (B, d), cache)`` with
+    the step's cache writes done and ``len`` advanced in place, but no
+    head.  ``decode_step`` is exactly this followed by ``head_outputs`` at
+    the pre-step depths: the split that speculative decoding builds on
+    (the draft runs the body, so its KV writes are plain decode's; the
+    verify runs only the head)."""
+    return module_for(cfg).decode_hidden(params, cfg, token, cache)
+
+
+def head_outputs(params, cfg: ArchConfig, hidden, cache_len, key,
+                 num_samples=None, head_noise=None):
+    """The family-shared uncertain head (``uncertain_head.head_outputs``):
+    {next_token, H, SE, MI, p_max} from ``num_samples`` (default
+    ``cfg.mc_samples``; 0 the mean head) LRT draws over ``hidden`` at
+    depth ``cache_len``."""
+    return U.head_outputs(params, cfg, hidden, cache_len, key,
+                          head_noise=head_noise, num_samples=num_samples)
+
+
+def copy_block(cfg: ArchConfig, cache, src: int, dst: int):
+    """Copy-on-write: duplicate physical block ``src`` into ``dst`` in
+    every paged KV leaf, in place over the layer axis (the caller has
+    swapped the slot's table entry to ``dst``); other leaves are left
+    alone."""
+    for name in PAGED_KV_LEAVES:
+        if name in cache:
+            L.copy_block(cache[name], src, dst)
+    return cache
+
+
 def kv_bytes(cache) -> int:
     """Allocated bytes of the self-attention KV (dense: the strips; paged:
     the whole block pool without its sink block)."""
@@ -176,15 +240,18 @@ def kv_bytes(cache) -> int:
     return total
 
 
-def write_slot(cfg: ArchConfig, cache, slot: int, sub, block_row=None):
+def write_slot(cfg: ArchConfig, cache, slot: int, sub, block_row=None,
+               offset: int = 0):
     """Write a batch-1 request cache ``sub`` into decode slot ``slot``, in
     place, as the reference does.  Dense: EVERY leaf of ``sub`` lands in
     the slot, at the leading corner of its slot row: the (L, 1, max_len,
     ...) strips, the recurrent states and conv tails, and ``len``.
     Paged: ``block_row`` (MB,) is the slot's physical-block row from the
     host allocator; it is installed in the table, the ``PAGED_KV_LEAVES``
-    strips are scattered through it from position 0 (strip tokens past
-    the mapped blocks drop into the sink), and every other leaf (the
+    strips are scattered through it from logical position ``offset`` (0;
+    a prefix-cache hit passes the matched length, so the suffix lands
+    after the shared blocks; strip tokens past the mapped blocks drop into
+    the sink), and every other leaf (the
     hybrid family's states and conv tails, the encdec family's ``ck`` /
     ``cv``) takes the dense slot write, an indexed assignment in place."""
     paged = "block_table" in cache
@@ -203,7 +270,8 @@ def write_slot(cfg: ArchConfig, cache, slot: int, sub, block_row=None):
             continue
         pool = cache[n]
         strip = s[:, 0]                            # (L or A, S, Hkv, hd)
-        lens = torch.zeros((1,), dtype=torch.int32, device=pool.device)
+        lens = torch.full((1,), offset, dtype=torch.int32,
+                          device=pool.device)
         phys, off = paged_index(pool.shape[1], pool.shape[2], table, lens,
                                 strip.shape[1])
         pool[:, phys[0], off[0]] = strip.to(pool.dtype)

@@ -161,6 +161,42 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int,
     return hidden[:, -1], cache
 
 
+def prefill_suffix(params, cfg: ArchConfig, tokens: torch.Tensor,
+                   prefix_kv: dict, prefix_len: int):
+    """Prefill ONLY the uncached suffix of a prefix-cache hit.
+
+    tokens: (B, S) the suffix at absolute positions ``prefix_len + [0,
+    S)``; ``prefix_kv``: {"k", "v"} logical strips (L, B, W, Hkv, hd)
+    gathered from the pool, W >= ``prefix_len``.  Returns (hidden_last,
+    sub) where sub holds the SUFFIX-ONLY K/V strips (L, B, S, Hkv, hd),
+    which the caller scatters at logical offset ``prefix_len``
+    (``registry.write_slot(..., offset=prefix_len)``), and the slot's
+    depth ``len = prefix_len + S``.  Bit for bit against the cold prefill
+    of the whole prompt (``layers.apply_attention_suffix``)."""
+    prefix_len = int(prefix_len)
+    x = L.apply_embed(params["embed"], tokens)
+    B, S = tokens.shape
+    positions = prefix_len + torch.arange(S, device=x.device)[None, :]
+    rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        bp = layer(params["blocks"], i)
+        h, (k, v) = L.apply_attention_suffix(
+            bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
+            prefix_kv=(prefix_kv["k"][i, :, :prefix_len],
+                       prefix_kv["v"][i, :, :prefix_len]),
+            prefix_len=prefix_len, rot=rot)
+        x = x + h
+        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+        ks.append(k)
+        vs.append(v)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    lens = torch.full((B,), prefix_len + S, dtype=torch.int32,
+                      device=tokens.device)
+    return x[:, -1], {"k": torch.stack(ks), "v": torch.stack(vs),
+                      "len": lens}
+
+
 def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
                   slot: int, offset: int, new_len: int, span: int) -> dict:
     """One chunk of an incremental prompt prefill for ``slot``.

@@ -16,6 +16,14 @@ Two entropy modes, as in the JAX package:
   ``head_noise`` provider with the same signature), then the plain
   logits path.
 
+The split is what speculative decoding builds on (``launch/steps.py``):
+the draft runs the body and proposes with a ``num_samples`` override of
+this head (one draw, or 0 for the mean head), and the verify runs this
+head alone at each draft position, at plain decode's shapes.  In operand
+mode the noise depends on (slot, depth) only, so the verify's outputs
+are plain decode's.  The fused kernel head is taken only without an
+override, as in the reference.
+
 By design, the kernel mode takes the fused head for EVERY family.  The
 JAX package takes its fused kernel for the dense and vlm families only
 and gives the moe, ssm, hybrid and encdec families its plain operand
@@ -41,28 +49,35 @@ HeadNoise = Callable[[int, torch.Tensor, int, int], torch.Tensor]
 
 def head_outputs(params, cfg: ArchConfig, hidden: torch.Tensor,
                  cache_len: torch.Tensor, key: tuple[int, int],
-                 head_noise: Optional[HeadNoise] = None) -> dict:
+                 head_noise: Optional[HeadNoise] = None,
+                 num_samples: Optional[int] = None) -> dict:
     """Uncertain head over a decode hidden state.
 
     hidden: (B, d); ``cache_len``: (B,) PRE-step depths (the operand noise
     site); ``key``: (seed, step) or (seed, step, offset) of the head
     stream, ``step`` an int or a one-element int32 device tensor that the
-    kernel reads (``ops.uncertainty_head_sampled``).  Returns
+    kernel reads (``ops.uncertainty_head_sampled``).  ``num_samples``
+    overrides ``cfg.mc_samples`` for the draft head (0: the mean head,
+    the greedy argmax of the softmax mean with no draws).  Returns
     {next_token, H, SE, MI, p_max} per slot.
     """
     head = params["head"]
-    S = cfg.mc_samples
+    S = cfg.mc_samples if num_samples is None else num_samples
     seed, step = key[:2]
-    if cfg.head_entropy == "kernel" and not cfg.logits_softcap:
+    if cfg.head_entropy == "kernel" and num_samples is None \
+            and not cfg.logits_softcap:
         from repro_torch.kernels import ops
         unc = ops.uncertainty_head_sampled(
             hidden, head["mu"], head["sigma"], seed, step, num_samples=S,
             step_offset=key[2] if len(key) > 2 else 0)
         return {"next_token": unc["pred"], "H": unc["H"], "SE": unc["SE"],
                 "MI": unc["MI"], "p_max": unc["p_max"]}
-    xi = (head_noise or L.decode_head_noise)(seed, cache_len, S,
-                                             cfg.vocab_size)
-    logits = L.head_logits_sampled(head, hidden[None], cfg, xi)
+    if S > 0:
+        xi = (head_noise or L.decode_head_noise)(seed, cache_len, S,
+                                                 cfg.vocab_size)
+        logits = L.head_logits_sampled(head, hidden[None], cfg, xi)
+    else:
+        logits = L.head_logits_mean(head, hidden, cfg)[None]
     unc = uncertainty_from_logits(logits)
     p_max, tok = unc["p_mean"].max(dim=-1)
     return {"next_token": tok.to(torch.int32), "H": unc["H"],

@@ -91,11 +91,36 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result(tmp_path):
         assert '"ok"' not in out.stdout
 
 
+# the flags each ported feature needs beside its own: the prefix cache
+# shares blocks of the paged pool, speculative decoding needs the operand
+# (depth-keyed) head noise
+PORTED = {"--prefix-cache": ["--kv-layout", "paged", "--shared-prefix", "12"],
+          "--spec-decode": ["--entropy", "operand"]}
+
+
 @pytest.mark.parametrize("flags", [
     ["--prefix-cache", "on"], ["--spec-decode", "on"],
     ["--policy", "priority"], ["--escalate-mi", "0.5"], ["--mesh", "1x4"]])
 def test_cli_refuses_unported_features(flags):
+    """The unported features' flags raise; the prefix cache and
+    speculative decoding, ported since, build and serve on the CPU at
+    the reduced size through the same entry points."""
     from repro_torch.launch.serve import build_parser, serve
+    if flags[0] in PORTED:
+        args = build_parser().parse_args(
+            ["--device", "cpu", "--slots", "2", "--num-requests", "4",
+             "--prompt-len", "16", "--gen-len", "4", "--chunk", "4",
+             *PORTED[flags[0]], *flags])
+        r = serve(args)
+        assert r["gen_tokens"] == 16
+        if flags[0] == "--prefix-cache":
+            # the second wave hits the 12 shared tokens
+            pc = r["prefix_cache"]
+            assert pc["enabled"] and pc["hits"] == 2
+            assert pc["prompt_tokens_saved"] >= 24
+        else:
+            assert r["spec_decode"]["enabled"]
+        return
     args = build_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         serve(args)

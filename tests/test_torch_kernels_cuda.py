@@ -1745,6 +1745,127 @@ def test_cuda_writes_between_chunks_do_not_synchronize(cuda_device):
     assert torch.equal(cache["block_table"].cpu(), torch.from_numpy(table))
 
 
+@pytest.mark.parametrize("offset,span", [(200, 256), (264, 320)])
+def test_cuda_prefill_mma_at_prefix_hit_offsets(cuda_device, offset, span):
+    """A prefix hit's suffix walk starts mid-block (qwen2-1.5B: H 12,
+    Hkv 2, D 128, bf16, 64-token chunks; a 200-token hit of a 256-token
+    prompt, a 264-token hit of a 320-token one): the tensor-core kernel
+    within 2e-2 of the plain version, no NaN; and the rows a chunk at
+    offset 200 shares with the cold walk's chunk at offset 192 are bit
+    for bit the same."""
+    q, k, v, row = _prefill_bf16(cuda_device, offset, 64, 12, 2, 128, 16,
+                                 span)
+    for kc in (1024, 64):
+        got = PA.paged_prefill_attention_cuda(q, k, v, row, offset, span, kc)
+        want = PA.paged_prefill_attention_plain(q, k, v, row, offset, span,
+                                                kc)
+        assert not torch.isnan(got).any()
+        assert_close(got.float(), want.float().cpu(), atol=2e-2)
+    if offset == 200:
+        cold = PA.paged_prefill_attention_cuda(
+            torch.cat([torch.zeros_like(q[:, :8]), q[:, :56]], dim=1), k, v,
+            row, 192, span, 1024)
+        hit = PA.paged_prefill_attention_cuda(q, k, v, row, 200, span, 1024)
+        assert torch.equal(cold[:, 8:].view(torch.int16),
+                           hit[:, :56].view(torch.int16))
+
+
+def test_cuda_copy_block_lands_where_the_captured_chunk_reads(cuda_device):
+    """The copy-on-write of a prefix block under a captured decode chunk:
+    ``runner.copy_block`` copies in place (no pool is rebound), the slot's
+    table swaps to the copy, and the replay, which reads the pools at
+    their captured addresses, equals the eager chunk bit for bit even with
+    the original block then scribbled over (the slot reads the copy)."""
+    runner = _graph_runner(cuda_device, "operand", "kernel")
+    r = np.random.default_rng(4)
+    with torch.inference_mode():
+        tok, cache, active, flags = runner.start()
+        ptrs = {n: t.data_ptr() for n, t in cache.items()}
+        table = np.full((3, 8), -1, np.int32)
+        table[0, :4] = (5, 2, 9, 14)
+        runner.write_table(cache, table)
+        prompt = r.integers(1, 511, size=8).astype(np.int32)
+        runner.set_len(cache, 0, 0)
+        runner.prefill_chunk(cache, 0, prompt, 0, 8, 8)
+        runner.copy_block(cache, 2, 11)
+        table[0, 1] = 11
+        runner.write_table(cache, table)
+        assert {n: t.data_ptr() for n, t in cache.items()} == ptrs
+        for n in ("k", "v"):
+            assert torch.equal(cache[n][:, 11], cache[n][:, 2])
+        tok[0].fill_(int(prompt[-1]))
+        active[0].fill_(True)
+        copy = (tok.clone(), {k: v.clone() for k, v in cache.items()},
+                active.clone(), {k: v.clone() for k, v in flags.items()})
+        for n in ("k", "v"):
+            cache[n][:, 2].fill_(7.0)
+        out = runner.scan(tok, cache, 0, active, flags)
+        ys = torch.empty_like(runner.ys)
+        step = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+        want = runner._scan(runner.params, copy[0], copy[1], step, copy[2],
+                            copy[3], ys)
+        assert torch.equal(out[3].view(torch.int32), want[3].view(torch.int32))
+        assert torch.equal(out[0], want[0])
+
+
+def test_cuda_spec_round_replay_equals_the_eager_round(cuda_device):
+    """A speculative round of depth 4 on a reduced qwen2 runner (operand
+    entropy, kernel decode attention): the first round of the depth runs
+    eagerly and captures the graph; the next rounds replay it and equal
+    the same rounds run eagerly (``runner.spec_fns``) on a copy of the
+    carry, bit for bit (proposals, verify outputs, token, depths, pools),
+    and count the captured launches."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.launch.engine.runner import ModelRunner
+    from repro_torch.models import registry as TM
+
+    cfg = dataclasses.replace(reduced(get_config("qwen2_1_5b")),
+                              head_entropy="operand", decode_attn="kernel")
+    params = TM.init_params(cfg, torch.Generator(device=cuda_device)
+                            .manual_seed(0), cuda_device)
+    runner = ModelRunner(params, cfg, num_slots=3, max_len=48, chunk=4,
+                         entropy=None, mi_threshold=0.05, se_threshold=1.0,
+                         kv_layout="paged", kv_block=4, kv_blocks=36,
+                         device=cuda_device, spec_k_max=6)
+    r = np.random.default_rng(6)
+    with torch.inference_mode():
+        tok, cache, active, flags = runner.start()
+        table = np.full((3, 12), -1, np.int32)
+        table[:, :10] = r.permutation(36)[:30].reshape(3, 10)
+        runner.write_table(cache, table)
+        lens0 = np.zeros((3,), np.int32)
+        for slot in range(3):
+            prompt = r.integers(1, 511, size=9 + slot).astype(np.int32)
+            runner.prefill(cache, slot, prompt, table[slot])
+            tok[slot].fill_(int(prompt[-1]))
+            lens0[slot] = len(prompt)
+        assert 4 not in runner.spec_graphs
+        runner.spec_round(4, lens0)                 # eager, then captured
+        assert 4 in runner.spec_graphs and runner.spec_capture_s[4] > 0
+        draft, verify = runner.spec_fns(4)
+        for _ in range(2):
+            lens0 = cache["len"].cpu().numpy()
+            tc = tok.clone()
+            cc = {n: t.clone() for n, t in cache.items()}
+            launches.reset()
+            ys = runner.spec_round(4, lens0).clone()
+            assert launches.snapshot()["paged_decode_attention"] \
+                == 4 * cfg.num_layers
+            hid = torch.empty_like(runner.spec_hid)
+            eys = torch.empty_like(runner.spec_ys)
+            draft(runner.params, tc, cc, hid, eys, {})
+            verify(runner.params, hid, torch.from_numpy(lens0).to(
+                cuda_device), eys)
+            assert torch.equal(ys.view(torch.int32),
+                               eys[:4].view(torch.int32))
+            assert torch.equal(tc, tok)
+            for n in ("len", "k", "v"):
+                a, b = cc[n], cache[n]
+                if n != "len":
+                    a, b = a[:, :-1], b[:, :-1]
+                assert torch.equal(a, b), n
+
+
 if __name__ == "__main__":
     sys.exit(pytest.main([__file__, "-q", "--noconftest", "-p",
                           "no:cacheprovider"]))
