@@ -144,9 +144,23 @@ Phases (any failure exits non-zero before the result line):
      bit for bit against spec off (rounds, acceptance, rollbacks,
      full-model calls, graph capture time, ms a step and tok/s printed,
      none claimed); every replayed spec round against the eager round.
- 15. one JSON line of per-kernel numbers (eleven kernels; the serving
+ 15. priority scheduling and the escalation lane: qwen2-1.5B at full
+     width (``risk_phase``) on the priority burst of
+     ``benchmarks/bench_serve.py`` (2 slots, chunk 8, max_len 80, six
+     class-2 and three class-0 requests), kernel path and kernel entropy,
+     each engine serving it twice and the second run measured: fifo, then
+     priority with the escalation lane armed at the upper quartile of the
+     fifo run's chunk-end carried MI and S 40 (class latency, queue and
+     service time, preemptions, escalations, the lane's steps, seconds and
+     graph capture printed; every request at full length, preemptions > 0,
+     1 to 8 escalations, finite H / SE / MI, the pool balanced); every
+     lane chunk replayed from its graph against the eager chunk bit for
+     bit; preempt-and-restore in operand entropy (one slot, a 256-token
+     class-2 request preempted at step 8) bit for bit against the solo
+     runs; the fused head at S 40, M 1 and 4, against its plain version.
+ 16. one JSON line of per-kernel numbers (eleven kernels; the serving
      kernels' launches are phase 4's first run plus phases 9's, 11's,
-     12's, 13's and 14's, and phase 10's for the head), the card's
+     12's, 13's, 14's and 15's, and phase 10's for the head), the card's
      nvidia-smi line, then the result line.
 
 Imports nothing of the JAX package.
@@ -163,6 +177,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -349,15 +364,18 @@ def plan_text(M: int, K: int, V: int, mu, sigma) -> str:
             f"scratch {p.scratch_bytes / 1e6:.2f} MB")
 
 
-def check_head(dev) -> dict:
+def check_head(dev, S: int = 10, Ms: tuple = (4, 16)) -> dict:
+    """The fused head at qwen2-1.5B's widths with S draws at each row
+    count of ``Ms``, in xi and Philox modes, against its plain version;
+    determinism, the device step, and the device time beside the bound
+    (the serving path's M 4 as the returned row)."""
     from repro_torch.kernels import rng
     UH = kernel_module("uncertainty_head")
 
-    S = 10
     mu, sigma, g = head_case(dev, 1)
     K, V = mu.shape
     worst, rows = 0.0, {}
-    for M in (4, 16):
+    for M in Ms:
         x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
         xi = torch.randn((S, M, V), generator=g, device=dev)
         for mode, kw in (("xi", {"xi": xi}), ("philox",
@@ -367,10 +385,11 @@ def check_head(dev) -> dict:
                                              **kw)
             xi_full = xi if mode == "xi" else rng.head_normal(
                 7, 3, S, M, torch.arange(V, device=dev))
-            e = compare_heads(f"head M={M} {mode}", got, want, x, mu, sigma,
-                              xi_full)
+            e = compare_heads(f"head S={S} M={M} {mode}", got, want, x, mu,
+                              sigma, xi_full)
             worst = max(worst, e)
-            print(f"  head M={M} {mode}: ok (max |err| {e:.3g})", flush=True)
+            print(f"  head S={S} M={M} {mode}: ok (max |err| {e:.3g})",
+                  flush=True)
         a = UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, seed=7,
                                      step=3)
         b = UH.uncertainty_head_cuda(x, mu, sigma, num_samples=S, seed=7,
@@ -395,18 +414,19 @@ def check_head(dev) -> dict:
                     "plain_ms": time_ms(plain, 1, 0),
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
             g_ms = gemv_ms(x, mu, sigma)
-            print(f"  head M=4 timed: {rows['ms']:.4f} ms (L2 cold "
+            print(f"  head S={S} M=4 timed: {rows['ms']:.4f} ms (L2 cold "
                   f"{rows['cold_ms']:.4f}), bound {b_ms:.4f} ({b_by}, "
                   f"{b_ms / rows['ms']:.0%} of it); the GEMV pair on the "
                   f"same bytes {g_ms:.4f} ms ({b_ms / g_ms:.0%}); "
-                  f"{plan_text(M, K, V, mu, sigma)}", flush=True)
+                  f"{plan_text(M, K, V, mu, sigma)}; plain "
+                  f"{rows['plain_ms']:.2f} ms", flush=True)
         else:
             run16 = lambda: UH.uncertainty_head_cuda(  # noqa: E731
                 x, mu, sigma, num_samples=S, seed=7, step=3)
             ms16 = device_ms(run16, 10)
             b16, _ = bound(M * K * 2 + 2 * K * V * 4 + 5 * M * 4,
                            4.0 * M * K * V, F32_FLOPS)
-            print(f"  head M={M} timed: {ms16:.4f} ms (L2 cold "
+            print(f"  head S={S} M={M} timed: {ms16:.4f} ms (L2 cold "
                   f"{cold_ms(run16):.4f}), bound {b16:.4f} "
                   f"({b16 / ms16:.0%} of it); "
                   f"{plan_text(M, K, V, mu, sigma)}", flush=True)
@@ -3364,6 +3384,268 @@ def spec_phase(launches, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 15: priority scheduling, preempt-and-restore and the escalation lane
+# (qwen2-1.5B)
+# --------------------------------------------------------------------------
+
+# the priority burst of benchmarks/bench_serve.py:493-512: 2 slots, chunk
+# 8, max_len 80 (= prompt 16 + gen 56 + chunk 8), six class-2 requests
+# (16-token prompts, heavy-tailed generations, two bursts) and three
+# class-0 requests (8-token prompts, 8 tokens, SLO 0.5 s) arriving mid-burst
+BURST_FLAGS = ["--arch", "qwen2_1_5b", "--slots", "2", "--chunk", "8",
+               "--prompt-len", "16", "--gen-len", "56", "--kv-layout",
+               "paged", "--kv-block", "16", "--prefill-chunk", "64",
+               "--seed", "0", "--entropy", "kernel", *KERNEL_PATH]
+BURST_LO_GENS = (32, 48, 16, 40, 24, 16)
+BURST_LO_ARRIVALS = (0, 0, 0, 0, 16, 16)
+BURST_HI_ARRIVALS = (4, 12, 24)
+ESCALATE_S = 40
+# preempt-and-restore at full width: one slot, a class-2 request (prompt
+# 256, gen 32) preempted by a class-0 arrival at step 8 (prompt 64, gen 16)
+RESTORE_FLAGS = ["--arch", "qwen2_1_5b", "--slots", "1", "--chunk", "8",
+                 "--prompt-len", "256", "--gen-len", "32", "--kv-layout",
+                 "paged", "--kv-block", "16", "--prefill-chunk", "64",
+                 "--seed", "0", "--entropy", "operand", "--policy",
+                 "priority", *KERNEL_PATH]
+
+
+def burst_requests(vocab: int) -> list:
+    from repro_torch.launch.engine import Request
+
+    prompts = np.random.default_rng(7).integers(0, vocab, size=(9, 16)) \
+        .astype(np.int32)
+    reqs = [Request(rid=i, prompt=prompts[i], max_new_tokens=gen,
+                    priority=2, arrival_step=arr)
+            for i, (gen, arr) in enumerate(zip(BURST_LO_GENS,
+                                               BURST_LO_ARRIVALS))]
+    reqs += [Request(rid=6 + j, prompt=prompts[6 + j, :8], max_new_tokens=8,
+                     priority=0, slo_s=0.5, arrival_step=arr)
+             for j, arr in enumerate(BURST_HI_ARRIVALS)]
+    return reqs
+
+
+def check_risk_run(label: str, engine, r: dict) -> None:
+    """Every request finished at its full length with finite H / SE / MI
+    and MI >= 0, and the pool back at identity."""
+    for req in r["requests"]:
+        u = torch.tensor([req.H, req.SE, req.MI])
+        if req.state != "finished" or len(req.tokens) != req.max_new_tokens \
+                or not torch.isfinite(u).all() or (u[2] < 0).any():
+            fail(f"{label}: request {req.rid} unfinished ({req.state}, "
+                 f"{len(req.tokens)} of {req.max_new_tokens} tokens) or "
+                 "non-finite")
+    alloc = engine._last_alloc
+    if alloc.in_use or alloc._reserved \
+            or sorted(alloc._free) != list(range(alloc.num_blocks)):
+        fail(f"{label}: pool unbalanced ({alloc.in_use} in use, "
+             f"{alloc._reserved} reserved)")
+
+
+def class_line(label: str, r: dict) -> str:
+    return f"  {label}: " + "; ".join(
+        f"class {cls} latency p50 {c['latency_p50_s']:.3f} p99 "
+        f"{c['latency_p99_s']:.3f} s, queue p50 {c['queue_p50_s']:.3f} p99 "
+        f"{c['queue_p99_s']:.3f} s, service p50 {c['service_p50_s']:.3f} "
+        f"p99 {c['service_p99_s']:.3f} s, {c['preemptions']} preemptions, "
+        f"{c['escalations']} escalations"
+        for cls, c in sorted(r["per_class"].items()))
+
+
+def lane_graph_vs_eager(engine, seed: int) -> list:
+    """Wrap the escalation lane runner's ``scan``: every chunk the lane
+    replays from its graph is held against the eager chunk
+    (``steps.build_scan_decode`` at the lane's S) on a copy of the carry
+    it started from, bit for bit (outputs, token, depth, flags, the dense
+    K/V).  Returns the list the compared chunks are counted in; the
+    caller restores the runner with ``del runner.scan``."""
+    from repro_torch.core.entropy import KernelEntropy
+    from repro_torch.launch import steps as S
+
+    runner = engine.escalation_runner(engine.escalate_s)
+    eager = S.build_scan_decode(runner.cfg, entropy=KernelEntropy(seed=seed),
+                                chunk=runner.chunk,
+                                mi_threshold=runner._mi_threshold,
+                                se_threshold=runner._se_threshold)
+    graphed = runner.scan
+    checked = []
+
+    def bits(t):
+        return t.contiguous().view(torch.int32) if t.element_size() == 4 \
+            else t.contiguous().view(torch.int16)
+
+    def compare(tok, cache, step0, active, flags):
+        copy = [tok.clone(), {k: v.clone() for k, v in cache.items()},
+                active.clone(), {k: v.clone() for k, v in flags.items()}]
+        out = graphed(tok, cache, step0, active, flags)
+        ys = torch.empty_like(runner.ys)
+        step = torch.full((1,), step0, dtype=torch.int32, device=tok.device)
+        e_tok, e_cache, e_flags, ys = eager(runner.params, *copy[:2], step,
+                                            *copy[2:], ys)
+        same = {"outputs": torch.equal(bits(out[3]), bits(ys)),
+                "token": torch.equal(out[0], e_tok),
+                "flags": all(torch.equal(flags[k], e_flags[k])
+                             for k in flags)}
+        for k in cache:
+            same[k] = torch.equal(bits(cache[k]), bits(e_cache[k]))
+        if not all(same.values()):
+            fail(f"lane graph vs eager: chunk {len(checked)} at step {step0} "
+                 f"differs in {', '.join(k for k, v in same.items() if not v)}")
+        checked.append(step0)
+        return out
+
+    runner.scan = compare
+    return checked
+
+
+def risk_phase(launches, smi: str) -> dict:
+    """Phase 15: qwen2-1.5B at full width.  (a) The priority burst on the
+    kernel path with kernel entropy, each engine serving it twice and the
+    second run measured: fifo, then priority with the escalation lane
+    armed at the upper quartile of the fifo run's chunk-end carried MI and
+    S 40; the launch counts zeroed just before the measured priority run
+    and read just after it.  Gates: every request at its full length,
+    preemptions > 0, 1 <= escalations < 9, finite H / SE / MI with MI >=
+    0, the pool balanced after each run.  (c) The lane's graphed chunk
+    against its eager chunk, in the priority engine's first run.  (b)
+    Preempt-and-restore in operand entropy, one slot: the victim's and the
+    class-0 stream bit for bit against their solo runs on the same engine,
+    the pool at identity.  (d) The fused head at S 40 (M 1 and 4).
+    Returns the measured priority run's launches."""
+    from repro_torch.launch.serve import build_engine
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    args = serve_args(BURST_FLAGS, [])
+    fifo = build_engine(args)
+    params = fifo[0].params
+    vocab = fifo[1].vocab_size
+    print(f"risk: fifo engine built in {time.perf_counter() - t0:.1f}s "
+          f"({smi})", flush=True)
+
+    fifo[0].run(burst_requests(vocab))                   # warm-up
+    torch.cuda.synchronize()
+    r_fifo = fifo[0].run(burst_requests(vocab))
+    check_risk_run("fifo burst", fifo[0], r_fifo)
+    # the escalation threshold: the upper quartile of the MI the fifo run
+    # carried at its chunk ends (each request's unfinished chunks)
+    ends = [m for q in r_fifo["requests"]
+            for m in q.MI[args.chunk - 1:len(q.MI) - 1:args.chunk]]
+    thr = float(np.quantile(ends, 0.75))
+    print(f"risk: escalate-mi {thr:.6g}, the upper quartile of {len(ends)} "
+          f"chunk-end carried MIs of the fifo run (range "
+          f"{min(ends):.6g}-{max(ends):.6g})", flush=True)
+
+    t0 = time.perf_counter()
+    p_args = serve_args(BURST_FLAGS + ["--policy", "priority", "--escalate-mi",
+                                       repr(thr), "--escalate-s",
+                                       str(ESCALATE_S)], [])
+    prio, cfg = build_engine(p_args, params)
+    lane_runner = prio.escalation_runner(ESCALATE_S)
+    print(f"risk: priority engine built in {time.perf_counter() - t0:.1f}s; "
+          f"lane runner (S {lane_runner.cfg.mc_samples}, 1 slot, dense, "
+          f"{lane_runner.cfg.decode_attn}) chunk graph warm-up + capture "
+          f"{lane_runner.capture_s:.3f}s, launches a replay "
+          f"{lane_runner.captured}", flush=True)
+    if lane_runner.graph is None:
+        fail("risk: the lane runner captured no graph")
+
+    # (c) the warm-up run, every lane chunk against the eager chunk
+    checked = lane_graph_vs_eager(prio, args.seed)
+    try:
+        prio.run(burst_requests(vocab))
+    finally:
+        del lane_runner.scan
+    if not checked:
+        fail("lane graph vs eager: no lane chunk ran")
+    print(f"lane graph vs eager: {len(checked)} chunks of {args.chunk} steps "
+          f"at S {ESCALATE_S} replayed from the lane's graph, bit for bit "
+          "against the eager chunks (outputs, token, depth, flags, dense "
+          "K/V)", flush=True)
+
+    # (a) the measured priority run, its launches counted
+    launches.reset()
+    torch.cuda.synchronize()
+    r_prio = prio.run(burst_requests(vocab))
+    got = launches.snapshot()
+    check_risk_run("priority burst", prio, r_prio)
+    esc = r_prio["escalation"]
+    steps = r_prio["spec_decode"]["full_model_calls"]
+    layers = cfg.num_layers
+    want = {"paged_decode_attention": layers * steps,
+            "paged_prefill_attention": layers * r_prio["prefill_chunks"],
+            "uncertainty_head": steps + esc["steps"]}
+    for name, n in want.items():
+        if got[name] != n or n == 0:
+            fail(f"priority burst: {name} launched {got[name]} times, "
+                 f"expected {n} (> 0)")
+    if r_prio["preemptions"] < 1:
+        fail("priority burst: no preemption")
+    if not 1 <= esc["escalations"] < 9:
+        fail(f"priority burst: {esc['escalations']} escalations, expected "
+             "1 to 8")
+    hi_f = r_fifo["per_class"][0]["latency_p99_s"]
+    hi_p = r_prio["per_class"][0]["latency_p99_s"]
+    print(f"priority burst ({smi}): hi_p99_fifo / hi_p99_priority "
+          f"{hi_f / hi_p:.3f} ({hi_f:.3f} / {hi_p:.3f} s; the reference's "
+          f"bar 2x, a reading here); preemptions {r_prio['preemptions']}; "
+          f"escalations {esc['escalations']} by class {esc['by_class']}, "
+          f"{esc['tokens']} escalated tokens, lane {esc['steps']} steps in "
+          f"{esc['decode_s']:.3f} s ({esc['decode_s'] / esc['steps'] * 1e3:.2f}"
+          f" ms a step), lane capture {lane_runner.capture_s:.3f} s; main "
+          f"{steps} decode steps, {r_prio['prefill_chunks']} prefill chunks, "
+          f"decode {r_prio['decode_s']:.3f} s in all; launches {got}",
+          flush=True)
+    for label, r in (("fifo", r_fifo), ("priority", r_prio)):
+        main_s = r["decode_s"] - r["escalation"]["decode_s"]
+        print(class_line(label, r), flush=True)
+        print(f"    {label}: e2e {r['e2e_tok_per_s']:.1f} tok/s, decode "
+              f"{r['decode_tok_per_s']:.1f} tok/s, {r['chunks_run']} chunks "
+              f"({main_s / r['spec_decode']['full_model_calls'] * 1e3:.2f} "
+              f"ms a main step), {r['prefill_chunks']} prefill chunks, total "
+              f"{r['total_s']:.3f} s", flush=True)
+
+    # (b) preempt-and-restore, operand entropy, bit for bit
+    from repro_torch.launch.engine import Request
+
+    r_args = serve_args(RESTORE_FLAGS, [])
+    restore, _ = build_engine(r_args, params)
+    rng = np.random.default_rng(11)
+    lo_p = rng.integers(0, vocab, size=256).astype(np.int32)
+    hi_p_ = rng.integers(0, vocab, size=64).astype(np.int32)
+
+    def lo(**kw):
+        return Request(rid=0, prompt=lo_p, max_new_tokens=32, **kw)
+
+    def hi(**kw):
+        return Request(rid=1, prompt=hi_p_, max_new_tokens=16, **kw)
+
+    solo_lo = restore.run([lo()])["requests"][0]
+    solo_hi = restore.run([hi()])["requests"][0]
+    both = restore.run([lo(priority=2), hi(priority=0, arrival_step=8)])
+    check_risk_run("preempt-and-restore", restore, both)
+    v, h = both["requests"]
+    if both["preemptions"] != 1 or v.preempt_count != 1 \
+            or (v.slot, h.slot) != (0, 0):
+        fail(f"preempt-and-restore: {both['preemptions']} preemptions, "
+             f"slots {v.slot}, {h.slot}")
+    for name, a, b in (("victim", v, solo_lo), ("class 0", h, solo_hi)):
+        for key in ("tokens", "H", "SE", "MI", "p_max"):
+            if getattr(a, key) != getattr(b, key):
+                fail(f"preempt-and-restore: the {name} stream's {key} "
+                     "differs from its solo run")
+    print(f"preempt-and-restore (operand entropy, 1 slot, kernel decode "
+          f"attention): the victim (prompt 256, 32 tokens, preempted at step "
+          f"8) and the class-0 stream (prompt 64, 16 tokens) bit for bit "
+          f"against their solo runs (tokens, H, SE, MI, p_max); "
+          f"{both['prefill_chunks']} prefill chunks (the victim's 4 twice); "
+          "pool at identity", flush=True)
+
+    # (d) the fused head at the lane's shape
+    check_head(dev, ESCALATE_S, (1, 4))
+    return got
+
+
+# --------------------------------------------------------------------------
 # phase 7: the paper's path through the port's entry points
 # --------------------------------------------------------------------------
 
@@ -3808,6 +4090,14 @@ def main():
         counts[name] += spec_counts[name]
     print(f"prefix/spec launches {spec_counts}", flush=True)
     print(f"phase prefix/spec: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    risk_counts = risk_phase(launches, smi)
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "uncertainty_head"):
+        counts[name] += risk_counts[name]
+    print(f"risk launches {risk_counts}", flush=True)
+    print(f"phase risk: {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

@@ -17,9 +17,12 @@ prefill only the suffix; with ``spec_decode`` the loop runs
 uncertainty-gated speculative rounds (a k-step draft, a full-S verify at
 each draft position, acceptance of the longest agreeing prefix) in place
 of decode chunks, whose accepted stream equals spec-decode off bit for
-bit in operand-entropy mode.  The priority policy, the MI escalation lane
-and the tensor-parallel mesh are not ported yet (ROADMAP.md); the port's
-CLI refuses their flags.
+bit in operand-entropy mode.  With ``policy="priority"`` a better class
+preempts a worse decoding slot at admission (the victim replays from its
+prompt), and with ``escalate_mi`` a slot whose carried MI reaches the
+threshold finishes on a one-slot high-S lane (``escalate.EscalationLane``)
+whose decode chunk is a CUDA graph of its own.  The tensor-parallel mesh
+is not ported yet (ROADMAP.md); the port's CLI refuses its flag.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from repro_torch import resolve_device
 from repro_torch.core.entropy import KernelEntropy
 from repro_torch.kernels.paged_attention import kv_blocks_read
 from repro_torch.launch.engine.block_pool import BlockAllocator
+from repro_torch.launch.engine.escalate import EscalationLane
+from repro_torch.launch.engine.policy import SchedPolicy, get_policy
 from repro_torch.launch.engine.runner import ModelRunner
 from repro_torch.launch.prefix_cache import RadixPrefixCache
 from repro_torch.launch.engine.scheduler import Request, SlotScheduler
@@ -72,6 +77,15 @@ class ServeEngine:
     prefix plus the verified correction; ``spec_k_min`` /
     ``spec_k_max`` let a per-slot acceptance EMA walk each slot's depth.
 
+    ``policy`` (a name or a ``policy.SchedPolicy``) ranks the queue:
+    ``'fifo'`` (the reference) or ``'priority'`` (class, SLO deadline,
+    order; a better class preempts a worse DECODING slot when no slot or
+    not enough pool is free, and the victim replays from its prompt).
+    ``escalate_mi`` hands a decoding slot whose carried MI reaches it to
+    the escalation lane, which finishes the request at ``escalate_s`` MC
+    samples (default 4x the serving S) on a one-slot dense runner over
+    the same parameter tensors (``escalation_runner``, one per S).
+
     ``device`` defaults to CUDA and raises when no GPU is present; the
     parameters must already live there.  ``head_noise`` replaces the
     operand-mode noise provider (``layers.decode_head_noise``), e.g. to
@@ -89,7 +103,9 @@ class ServeEngine:
                  spec_decode: bool = False, spec_k: int = 4,
                  spec_mi_threshold: Optional[float] = None,
                  spec_draft_s: int = 1, spec_k_min: Optional[int] = None,
-                 spec_k_max: Optional[int] = None):
+                 spec_k_max: Optional[int] = None, policy="fifo",
+                 escalate_mi: Optional[float] = None,
+                 escalate_s: Optional[int] = None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if kv_block < 1:
@@ -147,6 +163,17 @@ class ServeEngine:
                 f"adaptive spec-k bounds must satisfy 1 <= k_min <= k "
                 f"<= k_max, got k_min={self.spec_k_min} k={spec_k} "
                 f"k_max={self.spec_k_max}")
+        # the admission / eviction decision layer: a --policy name or a
+        # ready instance
+        self.policy = policy if isinstance(policy, SchedPolicy) \
+            else get_policy(policy)
+        if escalate_mi is not None and escalate_mi < 0:
+            raise ValueError(f"escalate_mi must be >= 0, got {escalate_mi}")
+        self.escalate_mi = escalate_mi
+        self.escalate_s = escalate_s if escalate_s is not None \
+            else 4 * cfg.mc_samples
+        if self.escalate_s < 1:
+            raise ValueError(f"escalate_s must be >= 1, got {self.escalate_s}")
         self.device = resolve_device(device)
         if params["head"]["mu"].device != self.device:
             raise ValueError(f"params live on {params['head']['mu'].device},"
@@ -196,6 +223,28 @@ class ServeEngine:
             spec_draft_s=spec_draft_s)
         self.params = params
         self._modalities: dict[int, torch.Tensor] = {}
+        # the escalation lane's runners, one per verify S, built on demand
+        self._esc_runners: dict[int, ModelRunner] = {}
+
+    def escalation_runner(self, s: int) -> ModelRunner:
+        """The escalation lane's runner at ``s`` head samples, built (and
+        on CUDA its decode chunk captured) the first time it is asked
+        for, then kept: a one-slot dense ``ModelRunner`` on the engine's
+        own parameter tensors, the gather read, batch prefill, and the
+        engine's entropy, thresholds and operand-noise provider.  S
+        changes the head's draws only, so the cheap layout serves."""
+        if s not in self._esc_runners:
+            main = self.runner
+            cfg = dataclasses.replace(self.cfg, mc_samples=s,
+                                      decode_attn="gather")
+            self._esc_runners[s] = ModelRunner(
+                self.params, cfg, num_slots=1, max_len=self.max_len,
+                chunk=self.chunk, entropy=main._entropy,
+                mi_threshold=main._mi_threshold,
+                se_threshold=main._se_threshold, kv_layout="dense",
+                kv_block=self.kv_block, kv_blocks=self.table_width,
+                device=self.device, head_noise=main._head_noise)
+        return self._esc_runners[s]
 
     def _modality(self, batch: int) -> Optional[torch.Tensor]:
         """The modality input of a ``batch``-prompt prefill: the encdec
@@ -278,7 +327,8 @@ class ServeEngine:
         job["off"] = new_len
         return cache, done, ("chunk", S_len, W, variant)
 
-    def _spec_round(self, sched, stats, decoding, k: int) -> None:
+    def _spec_round(self, sched, stats, decoding, k: int,
+                    escalate) -> None:
         """One uncertainty-gated speculative round in place of a decode
         chunk: a k-step draft on the full model body proposes cheap-head
         tokens for every slot, the full-S head verifies each position at
@@ -291,7 +341,9 @@ class ServeEngine:
         token only.  A rejected tail rolls back on the host
         (``scheduler.rollback`` frees the decode blocks past the kept
         depth) and on the device (the commit pins token, depth and
-        recurrent state in place)."""
+        recurrent state in place).  A slot that ``escalate`` hands to the
+        lane after its emitted tokens is evicted (the rejected tail's
+        blocks with it) and gets no commit pin."""
         runner = self.runner
         stats.record_round_k(k)
         parts = [(slot, req) for slot, req in sched.active()
@@ -360,7 +412,7 @@ class ServeEngine:
                     finished = True
                     break
             stats.spec_emitted += emitted
-            if finished:
+            if finished or escalate(slot, req):
                 continue
             # keep depth lens0 + emitted: free the decode blocks the
             # rejected tail grew into (host) and pin the slot's carry
@@ -413,7 +465,7 @@ class ServeEngine:
                 pcache = RadixPrefixCache(alloc, self.kv_block)
         sched = SlotScheduler(self.num_slots, allocator=alloc,
                               table_width=self.table_width,
-                              prefix_cache=pcache)
+                              prefix_cache=pcache, policy=self.policy)
         self._last_alloc, self._last_pcache = alloc, pcache
         stats = ServeStats(trace_every=self.trace_every)
         pending = collections.deque(
@@ -424,6 +476,15 @@ class ServeEngine:
                 sched.submit(r)
 
         runner = self.runner
+        # the MI escalation lane (None keeps every escalation branch dead)
+        lane = None
+        if self.escalate_mi is not None:
+            lane = EscalationLane(
+                self.escalation_runner(self.escalate_s), chunk=self.chunk,
+                eos_id=self.eos_id,
+                pad_to=self.kv_block if self.pad_prompts else None,
+                modality=self._modality(1))
+        esc_skipped: set[int] = set()
         tok, cache, active, flags = runner.start()
         step0 = 0
         table_synced = -1
@@ -451,19 +512,50 @@ class ServeEngine:
                 runner.write_table(cache, sched.block_tables)
                 table_synced = sched.table_version
 
+        def maybe_escalate(slot, req) -> bool:
+            """Hand a decoding slot whose carried MI reached the threshold
+            to the lane: evict it (its blocks return to the pool) and
+            clear its lane in the carry.  A request the lane cannot hold
+            keeps decoding here, counted once."""
+            if lane is None or req.last_mi < self.escalate_mi:
+                return False
+            if not lane.fits(req):
+                if req.rid not in esc_skipped:
+                    esc_skipped.add(req.rid)
+                    stats.esc_skipped += 1
+                return False
+            req.transition("escalated")
+            sched.evict(slot)
+            decoding.discard(slot)
+            active[slot].fill_(False)
+            lane.submit(req)
+            stats.escalations += 1
+            stats.esc_by_class[req.priority] += 1
+            return True
+
+        def lane_busy() -> bool:
+            return lane is not None and lane.has_work()
+
         try:
-            while sched.has_work() or pending:
+            while sched.has_work() or pending or lane_busy():
                 fired = 0
                 while pending \
                         and pending[0].arrival_step <= stats.steps_run:
                     sched.submit(pending.popleft())
                     fired += 1
-                if not fired and pending and not sched.has_work():
+                if not fired and pending and not sched.has_work() \
+                        and not lane_busy():
                     nxt = pending[0].arrival_step
                     while pending and pending[0].arrival_step == nxt:
                         sched.submit(pending.popleft())
                         fired += 1
                 admitted = sched.admit()
+                # the priority policy's victims are requeued already: take
+                # their slots out of the decode set and the carry before
+                # the new admissions (maybe into the same slots) arm them
+                for slot, _ in sched.take_preempted():
+                    decoding.discard(slot)
+                    active[slot].fill_(False)
                 if paged:
                     sync_table()
                 for slot, req in admitted:
@@ -523,6 +615,15 @@ class ServeEngine:
                     runner.sync()
                     stats.classify(shape_key, time.perf_counter() - t0)
 
+                # every slot in the decode set holds a decoding request
+                stale = [slot for slot in decoding
+                         if getattr(sched.slots[slot], "state", None)
+                         != "decoding"]
+                if stale:
+                    raise RuntimeError(
+                        f"slots {stale} decode without a decoding request "
+                        "(a preempted or escalated slot left in the carry)")
+
                 if jobs:
                     # at most ONE prompt chunk per iteration, then the
                     # decode chunk below runs for every active slot
@@ -569,8 +670,12 @@ class ServeEngine:
                     sync_table()
 
                 stats.trace(sched)
+                # ONE unit of lane work an iteration (an admission or a
+                # chunk at the verify S) beside the main pool's chunk
+                lane_ran = lane.step(stats) if lane is not None else False
                 if not decoding:
-                    if not jobs and not admitted and not fired:
+                    if not jobs and not admitted and not fired \
+                            and not lane_ran:
                         raise RuntimeError(
                             "scheduler stalled: queued requests, no "
                             "admission, nothing prefilling or decoding")
@@ -591,7 +696,8 @@ class ServeEngine:
                                 for t in range(ahead))
 
                 if run_spec:
-                    self._spec_round(sched, stats, decoding, k_round)
+                    self._spec_round(sched, stats, decoding, k_round,
+                                     maybe_escalate)
                     continue
 
                 stats.chunks_run += 1
@@ -627,6 +733,10 @@ class ServeEngine:
                             decoding.discard(slot)
                             active[slot].fill_(False)
                             break
+                    # the slot's carried (chunk-end) MI decides whether an
+                    # unfinished request finishes on the lane
+                    if req.state == "decoding":
+                        maybe_escalate(slot, req)
         except BaseException:
             # slots mid-decode still hold blocks: release them so the pool
             # balances even when the run dies (eviction also settles a
@@ -643,6 +753,11 @@ class ServeEngine:
                     raise RuntimeError(
                         f"block leak after drain: {alloc.in_use} in use vs "
                         f"{cached} cached, {alloc._reserved} reserved")
+        # a drained run leaves no lane armed in either carry
+        for r_ in [runner] + ([lane.runner] if lane is not None else []):
+            if bool(r_.active.any()):
+                raise RuntimeError("a slot is left active in the decode "
+                                   "carry after the drain")
 
         return stats.results(self, requests, sched=sched, alloc=alloc,
                              pcache=pcache, cache=cache, flags=flags)

@@ -1,18 +1,19 @@
 """Host-side request scheduling (the serving engine's admission layer).
 
-Counterpart of ``repro.launch.engine.scheduler`` without the priority
-policy's preemption.  ``Request`` is the unit of work — a lifecycle
-state machine (``new -> queued -> prefilling -> decoding -> finished``,
-with ``preempted`` re-entering at ``queued``) whose every edge goes
-through ONE audited ``transition`` method.  ``SlotScheduler`` maps queued requests onto fixed
-decode slots through a ``policy.SchedPolicy`` and, on the paged KV
-layout, owns the per-slot block tables over a ``block_pool.
-BlockAllocator``: admission (through the radix prefix cache when there is
-one), on-demand decode grants (tables WIDEN when a grant outruns them),
-speculative-round rollback, LRU eviction of cached blocks under pool
-pressure, and preemption when a grant cannot be covered.  Plain Python +
-numpy; device work (prefill, CoW copies, table uploads) is the engine's
-job, driven by the records this layer produces.
+Counterpart of ``repro.launch.engine.scheduler``.  ``Request`` is the unit
+of work — a lifecycle state machine (``new -> queued -> prefilling ->
+decoding -> finished``, with ``preempted`` re-entering at ``queued`` and
+``escalated`` finishing on the high-S lane) whose every edge goes through
+ONE audited ``transition`` method.  ``SlotScheduler`` maps queued requests
+onto fixed decode slots through a ``policy.SchedPolicy`` (fifo, the
+reference; priority adds classes, SLO deadlines and preemption at
+admission) and, on the paged KV layout, owns the per-slot block tables
+over a ``block_pool.BlockAllocator``: admission (through the radix prefix
+cache when there is one), on-demand decode grants (tables WIDEN when a
+grant outruns them), speculative-round rollback, LRU eviction of cached
+blocks under pool pressure, and preemption when a grant cannot be
+covered.  Plain Python + numpy; device work (prefill, CoW copies, table
+uploads) is the engine's job, driven by the records this layer produces.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ LIFECYCLE = {
     "new": ("queued",),
     "queued": ("prefilling",),
     "prefilling": ("decoding", "preempted"),
-    "decoding": ("finished", "preempted"),
+    "decoding": ("finished", "preempted", "escalated"),
     "preempted": ("queued",),
+    "escalated": ("finished",),
     "finished": (),
 }
 
@@ -45,8 +47,8 @@ class Request:
     rid: int
     prompt: np.ndarray                    # (S,) int32
     max_new_tokens: int
-    # priority class and SLO offset: carried for the stats' per-class
-    # breakdown (the fifo policy does not rank by them)
+    # priority CLASS (lower value = better class; 0 is the best) and an
+    # optional SLO deadline offset: only the priority policy reads them
     priority: int = 0
     slo_s: Optional[float] = None
     # engine step count at which this request joins the queue (0 = now)
@@ -123,6 +125,10 @@ class Request:
         """Latency net of queue wait (prefill + decode + replays)."""
         return self.latency_s - self.queue_time_s
 
+    @property
+    def was_escalated(self) -> bool:
+        return any(s == "escalated" for s, _ in self.history)
+
 
 @dataclasses.dataclass
 class PrefixAdmit:
@@ -144,8 +150,12 @@ class SlotScheduler:
     """Policy-driven admission of queued requests into fixed decode slots.
 
     ``admit`` fills free slots in slot order with the request the
-    ``policy`` selects; a request that cannot admit (no slot, or not
-    enough pool) defers admission.  With a ``BlockAllocator`` admission
+    ``policy`` selects.  When the selected request cannot admit (no free
+    slot, or not enough pool) the policy may name a DECODING slot of a
+    strictly worse class to preempt on its behalf (fifo never does), else
+    admission defers; the slots preempted inside ``admit`` are surfaced
+    by ``take_preempted`` so the engine can deactivate them before it
+    acts on the new placements.  With a ``BlockAllocator`` admission
     needs the PROMPT's blocks plus a WATERMARK of free headroom
     (``num_slots`` blocks by default, waived when no slot is running) so
     running decoders keep growing; ``grant`` maps decode blocks on demand,
@@ -174,6 +184,7 @@ class SlotScheduler:
         self.prefix_cache = prefix_cache
         self.policy = policy if policy is not None else FifoPolicy()
         self.preemptions = 0
+        self._admit_preempted: list[tuple[int, Request]] = []
         self._seq = 0
         self.watermark = num_slots if watermark is None else watermark
         self.table_growths = 0
@@ -294,22 +305,52 @@ class SlotScheduler:
         self._slot_cow_src[slot] = None
         self.allocator.free([src])
 
+    def _preempt_for(self, candidate: Request) -> bool:
+        """Ask the policy for a decoding slot to preempt so ``candidate``
+        can admit; False defers the candidate.  Only DECODING occupants
+        are offered, and every preemption shrinks that set, so the admit
+        loop ends."""
+        running = [(i, r) for i, r in enumerate(self.slots)
+                   if r is not None and r.state == "decoding"]
+        victim = self.policy.victim(candidate, running)
+        if victim is None:
+            return False
+        self._admit_preempted.append((victim, self.preempt(victim)))
+        return True
+
+    def take_preempted(self) -> list[tuple[int, Request]]:
+        """The (slot, request) pairs the policy preempted inside the last
+        ``admit``; the engine deactivates those slots before it acts on
+        the new placements."""
+        out = self._admit_preempted
+        self._admit_preempted = []
+        return out
+
     def admit(self) -> list[tuple[int, Request]]:
         placed = []
+        self._admit_preempted = []
         while self.queue:
             qi = self.policy.select(self.queue)
             if qi is None:
                 break
+            candidate = self.queue[qi]
             slot = next((i for i, r in enumerate(self.slots) if r is None),
                         None)
             if slot is None:
-                break
+                # every slot busy: preempt a worse decoding slot or stop
+                if not self._preempt_for(candidate):
+                    break
+                continue
             if self.allocator is not None:
                 req = self._admit_paged(slot, qi)
                 if req is None:
-                    break
+                    # pool short: preempt for the candidate (the freed
+                    # blocks retry the admission) or defer
+                    if not self._preempt_for(candidate):
+                        break
+                    continue
             else:
-                req = self.queue[qi]
+                req = candidate
                 del self.queue[qi]
             req.slot = slot
             req.transition("prefilling")

@@ -3,14 +3,15 @@
 Counterpart of ``repro.launch.engine.stats``.  ``ServeStats`` owns the
 counters one ``ServeEngine.run`` accumulates — prefill first-vs-repeat
 shape timing, prefix-cache hit accounting, speculative rounds, the
-decode-attention block tally, the downsampled scheduler trace, decode
-arrival times — and builds the results dict.  The payload keeps the JAX
-engine's schema key for key (the CLI's ``--stats-json``); the escalation
-lane, not ported yet, reports as disabled with zero counts.
+decode-attention block tally, the escalation lane's counters, the
+downsampled scheduler trace, decode arrival times — and builds the
+results dict.  The payload keeps the JAX engine's schema key for key (the
+CLI's ``--stats-json``).
 """
 
 from __future__ import annotations
 
+import collections
 import time
 from typing import Optional
 
@@ -65,6 +66,14 @@ class ServeStats:
         self.spec_round_k_max: Optional[int] = None
         self.full_model_calls = 0
         self.steps_run = 0
+        # the escalation lane: requests handed to it when their carried MI
+        # reached escalate_mi (in all and by class), the tokens it
+        # finished for them, the requests it could not hold (counted
+        # once), and its decode seconds and steps
+        self.escalations = 0
+        self.esc_by_class: collections.Counter = collections.Counter()
+        self.esc_tokens = self.esc_skipped = self.esc_steps = 0
+        self.esc_decode_s = 0.0
         # one timestamp per decode chunk that served a decoding slot
         self.arrivals: list[float] = []
 
@@ -144,12 +153,11 @@ class ServeStats:
                 "latency_p50_s": c_lat[0], "latency_p99_s": c_lat[1],
                 "queue_p50_s": c_queue[0], "queue_p99_s": c_queue[1],
                 "service_p50_s": c_svc[0], "service_p99_s": c_svc[1],
-                "escalations": 0,
+                "escalations": sum(r.was_escalated for r in group),
                 "preemptions": sum(r.preempt_count for r in group),
             }
         epi = sum(r.epistemic_flags for r in requests)
         alea = sum(r.aleatoric_flags for r in requests)
-        S = engine.cfg.mc_samples
         return {
             "requests": requests,
             "num_requests": len(requests),
@@ -196,10 +204,15 @@ class ServeStats:
             "table_growths": sched.table_growths,
             "preemptions": sched.preemptions,
             "escalation": {
-                "enabled": False, "mi_threshold": None,
-                "verify_samples": 4 * S, "escalations": 0, "by_class": {},
-                "tokens": 0, "skipped_too_long": 0, "decode_s": 0.0,
-                "steps": 0,
+                "enabled": engine.escalate_mi is not None,
+                "mi_threshold": engine.escalate_mi,
+                "verify_samples": engine.escalate_s,
+                "escalations": self.escalations,
+                "by_class": dict(self.esc_by_class),
+                "tokens": self.esc_tokens,
+                "skipped_too_long": self.esc_skipped,
+                "decode_s": self.esc_decode_s,
+                "steps": self.esc_steps,
             },
             "spec_decode": {
                 "enabled": engine.spec_decode,

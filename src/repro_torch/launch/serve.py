@@ -7,9 +7,12 @@ missing GPU raises, ``--device cpu`` runs the plain PyTorch paths).
 paged pool (the dense family; the others serve cold), and ``--spec-decode
 on`` runs uncertainty-gated speculative rounds, whose accepted stream
 equals spec-decode off bit for bit (it needs ``--entropy operand``).
-Flags of features the port does not have yet raise
-``NotImplementedError`` (see ROADMAP.md): ``--policy priority``,
-``--escalate-mi`` and ``--mesh``.  Every ``--arch`` is served.
+``--policy priority`` ranks the queue by ``--priorities`` class, SLO
+deadline (``--slo-ms``) and order, and preempts a worse decoding slot for
+a better class; ``--escalate-mi X`` finishes a request whose carried MI
+reaches X on a one-slot lane at ``--escalate-s`` head samples (default
+4x S).  ``--mesh`` (tensor parallelism) is not ported yet and raises
+``NotImplementedError`` (see ROADMAP.md).  Every ``--arch`` is served.
 The ssm family (``mamba2_370m``) keeps no KV: ``--kv-layout paged``,
 ``--decode-attn kernel`` and ``--prefill chunked`` fall back silently to
 the dense layout, the gather read and batch prefill at the exact prompt
@@ -36,6 +39,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --kv-layout paged --prefill chunked --shared-prefix 20 \
       --prefix-cache on --entropy operand --spec-decode on --spec-k 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --kv-layout paged --num-requests 4 --policy priority \
+      --priorities 2,2,2,0 --arrivals 0,0,0,4 --escalate-mi 0.5
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek_moe_16b --device cpu --kv-layout paged \
       --decode-attn kernel --prefill chunked
@@ -104,13 +110,9 @@ def make_requests(args, cfg) -> list[Request]:
 
 
 def check_ported(args) -> None:
-    """Refuse the flags of features the port does not have yet."""
-    refused = {"--policy priority": args.policy == "priority",
-               "--escalate-mi": args.escalate_mi is not None,
-               "--mesh": args.mesh not in (None, "", "none")}
-    for flag, asked in refused.items():
-        if asked:
-            raise NotImplementedError(f"{flag} {_ROADMAP}")
+    """Refuse the flag of the feature the port does not have yet."""
+    if args.mesh not in (None, "", "none"):
+        raise NotImplementedError(f"--mesh {_ROADMAP}")
 
 
 def build_engine(args, params=None) -> tuple[ServeEngine, ArchConfig]:
@@ -149,7 +151,8 @@ def build_engine(args, params=None) -> tuple[ServeEngine, ArchConfig]:
         spec_decode=args.spec_decode == "on", spec_k=args.spec_k,
         spec_mi_threshold=args.spec_mi_threshold,
         spec_draft_s=args.spec_draft_s, spec_k_min=args.spec_k_min,
-        spec_k_max=args.spec_k_max)
+        spec_k_max=args.spec_k_max, policy=args.policy,
+        escalate_mi=args.escalate_mi, escalate_s=args.escalate_s)
     return engine, cfg
 
 
@@ -261,7 +264,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="adaptive draft-depth ceiling (see --spec-k-min)")
     ap.add_argument("--policy", choices=("fifo", "priority"),
                     default="fifo",
-                    help="scheduling policy; only 'fifo' is ported")
+                    help="scheduling policy: 'fifo' admits in submission "
+                         "order (the reference); 'priority' ranks by "
+                         "(--priorities class, SLO deadline, order) and "
+                         "preempts a decoding slot of a worse class under "
+                         "pressure")
     ap.add_argument("--priorities", default="",
                     help="comma list of priority classes cycled across "
                          "requests (reported per class)")
@@ -272,8 +279,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="comma list of arrival steps cycled across "
                          "requests (empty = all at 0)")
     ap.add_argument("--escalate-mi", type=float, default=None,
-                    help="not ported: any value raises")
-    ap.add_argument("--escalate-s", type=int, default=None)
+                    help="hand a decoding request to the high-S escalation "
+                         "lane when its carried MI reaches this threshold; "
+                         "default: off")
+    ap.add_argument("--escalate-s", type=int, default=None,
+                    help="MC head samples of the escalation lane (default: "
+                         "4x the serving S); each S builds its own lane "
+                         "runner once")
     ap.add_argument("--mesh", default=None,
                     help="not ported: any mesh raises")
     ap.add_argument("--stats-json", default=None, metavar="PATH",
@@ -303,6 +315,22 @@ def main():
           f"latency p50 {r['latency_p50_s']:.2f}s "
           f"p99 {r['latency_p99_s']:.2f}s "
           f"max {r['latency_max_s']:.2f}s")
+    print(f"latency split: queue p99 {r['queue_time_p99_s']:.2f}s  "
+          f"service p99 {r['service_time_p99_s']:.2f}s")
+    if len(r["per_class"]) > 1:
+        for cls, c in sorted(r["per_class"].items()):
+            print(f"  class {cls}: {c['num_requests']} reqs  "
+                  f"latency p50 {c['latency_p50_s']:.2f}s "
+                  f"p99 {c['latency_p99_s']:.2f}s  "
+                  f"queue p99 {c['queue_p99_s']:.2f}s  "
+                  f"{c['escalations']} escalations  "
+                  f"{c['preemptions']} preemptions")
+    esc = r["escalation"]
+    if esc["enabled"]:
+        print(f"escalation: {esc['escalations']} requests at MI >= "
+              f"{esc['mi_threshold']} finished at S={esc['verify_samples']} "
+              f"({esc['tokens']} tokens, {esc['skipped_too_long']} "
+              f"skipped too-long)")
     print(f"epistemic flags {r['epistemic_flags']}  "
           f"aleatoric flags {r['aleatoric_flags']}")
     print(f"entropy: {r['entropy_mode']} path, "

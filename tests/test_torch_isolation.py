@@ -93,18 +93,23 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result(tmp_path):
 
 # the flags each ported feature needs beside its own: the prefix cache
 # shares blocks of the paged pool, speculative decoding needs the operand
-# (depth-keyed) head noise
+# (depth-keyed) head noise, the priority burst a class-0 request arriving
+# while class-2 ones decode, the escalation lane its verify S
 PORTED = {"--prefix-cache": ["--kv-layout", "paged", "--shared-prefix", "12"],
-          "--spec-decode": ["--entropy", "operand"]}
+          "--spec-decode": ["--entropy", "operand"],
+          "--policy": ["--kv-layout", "paged", "--chunk", "2",
+                       "--priorities", "2,2,2,0", "--arrivals", "0,0,0,2"],
+          "--escalate-mi": ["--kv-layout", "paged", "--escalate-s", "8"]}
 
 
 @pytest.mark.parametrize("flags", [
     ["--prefix-cache", "on"], ["--spec-decode", "on"],
     ["--policy", "priority"], ["--escalate-mi", "0.5"], ["--mesh", "1x4"]])
 def test_cli_refuses_unported_features(flags):
-    """The unported features' flags raise; the prefix cache and
-    speculative decoding, ported since, build and serve on the CPU at
-    the reduced size through the same entry points."""
+    """The unported feature's flag (``--mesh``) raises; the prefix cache,
+    speculative decoding, the priority policy and the escalation lane,
+    ported since, build and serve on the CPU at the reduced size through
+    the same entry points."""
     from repro_torch.launch.serve import build_parser, serve
     if flags[0] in PORTED:
         args = build_parser().parse_args(
@@ -118,8 +123,18 @@ def test_cli_refuses_unported_features(flags):
             pc = r["prefix_cache"]
             assert pc["enabled"] and pc["hits"] == 2
             assert pc["prompt_tokens_saved"] >= 24
-        else:
+        elif flags[0] == "--spec-decode":
             assert r["spec_decode"]["enabled"]
+        elif flags[0] == "--policy":
+            # the class-0 arrival at step 2 preempts decoding class-2 slots
+            # (a slot, then the pool's watermark)
+            assert r["policy"] == "priority" and r["preemptions"] >= 1
+            assert r["per_class"][2]["preemptions"] == r["preemptions"]
+            assert r["per_class"][0]["preemptions"] == 0
+        else:
+            esc = r["escalation"]
+            assert esc["enabled"] and esc["mi_threshold"] == 0.5
+            assert esc["verify_samples"] == 8
         return
     args = build_parser().parse_args(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -69,6 +69,20 @@ def test_cuda_head_matches_plain(cuda_device, M, V):
         assert torch.equal(got["pred"].cpu(), want["pred"].cpu())
 
 
+@pytest.mark.parametrize("M", [1, 4])
+def test_cuda_head_matches_plain_at_the_lanes_forty_draws(cuda_device, M):
+    """The escalation lane's head: S 40 draws (4x the serving S) at one row
+    and at four, in xi and Philox modes, against the plain version."""
+    x, mu, sg, xi = (t.to(cuda_device) for t in _head(40 + M, M, 64, 1000,
+                                                        40))
+    for kw in ({"xi": xi}, {"seed": 4, "step": 9}):
+        got = UH.uncertainty_head_cuda(x, mu, sg, num_samples=40, **kw)
+        want = UH.uncertainty_head_plain(x, mu, sg, num_samples=40, **kw)
+        for k in KEYS:
+            assert_close(got[k], want[k].cpu(), atol=2e-5, msg=k)
+        assert torch.equal(got["pred"].cpu(), want["pred"].cpu())
+
+
 def test_cuda_head_bf16_input_and_nan_row(cuda_device):
     """x arrives as bf16 at full width; an idle slot's NaN row stays in
     its row."""
@@ -1520,6 +1534,71 @@ def test_cuda_vlm_captured_chunk_equals_the_eager_chunk(cuda_device):
     table = runner.cache["block_table"][:, :2].long()     # rows 0-7
     assert runner.cache["k"][:, table].abs().amax(dim=(0, 3, 4, 5)) \
         .gt(0).all()
+
+
+def test_cuda_escalation_lane_chunk_equals_the_eager_chunk(cuda_device):
+    """The escalation lane's runner (one slot, dense, the gather read, 4x
+    the serving S) captures its chunk once, when first asked for.  In a
+    served run where every request escalates after its first chunk, each
+    lane chunk replayed from that graph equals the eager chunk on a copy
+    of its carry, bit for bit; a replay counts one head launch a step, and
+    the run captures nothing anew."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.core.entropy import KernelEntropy
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.models import registry as TM
+
+    cfg = dataclasses.replace(reduced(get_config("qwen2_1_5b")),
+                              head_entropy="kernel")
+    params = TM.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    eng = ServeEngine(params, cfg, num_slots=2, max_len=32, chunk=4,
+                      entropy=KernelEntropy(seed=5), kv_layout="paged",
+                      kv_block=4, decode_attn="kernel",
+                      prefill_mode="chunked", prefill_chunk=8,
+                      device=cuda_device, escalate_mi=0.0)
+    runner = eng.escalation_runner(4 * cfg.mc_samples)
+    assert runner is eng.escalation_runner(eng.escalate_s)
+    assert runner.graph is not None and runner.params is eng.params
+    assert runner.captured == {"uncertainty_head": 4}
+    graph = runner.graph
+    eager = S.build_scan_decode(runner.cfg, entropy=KernelEntropy(seed=5),
+                                chunk=4, mi_threshold=0.05, se_threshold=1.0)
+    real, seen = runner.scan, []
+
+    def compare(tok, cache, step0, active, flags):
+        copy = (tok.clone(), {k: v.clone() for k, v in cache.items()},
+                active.clone(), {k: v.clone() for k, v in flags.items()})
+        out = real(tok, cache, step0, active, flags)
+        step = torch.full((1,), step0, dtype=torch.int32, device=cuda_device)
+        want = eager(runner.params, copy[0], copy[1], step, copy[2], copy[3],
+                     torch.empty_like(runner.ys))
+        assert torch.equal(out[3].view(torch.int32),
+                           want[3].view(torch.int32)), step0
+        assert torch.equal(out[0], want[0])
+        assert all(torch.equal(cache[k], want[1][k]) for k in cache)
+        assert all(torch.equal(flags[k], want[2][k]) for k in flags)
+        seen.append(step0)
+        return out
+
+    r = np.random.default_rng(4)
+    reqs = [Request(rid=i, prompt=r.integers(1, 511, size=9).astype(np.int32),
+                    max_new_tokens=12) for i in range(3)]
+    runner.scan = compare
+    launches.reset()
+    try:
+        res = eng.run(reqs)
+    finally:
+        del runner.scan
+    torch.cuda.synchronize()
+    esc = res["escalation"]
+    assert esc["escalations"] == 3 and esc["steps"] == 4 * len(seen) > 0
+    assert all(q.was_escalated and len(q.tokens) == 12 for q in reqs)
+    # the eager comparison launches the head once a step too
+    assert launches.snapshot()["uncertainty_head"] \
+        == res["spec_decode"]["full_model_calls"] + 2 * esc["steps"]
+    assert runner.graph is graph
 
 
 def _check_replays_against_eager(runner, cuda_device, frames=False,
