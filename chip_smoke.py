@@ -1895,6 +1895,44 @@ def check_graph_chunks(extra: list[str], label: str) -> str:
     return graph_vs_eager(args, built, label)[1]
 
 
+WIDEN_FLAGS = ["--long-prompt", "512", "--num-requests", "4"]
+
+
+def check_widened_table() -> str:
+    """A request whose prompt + budget needs more blocks than the
+    build-time table holds (``--long-prompt 512`` against a table of
+    ceil(296 / 16) = 19 blocks): the scheduler widens its tables mid-run,
+    the runner moves to a device table of the new width and captures the
+    chunk again over it, and every chunk, those replayed at the new width
+    included, is held against the eager chunk bit for bit."""
+    args, built = build_serve(KERNEL_PATH + ["--entropy", "kernel"]
+                              + WIDEN_FLAGS)
+    runner = built[0].runner
+    graphed, widths = runner.scan, []
+
+    def recording(*a):
+        widths.append(runner.table_width())
+        return graphed(*a)
+
+    runner.scan = recording
+    try:
+        r, report = graph_vs_eager(args, built, "widened table")
+    finally:
+        runner.__dict__.pop("scan", None)
+    wide = sum(w > runner.table_width0 for w in widths)
+    if r["table_growths"] < 1 or wide == 0 \
+            or not set(widths) | {runner.table_width0} <= set(runner._graphs):
+        fail(f"widened table: {r['table_growths']} growths, {wide} chunks "
+             f"at a widened table, graphs at widths {sorted(runner._graphs)}")
+    long = r["requests"][0]
+    if len(long.prompt) != 512 or len(long.tokens) != args.gen_len:
+        fail("widened table: the long request did not finish")
+    return (f"{report}; {r['table_growths']} table growth(s), widths "
+            f"{sorted(set(widths))} blocks, {wide} chunks replayed at the "
+            f"widened table, its graph captured mid-run in "
+            f"{max(runner.width_capture_s.values()):.3f}s")
+
+
 def graph_vs_eager(args, built, label: str) -> tuple[dict, str]:
     """``check_graph_chunks`` on an engine already built: one serve run of
     ``args``' trace with every chunk checked; returns (the run, the
@@ -4003,6 +4041,7 @@ def main():
                              "kernel path, kernel entropy"), flush=True)
     print(check_graph_chunks(GATHER_PATH + ["--entropy", "operand"],
                              "gather path, operand entropy"), flush=True)
+    print(check_widened_table(), flush=True)
     print(f"phase graph vs eager: {time.perf_counter() - t0:.1f}s",
           flush=True)
 
@@ -4098,6 +4137,17 @@ def main():
         counts[name] += risk_counts[name]
     print(f"risk launches {risk_counts}", flush=True)
     print(f"phase risk: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tools"))
+    import train_phase
+    train_counts = train_phase.train_phase(launches, smi)
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "uncertainty_head"):
+        counts[name] += train_counts[name]
+    print(f"train (serve of the trained state) launches {train_counts}",
+          flush=True)
+    print(f"phase train: {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

@@ -55,9 +55,14 @@ class ModelRunner:
     The carry's addresses never change: ``start`` resets it in place for
     each run, and on CUDA the chunk's graph, captured once here, replays
     over it.  The graph is fixed by (num_slots, chunk, table width,
-    layout, decode_attn, head_entropy), all fixed for the runner
-    (``graph_key``).  A failed capture raises: there is no eager fallback
-    on CUDA.  ``spec_k_max`` (speculative decoding on) sizes the spec
+    layout, decode_attn, head_entropy) (``graph_key``).  The table width
+    alone moves during a run: when the scheduler widens its host tables
+    (a request needing more than ``ceil(max_len / kv_block)`` blocks),
+    ``write_table`` points the carry at a device table of the new width
+    and, on CUDA, captures the chunk again over it (``set_width``); the
+    tables and graphs stay cached by width, and ``start`` returns to the
+    build width.  A failed capture raises: there is no eager fallback on
+    CUDA.  ``spec_k_max`` (speculative decoding on) sizes the spec
     round's buffers for the deepest draft; ``spec_draft_s`` is the draft
     head's sample count."""
 
@@ -89,12 +94,18 @@ class ModelRunner:
         self.step0 = torch.zeros((1,), dtype=torch.int32, device=dev)
         self.ys = torch.zeros((chunk, len(S.OUTPUTS), num_slots),
                               dtype=torch.float32, device=dev)
-        self.graph_key = (num_slots, chunk,
-                          M.paged_table_width(max_len, kv_block),
-                          kv_layout, cfg.decode_attn, cfg.head_entropy)
+        # the build width; the paged layout's device tables and the chunk
+        # graphs over them are cached by width (``set_width``)
+        self.table_width0 = M.paged_table_width(max_len, kv_block)
+        self.graph_key = self._graph_key(self.table_width0)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captured: dict[str, int] = {}     # kernel launches a replay
         self.capture_s = 0.0
+        self.width_capture_s: dict[int, float] = {}
+        self._graphs: dict[int, tuple] = {}
+        self._tables: dict[int, torch.Tensor] = {}
+        if "block_table" in self.cache:
+            self._tables[self.table_width0] = self.cache["block_table"]
         self._entropy = entropy
         self._mi_threshold = mi_threshold
         self._se_threshold = se_threshold
@@ -103,9 +114,14 @@ class ModelRunner:
         self.spec_k_max = spec_k_max
         self._spec_k_fns: dict[int, tuple] = {}
         self._spec_commit = S.build_spec_commit(cfg)
+        # a spec round's graphs read the table too: one set a table width,
+        # the current width's in these three dicts (keyed by depth)
+        self._spec_by_width: dict[int, tuple] = {}
         self.spec_graphs: dict[int, torch.cuda.CUDAGraph] = {}
         self.spec_captured: dict[int, dict[str, int]] = {}
         self.spec_capture_s: dict[int, float] = {}
+        self._spec_by_width[self.table_width0] = (
+            self.spec_graphs, self.spec_captured, self.spec_capture_s)
         self._spec_pool = None
         if spec_k_max:
             # the round's own buffers, sized for the deepest draft: the
@@ -130,13 +146,58 @@ class ModelRunner:
         return (self.params, self.tok, self.cache, self.step0, self.active,
                 self.flags, self.ys)
 
-    def _capture(self) -> None:
+    def _graph_key(self, width: int) -> tuple:
+        return (self.num_slots, self.chunk, width, self.kv_layout,
+                self.cfg.decode_attn, self.cfg.head_entropy)
+
+    def table_width(self) -> int:
+        """The width of the carry's device block table (the build width
+        without a paged layout)."""
+        t = self.cache.get("block_table")
+        return self.table_width0 if t is None else t.shape[1]
+
+    def set_width(self, width: int) -> None:
+        """Point the carry at the device block table of ``width`` blocks a
+        slot (allocated all -1 the first time) and, on CUDA, at the chunk
+        graph captured over it (captured the first time, mid-run: see
+        ``_capture``) and that width's spec-round graphs.  The caller then
+        writes the table's contents (``write_table``)."""
+        if "block_table" not in self.cache or width == self.table_width():
+            return
+        if width not in self._tables:
+            self._tables[width] = torch.full(
+                (self.num_slots, width), -1, dtype=torch.int32,
+                device=self.device)
+        self.cache["block_table"] = self._tables[width]
+        self.graph_key = self._graph_key(width)
+        (self.spec_graphs, self.spec_captured, self.spec_capture_s) = \
+            self._spec_by_width.setdefault(width, ({}, {}, {}))
+        if self.device.type != "cuda":
+            return
+        if width not in self._graphs:
+            self._capture(keep_carry=True)
+        self.graph, self.captured = self._graphs[width]
+
+    def _capture(self, keep_carry: bool = False) -> None:
         """Warm the chunk up once on a side stream (kernel builds, cuBLAS
-        handles, the decode kernel's workspace), then capture it, on the
-        carry with every slot inactive; ``start`` resets what the warm-up
-        wrote.  The warm-up's launches are counted; the capture's are
-        recorded, not launched, and ``scan`` counts them per replay."""
+        handles, the decode kernel's workspace, which grows with the table
+        width), then capture it.  At build the carry has every slot
+        inactive and ``start`` resets what the warm-up wrote.  Mid-run
+        (``keep_carry``, a widened table) the warm-up runs over the new
+        table while it is still all -1 and with every depth at 0, the
+        build's state, so its KV writes all land in the sink block; every
+        other leaf it writes (tokens, depths, flags, recurrent state) is
+        restored from a copy afterwards.  The
+        warm-up's launches are counted; the capture's are recorded, not
+        launched, and ``scan`` counts them per replay."""
         t0 = time.perf_counter()
+        saved = None
+        if keep_carry:
+            if bool((self.cache["block_table"] >= 0).any()):
+                raise RuntimeError("a mid-run capture needs an unmapped "
+                                   "table (its warm-up writes the pools)")
+            saved = [(t, t.clone()) for t in self._carry_leaves()]
+            self.cache["len"].zero_()
         with torch.inference_mode():
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
@@ -152,15 +213,32 @@ class ModelRunner:
         self.captured = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
         self.graph = graph
+        width = self.table_width()
+        self._graphs[width] = (graph, self.captured)
+        if saved is not None:
+            for t, copy in saved:
+                t.copy_(copy)
         torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
-        self.start()
+        self.width_capture_s[width] = time.perf_counter() - t0
+        if saved is None:
+            self.capture_s = self.width_capture_s[width]
+            self.start()
+
+    def _carry_leaves(self) -> list:
+        """Every carry tensor a chunk writes except the KV pools and the
+        table: the tokens, the flag counters and the other cache leaves
+        (depths, recurrent state)."""
+        return [self.tok, *self.flags.values()] + [
+            t for n, t in self.cache.items()
+            if n not in M.PAGED_KV_LEAVES and n != "block_table"]
 
     def start(self):
         """The decode carry ``(tok, cache, active, flags)``, reset IN PLACE
         to a fresh engine's state (an empty cache, unmapped tables, no
-        active slot, zero counters).  The paged decode kernel needs no
-        reset: every call leaves its counters at 0."""
+        active slot, zero counters) at the build table width.  The paged
+        decode kernel needs no reset: every call leaves its counters at
+        0."""
+        self.set_width(self.table_width0)
         self.tok.zero_()
         self.active.zero_()
         for v in self.flags.values():
@@ -197,7 +275,12 @@ class ModelRunner:
 
     def write_table(self, cache: dict, table: np.ndarray) -> None:
         """Copy the host block tables into the cache's table in place (the
-        graph reads it at its fixed address)."""
+        graph reads it at its fixed address); a host table the scheduler
+        has widened moves the carry to a device table of its width first
+        (``set_width``)."""
+        if cache is not self.cache:
+            raise ValueError("write_table writes the runner's own carry")
+        self.set_width(table.shape[1])
         cache["block_table"].copy_(self._staged(np.asarray(table, np.int32)),
                                    non_blocking=True)
 

@@ -115,12 +115,15 @@ def check_ported(args) -> None:
         raise NotImplementedError(f"--mesh {_ROADMAP}")
 
 
-def build_engine(args, params=None) -> tuple[ServeEngine, ArchConfig]:
+def build_engine(args, params=None,
+                 head_noise=None) -> tuple[ServeEngine, ArchConfig]:
     """The engine the CLI serves with, and its config: random weights
     from ``--seed`` on ``--device``, or ``params`` already there (another
-    engine's, so that two engines of one model hold one copy).  On CUDA
-    this captures the decode chunk's graph (``ModelRunner``); the engine
-    serves any number of ``run`` calls with it."""
+    engine's, so that two engines of one model hold one copy; or a
+    trained state's ``registry.serving_params``).  ``head_noise``: an
+    operand-noise provider for the engine (tests inject the JAX xi).  On
+    CUDA this captures the decode chunk's graph (``ModelRunner``); the
+    engine serves any number of ``run`` calls with it."""
     cfg = get_config(args.arch)
     check_ported(args)
     if args.reduced:
@@ -152,7 +155,8 @@ def build_engine(args, params=None) -> tuple[ServeEngine, ArchConfig]:
         spec_mi_threshold=args.spec_mi_threshold,
         spec_draft_s=args.spec_draft_s, spec_k_min=args.spec_k_min,
         spec_k_max=args.spec_k_max, policy=args.policy,
-        escalate_mi=args.escalate_mi, escalate_s=args.escalate_s)
+        escalate_mi=args.escalate_mi, escalate_s=args.escalate_s,
+        head_noise=head_noise)
     return engine, cfg
 
 

@@ -1,7 +1,11 @@
-"""Serving step builders: one decode step, chunked decode, and the
-draft / verify / commit of uncertainty-gated speculative decoding.
+"""Step builders: the SVI train step, and for serving one decode step,
+chunked decode, and the draft / verify / commit of uncertainty-gated
+speculative decoding.
 
-PyTorch counterpart of the serving half of ``repro.launch.steps``.  The
+PyTorch counterpart of ``repro.launch.steps`` (its dry-run shape specs
+are not ported).  The train step is plain PyTorch with autograd, as the
+reference's is plain jnp under ``jax.value_and_grad``: no kernel lies on
+it.  The
 JAX package's ``jax.lax.scan`` over ``chunk`` decode steps becomes a
 Python loop that writes every output in place into buffers the caller
 owns (the token carry, the flag counters, the (chunk, outputs, B) ``ys``
@@ -29,16 +33,123 @@ graph per draft depth.
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import keys as K
+from repro_torch.core import tree as T
+from repro_torch.core.svi import SVIConfig, elbo_loss
 from repro_torch.models import registry as M
+from repro_torch.optim import adamw
 
 LEGACY_SEED = 17
 
 # per-step outputs of a chunk, in the order of the packed host transfer
 OUTPUTS = ("token", "H", "SE", "MI", "p_max", "epistemic", "aleatoric")
 
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def deterministic(device: torch.device):
+    """Deterministic algorithms for the span of a train step on CUDA (the
+    embedding and gather backwards otherwise accumulate with atomics, and
+    a resumed run must be bit-exact); cuBLAS needs its workspace pinned
+    for that (``CUBLAS_WORKSPACE_CONFIG``, set here where unset).  The
+    mode's NaN fill of every new tensor is turned off: the step reads no
+    memory it has not written, and the fill is one more pass over every
+    output.  The caller's settings are restored afterwards.  A no-op on
+    the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
+                     svi_cfg: SVIConfig | None = None,
+                     micro_batches: int = 1, seed: int = 0, noise=None,
+                     nll_fn=None):
+    """``(state, batch) -> (state, metrics)`` with ``state = {"params",
+    "opt"}``: the negative ELBO (``core.svi.elbo_loss`` of ``nll_fn``,
+    default the family's ``registry.nll_loss``), its gradients by
+    autograd, and one AdamW update (``optim.adamw.apply_updates``), all in
+    place: the state's tensors keep their addresses.
+
+    The step's noise key is ``fold_in(root(seed), step)`` (``core.keys``),
+    so a run and its resumption draw the same variates.  ``micro_batches``
+    > 1 splits the batch on its leading axis: micro-batch i runs on
+    ``fold_in(key, i)``, its gradients accumulate in float32 and are
+    averaged, as the reference's scan does.  ``noise`` replaces the head's
+    draw (tests inject the JAX package's).  Metrics: ``loss``, ``nll``,
+    ``kl``, ``beta``, ``accuracy``, ``grad_norm`` (0-d device tensors) and
+    ``lr`` (a float)."""
+    svi = svi_cfg or SVIConfig()
+    nll = nll_fn or (lambda p, b, k: M.nll_loss(p, cfg, b, k, noise=noise))
+
+    def grads_of(params, batch, key, step):
+        leaves = T.leaves(params)
+        with torch.enable_grad():
+            for p in leaves:
+                p.requires_grad_(True)
+            try:
+                loss, aux = elbo_loss(nll, params, batch, key, step, svi)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            finally:
+                for p in leaves:
+                    p.requires_grad_(False)
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+    def train_step(state, batch):
+        params, opt = state["params"], state["opt"]
+        step = int(opt["step"])
+        key = K.fold_in(K.root(seed), step)
+        device = T.leaves(params)[0].device
+        with deterministic(device):
+            if micro_batches == 1:
+                loss, aux, grads = grads_of(params, batch, key, step)
+            else:
+                acc, losses, auxs = None, [], []
+                for i in range(micro_batches):
+                    mb = {k: v.reshape(micro_batches, -1, *v.shape[1:])[i]
+                          for k, v in batch.items()}
+                    l_i, a_i, g_i = grads_of(params, mb, K.fold_in(key, i),
+                                             step)
+                    acc = [g.float() for g in g_i] if acc is None else \
+                        [a + g.float() for a, g in zip(acc, g_i)]
+                    losses.append(l_i)
+                    auxs.append(a_i)
+                inv = 1.0 / micro_batches
+                grads = [g * inv for g in acc]
+                loss = sum(losses[1:], losses[0]) * inv
+                aux = {k: torch.stack([a[k] for a in auxs]).mean(0)
+                       for k in auxs[0]}
+            params, opt, om = adamw.apply_updates(
+                params, T.unflatten(params, list(grads)), opt, opt_cfg)
+        metrics = {"loss": loss, **aux, **om}
+        return {"params": params, "opt": opt}, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
 
 def decode_seed(entropy) -> int:
     return entropy.seed if entropy is not None else LEGACY_SEED

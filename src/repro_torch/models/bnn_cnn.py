@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import entropy as E
+from repro_torch.core import keys as K
 from repro_torch.core.bayesian import (GaussianVariational, inv_softplus,
                                       split_generators)
 from repro_torch.core.photonic import quantize_ste
@@ -115,14 +116,15 @@ def params_from_numpy(tree: dict, cfg: BNNConfig, device) -> dict:
 
 def _dw_weights(q: GaussianVariational, generator, mode: str,
                 spec: SurrogateSpec, block: int,
-                noise: GammaNoise | None) -> torch.Tensor:
+                noise: GammaNoise | None,
+                eps: dict | None = None) -> torch.Tensor:
     """The probabilistic depthwise weights of one forward pass."""
     if mode == "mean":
         return q.mu
     if mode == "surrogate":
-        eps = torch.randn(q.mu.shape, generator=generator,
-                          device=q.mu.device)
-        return spec.apply_weight(q, eps)
+        e = eps[block] if eps is not None else torch.randn(
+            q.mu.shape, generator=generator, device=q.mu.device)
+        return spec.apply_weight(q, e)
     if mode == "machine":
         # ASE Gamma(M) statistics at the programmed bandwidth + DAC grid
         sigma = spec.realizable_sigma(q.mu, q.sigma)
@@ -139,9 +141,12 @@ def _dw_weights(q: GaussianVariational, generator, mode: str,
 def apply(params: dict, cfg: BNNConfig, x: torch.Tensor,
           generator: torch.Generator | None, mode: str = "surrogate",
           spec: SurrogateSpec = SurrogateSpec(),
-          noise: GammaNoise | None = None) -> torch.Tensor:
+          noise: GammaNoise | None = None,
+          eps: dict | None = None) -> torch.Tensor:
     """x: (B, C, H, W) in [0, 1] -> logits (B, num_classes).  ``noise``
-    supplies machine mode's Gamma draws instead of ``generator``."""
+    supplies machine mode's Gamma draws instead of ``generator``; ``eps``
+    ({block: standard normals of the block's weight shape}) surrogate
+    mode's Gaussian draws."""
     act = lambda v: F.gelu(v, approximate="tanh")  # noqa: E731
     h = act(conv2d(x, params["b0"]["w"]))
     h = _pool(torch.cat([h, x], dim=1))
@@ -149,7 +154,8 @@ def apply(params: dict, cfg: BNNConfig, x: torch.Tensor,
         bp = params[f"b{i}"]
         cin = h.shape[1]
         if isinstance(bp["dw"], GaussianVariational):
-            dw = _dw_weights(bp["dw"], generator, mode, spec, i, noise)
+            dw = _dw_weights(bp["dw"], generator, mode, spec, i, noise,
+                             eps)
             hin = spec.apply_input(torch.clamp(h, -1.0, 1.0)) \
                 if mode != "mean" else h
             hd = conv2d(hin, dw, groups=cin)
@@ -183,3 +189,31 @@ def mc_predict(params: dict, cfg: BNNConfig, x: torch.Tensor,
                     (lambda i, m, s=s: noise(s, i, m)))
               for s, g in enumerate(gens)]
     return torch.softmax(torch.stack(logits), dim=-1)
+
+
+def nll_fn(cfg: BNNConfig, spec: SurrogateSpec = SurrogateSpec(),
+           noise=None):
+    """The ELBO's NLL closure for ``core.svi.elbo_loss``
+    (``repro.models.bnn_cnn.nll_fn``): ``nll(params, batch, key) ->
+    (nll, {"accuracy"})`` over ``batch`` = {"images", "labels"}, the
+    forward in surrogate mode.  The probabilistic block ``i`` draws its
+    eps from ``noise(fold_in(key, i), shape, device)`` (default
+    ``keys.normal``), as the reference keys it; its quantizers and the
+    sigma clamp pass gradients straight through."""
+    draw = noise or K.normal
+
+    def nll(params, batch, key):
+        x = batch["images"]
+        eps = {i: draw(K.fold_in(key, i), tuple(params[f"b{i}"]["dw"].mu
+                                                .shape), x.device)
+               for i in (1, 2, 3)
+               if isinstance(params[f"b{i}"]["dw"], GaussianVariational)}
+        logits = apply(params, cfg, x, None, mode="surrogate", spec=spec,
+                       eps=eps)
+        labels = batch["labels"].long()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, 1, labels[:, None]).mean()
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return nll, {"accuracy": acc}
+
+    return nll

@@ -455,18 +455,33 @@ def apply_embed(p, tokens: torch.Tensor) -> torch.Tensor:
     return p["table"][tokens.long()]
 
 
-def init_head(gen, cfg: ArchConfig, device):
-    """The Gaussian-variational output projection as SERVING parameters:
-    mu ~ N(0, 1)/sqrt(d) and sigma = softplus(rho) with rho =
-    inv_softplus(head_init_sigma), both f32.  sigma is computed here once
-    (the head is frozen while serving), not inside every decode step."""
+def init_head(gen, cfg: ArchConfig, device, train: bool = False):
+    """The Gaussian-variational output projection: mu ~ N(0, 1)/sqrt(d)
+    and rho = inv_softplus(head_init_sigma), both f32.  As SERVING
+    parameters (the default) the head is ``{"mu", "sigma"}`` with sigma =
+    softplus(rho) computed here once (the head is frozen while serving),
+    not inside every decode step; its TRAINING form (``train``) is
+    ``{"mu", "rho"}``, the leaves SVI trains (``serving_head`` turns it
+    into the serving form)."""
     shape = (cfg.d_model, cfg.vocab_size)
     mu = torch.randn(shape, generator=gen, dtype=torch.float32,
                      device=device) / math.sqrt(float(cfg.d_model))
     init = max(cfg.head_init_sigma, 1e-8)
     rho = torch.full(shape, math.log(math.expm1(init)), dtype=torch.float32,
                      device=device)
+    if train:
+        return {"mu": mu, "rho": rho}
     return {"mu": mu, "sigma": F.softplus(rho)}
+
+
+@torch.no_grad()
+def serving_head(head: dict) -> dict:
+    """The serving form ``{"mu", "sigma"}`` of a head in training form
+    ``{"mu", "rho"}``: sigma = softplus(rho) computed once, mu the same
+    tensor (no copy).  A serving-form head is returned as it is."""
+    if "rho" not in head:
+        return head
+    return {"mu": head["mu"], "sigma": F.softplus(head["rho"])}
 
 
 def head_logits_mean(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

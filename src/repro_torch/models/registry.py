@@ -19,6 +19,13 @@ serving API:
     write_slot(cfg, cache, slot, sub, block_row=None, offset=0)
     copy_block(cfg, cache, src, dst)
 
+and, for the families that train (dense, vlm):
+
+    init_train_params(cfg, generator, device) -> params (head {mu, rho})
+    train_params_from_numpy(tree, cfg, device) -> params
+    serving_params(train_params) -> params the engine serves
+    nll_loss(params, cfg, batch, key, noise=None) -> (nll, aux)
+
 Caches are slot-indexed and updated in place: every leaf carries the
 slot axis at position 1 ((L, B, ...) KV strips, SSM states, conv tails)
 except ``len`` (B,).  The ssm family's cache is recurrent state only
@@ -101,6 +108,55 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
                    "sigma": F.softplus(_tensor(q["rho"], device,
                                                torch.float32))}
     return out
+
+
+# ---------------------------------------------------------------------------
+# training (dense and vlm; the other families' losses are ROADMAP item 12b)
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILIES = ("dense", "vlm")
+
+
+def _check_trains(cfg: ArchConfig) -> None:
+    module_for(cfg)
+    if cfg.family not in TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet "
+            "(ROADMAP.md item 12b)")
+
+
+def init_train_params(cfg: ArchConfig, generator: torch.Generator, device):
+    """Random TRAINING parameters: ``init_params``' draws with the head in
+    its training form ``{"mu", "rho"}``, both float32."""
+    _check_trains(cfg)
+    return module_for(cfg).init_params(cfg, generator, device, train=True)
+
+
+def train_params_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
+    """``params_from_numpy`` with the head kept in its training form: the
+    JAX head's ``{"q": {"mu", "rho"}}`` becomes ``{"mu", "rho"}``, float32;
+    every other leaf keeps its dtype."""
+    _check_trains(cfg)
+    out = params_from_numpy(tree, cfg, device)
+    q = tree["head"]["q"]
+    out["head"] = {"mu": out["head"]["mu"],
+                   "rho": _tensor(q["rho"], device, torch.float32)}
+    return out
+
+
+def serving_params(train_params: dict) -> dict:
+    """The tree the serving engine takes, from training parameters: the
+    head's sigma = softplus(rho) computed once; every other leaf the SAME
+    tensor (a trained state serves without a copy of its body)."""
+    return {k: L.serving_head(v) if k == "head" else v
+            for k, v in train_params.items()}
+
+
+def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None):
+    """The family's mean next-token NLL with one weight-space draw of the
+    head: ``(nll, {"accuracy"})`` (``transformer.nll_loss``)."""
+    _check_trains(cfg)
+    return module_for(cfg).nll_loss(params, cfg, batch, key, noise=noise)
 
 
 def supports_paged(cfg: ArchConfig) -> bool:

@@ -22,8 +22,11 @@ step replays it on the cache's fixed addresses.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import keys as K
 from repro_torch.models import layers as L
 from repro_torch.models import uncertain_head as U
 
@@ -33,6 +36,18 @@ def layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def unstacked(tree) -> list:
+    """Every layer of a layer-stacked parameter tree, views from one
+    ``torch.unbind`` a leaf.  Under autograd its backward is one stack a
+    leaf; indexing layer by layer (``layer``) would give each layer's
+    gradient the full stacked shape, L zero-filled copies summed."""
+    if isinstance(tree, dict):
+        per = {k: unstacked(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def stacked(init, n: int):
@@ -63,10 +78,13 @@ def stacked(init, n: int):
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, device):
+def init_params(cfg: ArchConfig, gen: torch.Generator, device,
+                train: bool = False):
     """Random serving parameters with the JAX package's distributions
     (he_init weights, ones for the norms, zero QKV biases, N(0,1)/sqrt(d)
-    head mean and sigma = softplus(inv_softplus(head_init_sigma)))."""
+    head mean and sigma = softplus(inv_softplus(head_init_sigma))); with
+    ``train`` the head in its training form ``{"mu", "rho"}`` (the same
+    draws)."""
     dt = L.dtype_of(cfg)
     lead = (cfg.num_layers,)
     ones = dict(dtype=dt, device=device)
@@ -79,7 +97,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device):
             "mlp": L.init_mlp(gen, cfg, device, lead),
         },
         "final_norm": torch.ones((cfg.d_model,), **ones),
-        "head": L.init_head(gen, cfg, device),
+        "head": L.init_head(gen, cfg, device, train=train),
     }
 
 
@@ -97,25 +115,37 @@ def splice_prefix(x: torch.Tensor, prefix_embeds: torch.Tensor):
     return torch.cat([prefix_embeds.to(x.dtype), x[:, P:]], dim=1)
 
 
+def _block_fwd(bp, cfg: ArchConfig, x, rot):
+    h, kv = L.apply_attention(bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
+                              rot=rot)
+    x = x + h
+    x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+    return x, kv
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeds: torch.Tensor | None = None,
             return_kv: bool = False):
     """tokens: (B, S) -> hidden (B, S, d); optionally the per-layer (k, v)
     stacked to (L, B, S, Hkv, hd).  ``prefix_embeds`` (B, P, d), P <= S,
     take the place of the first P embedded tokens, cast to the body's
-    dtype (the tokens under them are ignored)."""
+    dtype (the tokens under them are ignored).  Under autograd with
+    ``cfg.remat`` each layer is recomputed in the backward pass
+    (``torch.utils.checkpoint``, the reference's per-layer
+    ``jax.checkpoint``): the same numbers, only layer inputs kept."""
     x = L.apply_embed(params["embed"], tokens)
     if prefix_embeds is not None:
         x = splice_prefix(x, prefix_embeds)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    remat = cfg.remat and torch.is_grad_enabled() and not return_kv
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        bp = layer(params["blocks"], i)
-        h, (k, v) = L.apply_attention(bp["attn"], cfg,
-                                      L.rms_norm(x, bp["ln1"]), rot=rot)
-        x = x + h
-        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+    for bp in unstacked(params["blocks"]):
+        if remat:
+            x = checkpoint(lambda xx, bp=bp: _block_fwd(bp, cfg, xx, rot)[0],
+                           x, use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, (k, v) = _block_fwd(bp, cfg, x, rot)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -123,6 +153,41 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     if return_kv:
         return x, (torch.stack(ks), torch.stack(vs))
     return x, None
+
+
+def nll_loss(params, cfg: ArchConfig, batch: dict, key: K.Key,
+             noise=None):
+    """Mean next-token NLL with one weight-space draw of the Bayesian head
+    (``repro.models.transformer.nll_loss``): w = mu + softplus(rho)·eps,
+    eps of mu's shape from ``noise(key, shape, device)`` (default
+    ``keys.normal``; tests inject the JAX package's draw), and logits =
+    hidden @ w cast to the body's dtype, accumulated and returned in
+    float32; the head is in its training form ``{"mu", "rho"}``.
+    batch: ``tokens`` (B, S), ``labels`` (B, S)
+    (shifted; labels < 0 are padding), optional ``prefix_embeds``.
+    Returns (nll, {"accuracy"}), both 0-d float32."""
+    hidden, _ = forward(params, cfg, batch["tokens"],
+                        prefix_embeds=batch.get("prefix_embeds"))
+    mu, rho = params["head"]["mu"], params["head"]["rho"]
+    eps = (noise or K.normal)(key, tuple(mu.shape), mu.device)
+    w = mu + F.softplus(rho) * eps
+    # bf16 operands, float32 products and output: the reference's
+    # preferred_element_type=f32 (a bf16 matmul would round its output)
+    logits = hidden.float() @ w.to(hidden.dtype).float()
+    if cfg.logits_softcap:
+        c = cfg.logits_softcap
+        logits = c * torch.tanh(logits / c)
+    labels = batch["labels"].long()
+    valid = labels >= 0
+    lab = torch.where(valid, labels, torch.zeros_like(labels))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    # gather, not nll_loss: its backward has a deterministic CUDA form
+    tok_nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    tok_nll = torch.where(valid, tok_nll, torch.zeros_like(tok_nll))
+    count = torch.clamp(valid.sum(), min=1).float()
+    nll = tok_nll.sum() / count
+    acc = ((logits.argmax(-1) == labels) & valid).sum().float() / count
+    return nll, {"accuracy": acc}
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,

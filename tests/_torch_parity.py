@@ -170,3 +170,27 @@ def vlm_pair(seed=0):
     (phi-3-vision: 2 layers, d 128, 4 MHA heads of D 32, ff 256, silu,
     8 prefix embeds, V 512, f32) from one JAX init."""
     return dense_pair("phi_3_vision_4_2b", seed)
+
+
+def jax_key(key):
+    """The JAX key of a port ``core.keys`` key: ``PRNGKey(seed)`` with the
+    key's fold_in / split path applied, as the JAX package derives its
+    training keys."""
+    import jax
+    k = jax.random.PRNGKey(key[0])
+    for op in key[1:]:
+        if op[0] == "fold":
+            k = jax.random.fold_in(k, op[1])
+        else:
+            k = jax.random.split(k, op[1])[op[2]]
+    return k
+
+
+def jax_train_noise(key, shape, device):
+    """A training-noise provider for the port (``nll_loss(noise=)``,
+    ``bnn_cnn.nll_fn(noise=)``) returning the JAX package's
+    ``jax.random.normal`` at the same key path."""
+    import jax
+    import jax.numpy as jnp
+    eps = jax.random.normal(jax_key(key), tuple(shape), jnp.float32)
+    return torch.from_numpy(np.asarray(eps).copy()).to(device)

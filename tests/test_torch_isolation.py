@@ -76,6 +76,16 @@ def test_cli_defaults_to_cuda_and_raises_without_a_gpu():
     assert "no CUDA device" in out.stderr
 
 
+def test_train_cli_defaults_to_cuda_and_raises_without_a_gpu():
+    _needs_no_gpu()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--steps", "1",
+         "--batch", "1", "--seq", "4"],
+        env=_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
 def test_chip_smoke_fails_without_a_gpu_and_prints_no_result(tmp_path):
     _needs_no_gpu()
     runs = [(ROOT, ROOT / "chip_smoke.py")]

@@ -1669,6 +1669,60 @@ def _check_replays_against_eager(runner, cuda_device, frames=False,
             assert torch.isfinite(live).all() and (live >= 0).all()
 
 
+def test_cuda_widened_table_graph_equals_the_eager_chunk(cuda_device):
+    """A request needing more blocks than the build-time table holds
+    (prompt 40 + 8 tokens against max_len 24 in blocks of 4): the runner
+    moves to a wider device table mid-run and captures the chunk again
+    over it; every chunk, those replayed at the widened table included,
+    equals the eager chunk bit for bit (outputs, tokens, depths, flags)."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.core.entropy import KernelEntropy
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.engine import Request, ServeEngine
+    from repro_torch.models import registry as TM
+
+    cfg = dataclasses.replace(reduced(get_config("qwen2_1_5b")),
+                              head_entropy="kernel")
+    params = TM.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    eng = ServeEngine(params, cfg, num_slots=2, max_len=24, chunk=4,
+                      entropy=KernelEntropy(seed=5), kv_layout="paged",
+                      kv_block=4, kv_blocks=24, decode_attn="kernel",
+                      prefill_mode="chunked", prefill_chunk=8,
+                      device=cuda_device)
+    runner = eng.runner
+    eager = S.build_scan_decode(eng.cfg, entropy=KernelEntropy(seed=5),
+                                chunk=4, mi_threshold=eng.mi_threshold)
+    graphed, widths = runner.scan, []
+    rows = [S.OUTPUTS.index(k) for k in ("token", "H", "SE", "MI", "p_max")]
+
+    def checked(tok, cache, step0, active, flags):
+        widths.append(runner.table_width())
+        copy = (tok.clone(), {k: v.clone() for k, v in cache.items()},
+                active.clone(), {k: v.clone() for k, v in flags.items()})
+        out = graphed(tok, cache, step0, active, flags)
+        ys = torch.empty_like(runner.ys)
+        step = torch.full((1,), step0, dtype=torch.int32, device=cuda_device)
+        e_tok, e_cache, e_flags, ys = eager(eng.params, copy[0], copy[1],
+                                            step, copy[2], copy[3], ys)
+        assert torch.equal(out[3][:, rows].view(torch.int32),
+                           ys[:, rows].view(torch.int32))
+        assert torch.equal(out[0], e_tok)
+        assert torch.equal(cache["len"], e_cache["len"])
+        assert all(torch.equal(flags[k], e_flags[k]) for k in flags)
+        return out
+
+    runner.scan = checked
+    r = eng.run([Request(rid=0, prompt=np.arange(3, 13, dtype=np.int32),
+                         max_new_tokens=8),
+                 Request(rid=1, prompt=np.arange(1, 41, dtype=np.int32),
+                         max_new_tokens=8, arrival_step=4)])
+    assert r["table_growths"] >= 1
+    assert max(widths) > runner.table_width0 == min(widths)
+    assert sorted(runner._graphs) == sorted(set(widths))
+    assert all(len(q.tokens) == 8 for q in r["requests"])
+
+
 def test_cuda_replays_count_the_captured_launches(cuda_device):
     """A replay calls no wrapper: the runner adds the launches recorded at
     capture (one decode launch a layer a step, here 2 layers x 4 steps,

@@ -1,6 +1,7 @@
 """The port's serving engine against the JAX engine on one request trace
 (operand entropy, the JAX xi injected), seeded kernel-mode determinism,
-and the CLI's ``--stats-json`` schema."""
+the CLI's ``--stats-json`` schema, and the CLI's long-prompt trace,
+whose block tables widen mid-run."""
 
 import json
 import os
@@ -134,3 +135,49 @@ def test_cli_serve_builds_the_jax_clis_prompts():
     want = JS.make_requests(args, tcfg)
     assert [r.prompt.tolist() for r in got] \
         == [r.prompt.tolist() for r in want]
+
+
+LONG = ["--device", "cpu", "--kv-layout", "paged", "--long-prompt", "64"]
+
+
+@pytest.mark.parametrize("extra", [["--entropy", "operand"],
+                                   ["--entropy", "operand", "--prefill",
+                                    "chunked", "--decode-attn", "gather"]])
+def test_long_prompt_widens_the_tables_as_the_jax_engine(extra):
+    """``--long-prompt 64``: request 0 needs more blocks than the
+    build-time table holds, so the tables widen mid-run (the device table
+    follows the scheduler's width).  The port's engine serves it with the
+    JAX xi injected: tokens exact, H / SE / MI / p_max within 2e-5 and
+    the same ``table_growths`` as the JAX CLI's engine."""
+    args = TS.build_parser().parse_args(LONG + extra)
+    _, _, _, tparams = dense_pair()
+    built = TS.build_engine(args, params=tparams,
+                            head_noise=jax_head_noise())
+    tr = TS.serve(args, built)
+    jr = JS.serve(args)
+    assert tr["table_growths"] == jr["table_growths"] >= 1
+    assert len(tr["requests"][0].prompt) == 64
+    for a, b in zip(tr["requests"], jr["requests"]):
+        assert a.tokens == b.tokens, a.rid
+        assert a.finish_reason == b.finish_reason
+        for name in ("H", "SE", "MI", "p_max"):
+            np.testing.assert_allclose(getattr(a, name), getattr(b, name),
+                                       atol=2e-5, err_msg=f"{name} {a.rid}")
+    runner = built[0].runner
+    w0 = runner.table_width0
+    assert runner.table_width() == 2 * w0 and sorted(runner._tables) \
+        == [w0, 2 * w0]
+    _, cache, _, _ = runner.start()     # the next run starts at w0 again
+    assert runner.table_width() == w0 and cache["block_table"].shape[1] \
+        == w0 and bool((cache["block_table"] == -1).all())
+
+
+def test_long_prompt_cli_completes():
+    """The CLI command itself runs to its end on the CPU and prints the
+    growth."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         *LONG], env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "tables: 1 growths" in proc.stdout
