@@ -158,10 +158,16 @@ Phases (any failure exits non-zero before the result line):
      bit; preempt-and-restore in operand entropy (one slot, a 256-token
      class-2 request preempted at step 8) bit for bit against the solo
      runs; the fused head at S 40, M 1 and 4, against its plain version.
- 16. one JSON line of per-kernel numbers (eleven kernels; the serving
+ 16. training (``tools/train_phase.py``): every family's SVI train
+     steps at full width (deepseek-moe-16b and zamba2-7b cut in depth),
+     ms a step, tokens/s and peak memory; each trained state served on
+     the kernel path with its launches counted; two phi-3-vision-4.2b
+     steps; card against CPU at the reduced configs; the train CLI's
+     crash and resume; the blood-cell BNN's paper bars.
+ 17. one JSON line of per-kernel numbers (eleven kernels; the serving
      kernels' launches are phase 4's first run plus phases 9's, 11's,
-     12's, 13's, 14's and 15's, and phase 10's for the head), the card's
-     nvidia-smi line, then the result line.
+     12's, 13's, 14's, 15's and 16's, and phase 10's for the head), the
+     card's nvidia-smi line, then the result line.
 
 Imports nothing of the JAX package.
 """
@@ -4145,7 +4151,7 @@ def main():
     for name in ("paged_decode_attention", "paged_prefill_attention",
                  "uncertainty_head"):
         counts[name] += train_counts[name]
-    print(f"train (serve of the trained state) launches {train_counts}",
+    print(f"train (serves of the trained states) launches {train_counts}",
           flush=True)
     print(f"phase train: {time.perf_counter() - t0:.1f}s", flush=True)
 

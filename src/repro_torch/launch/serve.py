@@ -115,19 +115,23 @@ def check_ported(args) -> None:
         raise NotImplementedError(f"--mesh {_ROADMAP}")
 
 
-def build_engine(args, params=None,
-                 head_noise=None) -> tuple[ServeEngine, ArchConfig]:
+def build_engine(args, params=None, head_noise=None,
+                 cfg: ArchConfig | None = None
+                 ) -> tuple[ServeEngine, ArchConfig]:
     """The engine the CLI serves with, and its config: random weights
     from ``--seed`` on ``--device``, or ``params`` already there (another
     engine's, so that two engines of one model hold one copy; or a
     trained state's ``registry.serving_params``).  ``head_noise``: an
-    operand-noise provider for the engine (tests inject the JAX xi).  On
+    operand-noise provider for the engine (tests inject the JAX xi).
+    ``cfg``: the model's config where it is not ``--arch``'s own (a
+    training state cut in depth, ``launch.train.train_config``).  On
     CUDA this captures the decode chunk's graph (``ModelRunner``); the
     engine serves any number of ``run`` calls with it."""
-    cfg = get_config(args.arch)
     check_ported(args)
-    if args.reduced:
-        cfg = reduced(cfg)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg)
     cfg = dataclasses.replace(cfg, head_entropy=args.entropy)
     device = resolve_device(args.device)
     if params is None:

@@ -13,9 +13,12 @@
     a mid-run crash resumes losslessly; the checkpoint writer is joined on
     every exit from the step loop, so a crash never leaves a ``.tmp``.
 
-The dense and vlm families train (``registry.TRAIN_FAMILIES``); the
-others raise ``NotImplementedError`` (ROADMAP.md item 12b).  The mesh of
-the JAX launcher is ROADMAP item 13: the port trains on one device.
+Every family trains (``registry.TRAIN_FAMILIES``).  ``--full`` trains
+at full width; where one card cannot hold a family's whole training
+state (bf16 weights and gradients, f32 moments, the f32 head), it is cut
+in depth to ``CARD_DEPTH``, and grok-1-314b,
+too large for one card at any depth, is refused.  The mesh of the JAX
+launcher is ROADMAP item 13: the port trains on one device.
 ``train_bnn`` is the paper BNN's SVI loop (the reference's quickstart
 and tests train it the same way).
 
@@ -24,11 +27,14 @@ Usage:
       --reduced --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --full --steps 6 \\
       --batch 8 --seq 256            # qwen2-1.5B at full width, on a GPU
+  PYTHONPATH=src python -m repro_torch.launch.train --full \\
+      --arch zamba2_7b --steps 3 --batch 4 --seq 512   # 54 of 81 layers
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import statistics
 import time
 
@@ -66,6 +72,35 @@ class StragglerMonitor:
         return slow
 
 
+# the depth a full-width training state is cut to on one 80 GB card, where
+# the whole model does not fit (~12 bytes a bf16 parameter, 16 a head
+# one): the deepest whose measured peak leaves >= 10 GB (deepseek-moe-16b)
+# or >= 15 GB (zamba2-7b, a multiple of attn_every = 6) free.  A layer
+# adds ≈ 8.2 GB to deepseek's peak (0.59B parameters) and a block ≈ 1.1 GB
+# to zamba2's (78M); at 6 layers and 48 blocks the peaks read 53.6 and
+# 57.4 GB on an H100 80GB HBM3 (tools/train_phase.py)
+CARD_DEPTH = {"deepseek_moe_16b": 8, "zamba2_7b": 54}
+# one grok-1-314b layer holds 4.9B parameters, ≈ 39 GB of state beside
+# ≈ 26 GB of embedding and head
+TOO_LARGE = {"grok_1_314b": "its state does not fit one 80 GB card even at "
+                            "one layer"}
+
+
+def train_config(arch: str, reduced_cfg: bool = True):
+    """The config ``arch`` trains at: reduced, or at full width, cut in
+    depth to ``CARD_DEPTH`` where it has an entry.  Raises ValueError for
+    a full-width arch that no depth fits on one card."""
+    cfg = get_config(arch)
+    if reduced_cfg:
+        return reduced(cfg)
+    if arch in TOO_LARGE:
+        raise ValueError(f"{arch} does not train at full width: "
+                         f"{TOO_LARGE[arch]}")
+    if arch in CARD_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=CARD_DEPTH[arch])
+    return cfg
+
+
 def lm_batch(cfg, toks: np.ndarray, device) -> dict:
     """The train batch of ``toks`` (B, S + 1) as the reference CLI
     builds it: inputs, shifted labels, and zero encoder frames (encdec)
@@ -87,9 +122,7 @@ def lm_batch(cfg, toks: np.ndarray, device) -> dict:
 def train(args) -> dict:
     """Run ``args``' training; returns the loss history, the straggler
     count and the final state."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
+    cfg = train_config(args.arch, args.reduced)
     device = resolve_device(args.device)
     opt_cfg = adamw.AdamWConfig(
         lr=args.lr, total_steps=args.steps, warmup_steps=args.steps // 10,
@@ -202,7 +235,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2_1_5b")
     ap.add_argument("--reduced", action="store_true", default=True)
-    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--full", dest="reduced", action="store_false",
+                    help="full width (cut in depth to CARD_DEPTH where one "
+                         "card cannot hold the whole model)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; raises "
                          "without a GPU — 'cpu' runs on the CPU)")

@@ -1,4 +1,5 @@
-"""Encoder-decoder transformer (seamless-m4t-medium backbone), serving path.
+"""Encoder-decoder transformer (seamless-m4t-medium backbone): serving and
+training.
 
 PyTorch counterpart of ``repro.models.encdec``.  The modality frontend is
 a stub, as in the reference: the encoder consumes precomputed frame
@@ -16,8 +17,13 @@ max_len, Hkv, D), or pools (L, NB + 1, BS, Hkv, D) behind a (B, MB)
 a dense (L, B, ENC_LEN, Hkv, D) strip a slot: always exactly ENC_LEN
 deep, so paging it would save nothing.  Every write lands IN PLACE
 (prefill chunks, slot writes, decode steps), so a CUDA graph captured
-over a decode step replays it on the cache's fixed addresses.  Training
-(``decode_train``, ``nll_loss``) is not ported yet (ROADMAP.md).
+over a decode step replays it on the cache's fixed addresses.
+
+Training (``encode``, ``decode_train``, ``nll_loss``) runs the encoder
+over the batch's ``frames`` and the decoder over its tokens with each
+layer's cross K/V built from the encoder output inside the layer, as in
+the reference; under ``cfg.remat`` every layer of both stacks is
+recomputed in the backward pass.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models import uncertain_head as U
 from repro_torch.models.transformer import layer, stacked
 
@@ -67,12 +74,14 @@ def init_dec_block(gen, cfg: ArchConfig, device):
             "mlp": L.init_mlp(gen, cfg, device)}
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, device):
+def init_params(cfg: ArchConfig, gen: torch.Generator, device,
+                train: bool = False):
     """Random serving parameters with the reference's names and
     distributions: ``encoder`` ({ln1, attn, ln2, mlp}) and ``decoder``
     ({ln1, self_attn, ln_x, cross_attn, ln2, mlp}) stacked on their layer
     axes, drawn a layer at a time; the embedding, ``enc_norm``, the final
-    norm and the Bayesian head."""
+    norm and the Bayesian head (with ``train``, in its training form
+    ``{"mu", "rho"}``)."""
     ones = dict(dtype=L.dtype_of(cfg), device=device)
     return {
         "embed": L.init_embed(gen, cfg, device),
@@ -82,7 +91,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device):
                            n_dec(cfg)),
         "enc_norm": torch.ones((cfg.d_model,), **ones),
         "final_norm": torch.ones((cfg.d_model,), **ones),
-        "head": L.init_head(gen, cfg, device),
+        "head": L.init_head(gen, cfg, device, train=train),
     }
 
 
@@ -93,16 +102,20 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device):
 def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, S_enc, d) stub frontend embeddings -> encoder memory
     (B, S_enc, d) in the parameter dtype: bidirectional self-attention
-    with RoPE at positions [0, S_enc), then ``enc_norm``."""
+    with RoPE at positions [0, S_enc), then ``enc_norm``.  Under autograd
+    with ``cfg.remat`` each layer is recomputed in the backward pass."""
     x = frames.to(L.dtype_of(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    for i in range(n_enc(cfg)):
-        bp = layer(params["encoder"], i)
-        h, _ = L.apply_attention(bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
-                                 rot=rot, causal=False)
-        x = x + h
-        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+    remat = T.remats(cfg)
+    for bp in T.unstacked(params["encoder"]):
+        def fwd(xx, bp=bp):
+            h, _ = L.apply_attention(bp["attn"], cfg,
+                                     L.rms_norm(xx, bp["ln1"]), rot=rot,
+                                     causal=False)
+            xx = xx + h
+            return xx + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(xx, bp["ln2"]))
+        x = T.rematted(fwd, x) if remat else fwd(x)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -117,6 +130,41 @@ def _dec_block(bp, cfg: ArchConfig, x, self_attend, cross_kv):
     x = x + hc
     x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
     return x, kv
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def decode_train(params, cfg: ArchConfig, tokens: torch.Tensor,
+                 enc_out: torch.Tensor) -> torch.Tensor:
+    """tokens: (B, S), enc_out: (B, S_enc, d) -> hidden (B, S, d): each
+    decoder layer's causal self-attention over positions [0, S), then
+    cross-attention over ``layers.make_cross_kv`` of ``enc_out`` (built
+    inside the layer), then the MLP; layers from
+    ``transformer.unstacked``, each recomputed in the backward pass under
+    ``cfg.remat``."""
+    x = L.apply_embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    remat = T.remats(cfg)
+    for bp in T.unstacked(params["decoder"]):
+        def fwd(xx, mem, bp=bp):
+            return _dec_block(bp, cfg, xx, lambda p, u: L.apply_attention(
+                p, cfg, u, rot=rot), L.make_cross_kv(bp["cross_attn"], cfg,
+                                                     mem))[0]
+        x = T.rematted(fwd, x, enc_out) if remat else fwd(x, enc_out)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None):
+    """batch: ``frames`` (B, S_enc, d), ``tokens`` (B, S), ``labels`` (B,
+    S).  The mean next-token NLL of the decoder's output under one
+    weight-space draw of the head (``transformer.head_loss``): ``(nll,
+    {"accuracy"})``, as ``repro.models.encdec.nll_loss``."""
+    enc_out = encode(params, cfg, batch["frames"])
+    hidden = decode_train(params, cfg, batch["tokens"], enc_out)
+    return T.head_loss(params, cfg, hidden, batch["labels"], key, noise)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Zamba2-style hybrid (zamba2-7b), serving path: a Mamba2 backbone and one
-SHARED attention + MLP block applied every ``attn_every`` layers.
+"""Zamba2-style hybrid (zamba2-7b), serving and training: a Mamba2 backbone
+and one SHARED attention + MLP block applied every ``attn_every`` layers.
 
 PyTorch counterpart of ``repro.models.hybrid``.  Application ``a`` of the
 shared block (one set of weights) runs before the Mamba group ``[a *
@@ -17,8 +17,12 @@ D), or under the paged layout pools (A, NB + 1, BS, Hkv, D) behind one
 write sink of ``layers.paged_scatter``).  A decode step writes every
 leaf IN PLACE, ``len`` included, and builds its RoPE tables and paged
 write index once for all A applications, so a CUDA graph captured over
-the step replays it on the cache's fixed addresses.  Training
-(``forward``, ``nll_loss``) is not ported yet (ROADMAP.md).
+the step replays it on the cache's fixed addresses.
+
+Training (``forward``, ``nll_loss``) walks the same groups with causal
+attention over the whole sequence and no cache; the shared block's
+gradient is the sum over its applications (autograd adds them, as the
+reference's scan does).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.models import transformer as T
 from repro_torch.models import uncertain_head as U
 from repro_torch.models.transformer import layer, stacked
 
@@ -50,11 +55,13 @@ def groups(cfg: ArchConfig):
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, device):
+def init_params(cfg: ArchConfig, gen: torch.Generator, device,
+                train: bool = False):
     """Random serving parameters with the reference's names and
     distributions: the Mamba blocks stacked on L (``ssm.init_block``, a
     layer at a time), ``shared = {ln1, attn, ln2, mlp}``, the embedding,
-    the final norm and the Bayesian head."""
+    the final norm and the Bayesian head (with ``train``, in its training
+    form ``{"mu", "rho"}``)."""
     ones = dict(dtype=L.dtype_of(cfg), device=device)
     return {
         "embed": L.init_embed(gen, cfg, device),
@@ -67,7 +74,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device):
                    "ln2": torch.ones((cfg.d_model,), **ones),
                    "mlp": L.init_mlp(gen, cfg, device)},
         "final_norm": torch.ones((cfg.d_model,), **ones),
-        "head": L.init_head(gen, cfg, device),
+        "head": L.init_head(gen, cfg, device, train=train),
     }
 
 
@@ -79,6 +86,40 @@ def _shared_fwd(sp, cfg: ArchConfig, x: torch.Tensor, attend):
     x = x + h
     x = x + L.apply_mlp(sp["mlp"], cfg, L.rms_norm(x, sp["ln2"]))
     return x, kv
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: (B, S) -> hidden (B, S, d).  Layer i runs the shared block
+    first where i opens a group (``i % attn_every == 0``, causal over
+    positions [0, S)), then its Mamba block in the chunked form from a
+    zero state: the reference's ``lax.cond`` inside its layer scan.  With
+    ``cfg.remat`` under autograd each layer, the shared application with
+    it, is recomputed in the backward pass (``transformer.rematted``)."""
+    x = L.apply_embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    sp = params["shared"]
+    remat = T.remats(cfg)
+    for i, bp in enumerate(T.unstacked(params["blocks"])):
+        def fwd(xx, bp=bp, opens=i % cfg.attn_every == 0):
+            if opens:
+                xx, _ = _shared_fwd(sp, cfg, xx, lambda p, u:
+                                    L.apply_attention(p, cfg, u, rot=rot))
+            return ssm.apply_block(bp, cfg, xx)[0]
+        x = T.rematted(fwd, x) if remat else fwd(x)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None):
+    """Mean next-token NLL with one weight-space draw of the head
+    (``transformer.head_loss``): ``(nll, {"accuracy"})``, as
+    ``repro.models.hybrid.nll_loss``."""
+    hidden = forward(params, cfg, batch["tokens"])
+    return T.head_loss(params, cfg, hidden, batch["labels"], key, noise)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,15 @@
-"""Mixture-of-Experts transformer (deepseek-moe-16b, grok-1-314b), serving
-path.
+"""Mixture-of-Experts transformer (deepseek-moe-16b, grok-1-314b): serving
+and training.
 
 PyTorch counterpart of ``repro.models.moe``.  Routing is softmax top-k
 with capacity dispatch: a (token, k) assignment's queue position in its
-expert comes from an f32 cumsum over the flat (T·K, E) routing one-hot
-(no sort), kept assignments are scattered into an (E, C + 1, d) buffer
-whose last bin C takes every dropped one, the experts run as one batched
-gated MLP over ``[:, :C]``, and the combine weights gather the results
-back (GShard semantics: capacity overflow drops the assignment).  The
+expert comes from a cumsum over the flat (T·K, E) routing one-hot (no
+sort; in int32, whose CUDA cumsum is deterministic where the float one
+is not, and exact as the reference's f32 counts are), kept assignments
+are scattered into an (E, C + 1, d) buffer whose last bin C takes every
+dropped one, the experts run as one batched gated MLP over ``[:, :C]``,
+and the combine weights gather the results back (GShard semantics:
+capacity overflow drops the assignment).  The
 shared experts (DeepSeekMoE) see every token.
 
 The dispatch is one group (the JAX package's ``_dispatch_groups`` without
@@ -19,8 +21,13 @@ like any token.
 
 Blocks are stacked on a leading layer axis with the reference's names:
 ``router.w`` (f32), ``experts_ep`` or ``experts_tp`` (by
-``cfg.expert_sharding``; ``w1``, ``w3``, ``w2``) and ``shared``.  Training
-(``forward``, ``nll_loss``) is not ported yet (ROADMAP.md).
+``cfg.expert_sharding``; ``w1``, ``w3``, ``w2``) and ``shared``.
+
+Training (``forward``, ``nll_loss``) runs the same dispatch under
+autograd: the gradient reaches the router through the renormalised
+top-k gates and the Switch aux loss only (the routing itself is
+discrete), and the capacity is computed per dispatch, so a micro-batch
+routes against its own capacity, as in the reference.
 """
 
 from __future__ import annotations
@@ -60,10 +67,12 @@ def _init_experts(gen, cfg: ArchConfig, num: int, d_ff: int, device):
             "w2": stack((d_ff, d), d_ff)}
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, device):
+def init_params(cfg: ArchConfig, gen: torch.Generator, device,
+                train: bool = False):
     """Random serving parameters with the JAX package's distributions: the
     dense transformer's attention, norms, embedding and head, a router of
-    N(0, 1) · 0.02 in f32, and experts of N(0, 1) / sqrt(fan_in)."""
+    N(0, 1) · 0.02 in f32, and experts of N(0, 1) / sqrt(fan_in); with
+    ``train`` the head in its training form ``{"mu", "rho"}``."""
     dt = L.dtype_of(cfg)
     lead = (cfg.num_layers,)
     ones = dict(dtype=dt, device=device)
@@ -85,7 +94,7 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device):
         "embed": L.init_embed(gen, cfg, device),
         "blocks": blocks,
         "final_norm": torch.ones((cfg.d_model,), **ones),
-        "head": L.init_head(gen, cfg, device),
+        "head": L.init_head(gen, cfg, device, train=train),
     }
 
 
@@ -123,10 +132,12 @@ def route(bp, cfg: ArchConfig, xt: torch.Tensor, capacity: int,
     aux = E * torch.sum(onehot.sum(1).mean(0) * gates.mean(0))
 
     # position of each (token, k) in its expert's queue: counts are small
-    # integers, exact in f32
+    # integers, exact in f32; the cumsum runs in int32, which has a
+    # deterministic CUDA form (the float one refuses the deterministic mode)
     oh_flat = onehot.reshape(T * K, E)
-    pos = torch.sum((torch.cumsum(oh_flat, dim=0) - 1.0) * oh_flat,
-                    dim=-1).reshape(T, K)
+    oh_int = oh_flat.to(torch.int32)
+    pos = torch.sum((torch.cumsum(oh_int, dim=0, dtype=torch.int32) - 1)
+                    * oh_int, dim=-1).reshape(T, K).float()
     if expert_offsets is None:
         keep = pos < capacity
     else:
@@ -179,6 +190,49 @@ def moe_ffn(bp, cfg: ArchConfig, x: torch.Tensor,
     if expert_offsets is not None:
         return y, r["aux"], expert_offsets + r["counts"]
     return y, r["aux"]
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def _block_fwd(bp, cfg: ArchConfig, x, rot):
+    h, _ = L.apply_attention(bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
+                             rot=rot)
+    x = x + h
+    y, aux = moe_ffn(bp, cfg, L.rms_norm(x, bp["ln2"]))
+    return x + y, aux
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
+    """tokens: (B, S) -> (hidden (B, S, d), aux): the mean over layers of
+    the Switch aux loss.  Layers come from ``transformer.unstacked``; with
+    ``cfg.remat`` under autograd each is recomputed in the backward pass
+    (``transformer.rematted``)."""
+    x = L.apply_embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    remat = T.remats(cfg)
+    auxes = []
+    for bp in T.unstacked(params["blocks"]):
+        def fwd(xx, bp=bp):
+            return _block_fwd(bp, cfg, xx, rot)
+        x, aux = T.rematted(fwd, x) if remat else fwd(x)
+        auxes.append(aux)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.stack(auxes).mean()
+
+
+def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None,
+             aux_weight: float = 0.01):
+    """The mean next-token NLL with one weight-space draw of the head
+    (``transformer.head_loss``, soft-capped for grok) plus ``aux_weight``
+    times the aux loss: ``(nll + aux_weight * aux, {"accuracy",
+    "aux_loss"})``, as ``repro.models.moe.nll_loss``."""
+    hidden, aux = forward(params, cfg, batch["tokens"])
+    nll, metrics = T.head_loss(params, cfg, hidden, batch["labels"], key,
+                               noise)
+    return nll + aux_weight * aux, {**metrics, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -19,12 +19,12 @@ serving API:
     write_slot(cfg, cache, slot, sub, block_row=None, offset=0)
     copy_block(cfg, cache, src, dst)
 
-and, for the families that train (dense, vlm):
+and, for training (every family):
 
     init_train_params(cfg, generator, device) -> params (head {mu, rho})
     train_params_from_numpy(tree, cfg, device) -> params
     serving_params(train_params) -> params the engine serves
-    nll_loss(params, cfg, batch, key, noise=None) -> (nll, aux)
+    nll_loss(params, cfg, batch, key, noise=None) -> (loss, aux)
 
 Caches are slot-indexed and updated in place: every leaf carries the
 slot axis at position 1 ((L, B, ...) KV strips, SSM states, conv tails)
@@ -111,18 +111,16 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# training (dense and vlm; the other families' losses are ROADMAP item 12b)
+# training
 # ---------------------------------------------------------------------------
 
-TRAIN_FAMILIES = ("dense", "vlm")
+TRAIN_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def _check_trains(cfg: ArchConfig) -> None:
+    """Every family trains (``TRAIN_FAMILIES``, and "audio" as encdec);
+    an unknown family raises ValueError."""
     module_for(cfg)
-    if cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet "
-            "(ROADMAP.md item 12b)")
 
 
 def init_train_params(cfg: ArchConfig, generator: torch.Generator, device):
@@ -154,7 +152,10 @@ def serving_params(train_params: dict) -> dict:
 
 def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None):
     """The family's mean next-token NLL with one weight-space draw of the
-    head: ``(nll, {"accuracy"})`` (``transformer.nll_loss``)."""
+    head (``transformer.head_loss``): ``(nll, {"accuracy"})``; the moe
+    family adds 0.01 x its Switch aux loss to the first value and
+    reports it as ``"aux_loss"``.  The batch carries ``tokens`` and
+    ``labels``, plus ``frames`` (encdec) or ``prefix_embeds`` (vlm)."""
     _check_trains(cfg)
     return module_for(cfg).nll_loss(params, cfg, batch, key, noise=noise)
 

@@ -1,4 +1,5 @@
-"""Mamba2 state-space duality (SSD) blocks (mamba2-370m), serving path.
+"""Mamba2 state-space duality (SSD) blocks (mamba2-370m): serving and
+training.
 
 PyTorch counterpart of ``repro.models.ssm``.  Block: in_proj -> (z gate,
 x, B, C, dt) -> causal depthwise conv on (x, B, C) -> SSD mixing -> gated
@@ -16,8 +17,9 @@ The cache holds no KV strips: per layer an f32 SSM state (B, H, P, N)
 and the conv tail (B, W - 1, d_in + 2N), stacked on a leading layer
 axis.  A decode step writes both IN PLACE and advances ``len`` in
 place, so a CUDA graph captured over the step replays on the cache's
-fixed addresses.  Training (``forward``, ``nll_loss``) is not ported
-yet (ROADMAP.md).
+fixed addresses.  Training (``forward``, ``nll_loss``) runs the chunked
+form with no state given, so none of those in-place writes lies on the
+autograd path.
 """
 
 from __future__ import annotations
@@ -68,19 +70,35 @@ def init_block(gen, cfg: ArchConfig, device, lead=()):
     }
 
 
-def init_params(cfg: ArchConfig, gen: torch.Generator, device):
+def init_params(cfg: ArchConfig, gen: torch.Generator, device,
+                train: bool = False):
     """Random serving parameters: blocks stacked on a leading L axis, the
-    embedding and the Bayesian head as in the dense transformer."""
+    embedding and the Bayesian head as in the dense transformer (with
+    ``train``, in its training form ``{"mu", "rho"}``)."""
     return {"embed": L.init_embed(gen, cfg, device),
             "blocks": init_block(gen, cfg, device, (cfg.num_layers,)),
             "final_norm": torch.ones((cfg.d_model,), dtype=L.dtype_of(cfg),
                                      device=device),
-            "head": L.init_head(gen, cfg, device)}
+            "head": L.init_head(gen, cfg, device, train=train)}
 
 
 # ---------------------------------------------------------------------------
 # SSD core
 # ---------------------------------------------------------------------------
+
+def chunk_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The cumsum of x (B, nc, Q, H) over its chunk axis.  Under the
+    deterministic mode (the train step turns it on on CUDA, where PyTorch
+    has no deterministic float cumsum) it is a product with the
+    lower-triangular ones, a deterministic GEMM; otherwise
+    ``torch.cumsum``, whose sequential sums are those of the reference's
+    cumsum on the CPU."""
+    if not torch.are_deterministic_algorithms_enabled():
+        return torch.cumsum(x, dim=2)
+    Q = x.shape[2]
+    tri = torch.tril(torch.ones((Q, Q), dtype=x.dtype, device=x.device))
+    return torch.einsum("ij,bcjh->bcih", tri, x)
+
 
 def ssd_chunked(x, dt, A, Bm, Cm, D, chunk: int,
                 h0: Optional[torch.Tensor] = None):
@@ -108,7 +126,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, chunk: int,
     Cc = Cm.reshape(Bsz, nc, Q, N).float()
 
     loga = dtc * A[None, None, None, :]               # (B,nc,Q,H) negative
-    cum = torch.cumsum(loga, dim=2)                   # within-chunk cumsum
+    cum = chunk_cumsum(loga)                          # within-chunk cumsum
     total = cum[:, :, -1:]                            # (B,nc,1,H)
 
     # intra-chunk: y[i] = sum_{j<=i} (C_i.B_j) exp(cum_i - cum_j) dt_j x_j.
@@ -231,6 +249,32 @@ def apply_block(bp, cfg: ArchConfig, x: torch.Tensor,
     y = L.rms_norm(y * F.silu(z), bp["gate_ln"], cfg.norm_eps)
     out = L._mm(y, bp["out_proj"])
     return x + out, h_last, new_conv_state
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: (B, S) -> hidden (B, S, d): every block in its chunked
+    form from a zero state (``apply_block`` with no state), layers from
+    ``transformer.unstacked``, each recomputed in the backward pass under
+    ``cfg.remat`` (``transformer.rematted``)."""
+    x = L.apply_embed(params["embed"], tokens)
+    remat = T.remats(cfg)
+    for bp in T.unstacked(params["blocks"]):
+        def fwd(xx, bp=bp):
+            return apply_block(bp, cfg, xx)[0]
+        x = T.rematted(fwd, x) if remat else fwd(x)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None):
+    """Mean next-token NLL with one weight-space draw of the head
+    (``transformer.head_loss``): ``(nll, {"accuracy"})``, as
+    ``repro.models.ssm.nll_loss``."""
+    hidden = forward(params, cfg, batch["tokens"])
+    return T.head_loss(params, cfg, hidden, batch["labels"], key, noise)
 
 
 # ---------------------------------------------------------------------------

@@ -74,6 +74,20 @@ def stacked(init, n: int):
     return out
 
 
+def remats(cfg: ArchConfig) -> bool:
+    """Whether a training forward recomputes its layers in the backward
+    pass: ``cfg.remat`` with autograd on."""
+    return cfg.remat and torch.is_grad_enabled()
+
+
+def rematted(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, the reference's per-layer
+    ``jax.checkpoint``): the same numbers, only the inputs kept."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -131,19 +145,17 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     take the place of the first P embedded tokens, cast to the body's
     dtype (the tokens under them are ignored).  Under autograd with
     ``cfg.remat`` each layer is recomputed in the backward pass
-    (``torch.utils.checkpoint``, the reference's per-layer
-    ``jax.checkpoint``): the same numbers, only layer inputs kept."""
+    (``rematted``)."""
     x = L.apply_embed(params["embed"], tokens)
     if prefix_embeds is not None:
         x = splice_prefix(x, prefix_embeds)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    remat = cfg.remat and torch.is_grad_enabled() and not return_kv
+    remat = remats(cfg) and not return_kv
     ks, vs = [], []
     for bp in unstacked(params["blocks"]):
         if remat:
-            x = checkpoint(lambda xx, bp=bp: _block_fwd(bp, cfg, xx, rot)[0],
-                           x, use_reentrant=False, preserve_rng_state=False)
+            x = rematted(lambda xx, bp=bp: _block_fwd(bp, cfg, xx, rot)[0], x)
             continue
         x, (k, v) = _block_fwd(bp, cfg, x, rot)
         if return_kv:
@@ -158,16 +170,25 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
 def nll_loss(params, cfg: ArchConfig, batch: dict, key: K.Key,
              noise=None):
     """Mean next-token NLL with one weight-space draw of the Bayesian head
-    (``repro.models.transformer.nll_loss``): w = mu + softplus(rho)·eps,
+    (``repro.models.transformer.nll_loss``; ``head_loss``).  batch:
+    ``tokens`` (B, S), ``labels`` (B, S) (shifted; labels < 0 are
+    padding), optional ``prefix_embeds``.  Returns (nll, {"accuracy"}),
+    both 0-d float32."""
+    hidden, _ = forward(params, cfg, batch["tokens"],
+                        prefix_embeds=batch.get("prefix_embeds"))
+    return head_loss(params, cfg, hidden, batch["labels"], key, noise)
+
+
+def head_loss(params, cfg: ArchConfig, hidden: torch.Tensor,
+              labels: torch.Tensor, key: K.Key, noise=None):
+    """The NLL of ``labels`` under one weight-space draw of the head, the
+    tail every family's ``nll_loss`` shares: w = mu + softplus(rho)·eps,
     eps of mu's shape from ``noise(key, shape, device)`` (default
     ``keys.normal``; tests inject the JAX package's draw), and logits =
     hidden @ w cast to the body's dtype, accumulated and returned in
-    float32; the head is in its training form ``{"mu", "rho"}``.
-    batch: ``tokens`` (B, S), ``labels`` (B, S)
-    (shifted; labels < 0 are padding), optional ``prefix_embeds``.
-    Returns (nll, {"accuracy"}), both 0-d float32."""
-    hidden, _ = forward(params, cfg, batch["tokens"],
-                        prefix_embeds=batch.get("prefix_embeds"))
+    float32, soft-capped where ``cfg.logits_softcap`` is set; the head is
+    in its training form ``{"mu", "rho"}``.  Returns (nll,
+    {"accuracy"}), both 0-d float32."""
     mu, rho = params["head"]["mu"], params["head"]["rho"]
     eps = (noise or K.normal)(key, tuple(mu.shape), mu.device)
     w = mu + F.softplus(rho) * eps
@@ -177,7 +198,7 @@ def nll_loss(params, cfg: ArchConfig, batch: dict, key: K.Key,
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)
-    labels = batch["labels"].long()
+    labels = labels.long()
     valid = labels >= 0
     lab = torch.where(valid, labels, torch.zeros_like(labels))
     logp = torch.log_softmax(logits.float(), dim=-1)

@@ -194,3 +194,55 @@ def jax_train_noise(key, shape, device):
     import jax.numpy as jnp
     eps = jax.random.normal(jax_key(key), tuple(shape), jnp.float32)
     return torch.from_numpy(np.asarray(eps).copy()).to(device)
+
+
+def train_pair(pair, *args):
+    """(jcfg, jax params, tcfg, port TRAINING params) from one JAX init:
+    ``pair(*args)`` (``moe_pair``, ``ssm_pair``, ...) with the port's
+    head in its training form ``{"mu", "rho"}``."""
+    from repro_torch.models import registry as TM
+    jcfg, jparams, tcfg, _ = pair(*args)
+    return jcfg, jparams, tcfg, TM.train_params_from_numpy(
+        to_numpy_tree(jparams), tcfg, CPU)
+
+
+def train_batch(cfg, B=2, S_len=16, seed=0, step=0, enc_frames=24):
+    """(jax batch, port batch): the synthetic token stream's batch at
+    ``step`` (inputs and shifted labels), plus ``enc_frames`` random
+    frames a row (numpy, seeded; zero frames would make the encoder's
+    output 0) for encdec."""
+    import jax.numpy as jnp
+    from repro_torch.data.synthetic import TokenStreamState, token_batch
+    toks, _ = token_batch(TokenStreamState(seed=seed, host=0, num_hosts=1,
+                                           step=step), B, S_len + 1,
+                          cfg.vocab_size)
+    nb = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        nb["frames"] = np.random.default_rng(seed + 1).standard_normal(
+            (B, enc_frames, cfg.d_model)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in nb.items()},
+            {k: torch.from_numpy(v.copy()) for k, v in nb.items()})
+
+
+def jax_leaf(tree, path):
+    """The leaf of a numpy JAX tree at a port path (``head/mu`` is the
+    JAX head's ``q/mu``)."""
+    node = tree
+    for part in path.split("/"):
+        node = node["q"][part] if part in ("mu", "rho") and "q" in node \
+            else node[part]
+    return node
+
+
+def assert_every_gradient(tparams, grads, jgrads, atol=2e-6, rtol=1e-4):
+    """Every leaf's port gradient (``grads``, in ``core.tree`` order)
+    against the JAX gradient tree ``jgrads``; returns the leaf paths."""
+    import jax
+    from repro_torch.core import tree as T
+    jgn = to_numpy_tree(jgrads)
+    paths = [path for path, _ in T.items(tparams)]
+    assert "head/rho" in paths and len(paths) == len(jax.tree.leaves(jgrads))
+    for path, g in zip(paths, grads):
+        np.testing.assert_allclose(g.numpy(), jax_leaf(jgn, path), atol=atol,
+                                   rtol=rtol, err_msg=path)
+    return paths

@@ -1424,8 +1424,33 @@ def test_cuda_lm_wrappers_refuse_bad_operands(cuda_device):
         FA.flash_attention_cuda(q.to(torch.bfloat16), k, v)
 
 
+def _trained(cfg, dev, steps=2):
+    """``cfg``'s serving parameters after ``steps`` SVI train steps on the
+    card from ``registry.init_train_params`` (the CLI's batches of 2 x 16
+    tokens, deterministic algorithms), every loss and grad norm finite:
+    ``registry.serving_params`` of the trained state."""
+    from repro_torch.core.svi import SVIConfig
+    from repro_torch.data.synthetic import TokenStreamState, token_batch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import lm_batch
+    from repro_torch.models import registry as TM
+    from repro_torch.optim import adamw
+
+    params = TM.init_train_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=steps)
+    fn = S.build_train_step(cfg, opt, SVIConfig(num_train_examples=1000))
+    state = {"params": params, "opt": adamw.init_state(params, opt)}
+    stream = TokenStreamState(seed=0, host=0, num_hosts=1)
+    for _ in range(steps):
+        toks, stream = token_batch(stream, 2, 17, cfg.vocab_size)
+        state, m = fn(state, lm_batch(cfg, toks, dev))
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    return TM.serving_params(state["params"])
+
+
 def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4,
-                  arch="qwen2_1_5b"):
+                  arch="qwen2_1_5b", trained=False):
     """A reduced ``arch`` (qwen2 or deepseek-moe: 2 layers, D 32, V 512;
     mamba2: 4 layers, d 128, N 16, V 512; zamba2: mamba2's blocks and 2
     applications of the shared block, 4 MHA heads of D 32; seamless: 2
@@ -1433,7 +1458,8 @@ def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4,
     layers, 4 MHA heads of D 32, 8 prefix embeds) runner on the card: 3
     slots,
     paged KV (the dense recurrent cache for mamba2, as the engine falls
-    back), the chunk captured as a CUDA graph."""
+    back), the chunk captured as a CUDA graph.  ``trained``: the
+    parameters of a state trained on the card (``_trained``)."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config, reduced
@@ -1443,8 +1469,8 @@ def _graph_runner(dev, entropy="kernel", decode_attn="kernel", chunk=4,
 
     cfg = dataclasses.replace(reduced(get_config(arch)),
                               head_entropy=entropy, decode_attn=decode_attn)
-    params = TM.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                            dev)
+    params = _trained(cfg, dev) if trained else TM.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
     if not TM.supports_paged(cfg):
         cfg = dataclasses.replace(cfg, decode_attn="gather")
     return ModelRunner(params, cfg, num_slots=3, max_len=32, chunk=chunk,
@@ -1534,6 +1560,24 @@ def test_cuda_vlm_captured_chunk_equals_the_eager_chunk(cuda_device):
     table = runner.cache["block_table"][:, :2].long()     # rows 0-7
     assert runner.cache["k"][:, table].abs().amax(dim=(0, 3, 4, 5)) \
         .gt(0).all()
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "mamba2_370m",
+                                  "zamba2_7b", "seamless_m4t_medium"])
+def test_cuda_trained_state_serves_in_a_captured_chunk(cuda_device, arch):
+    """Each family newly trained on the card: two SVI steps of its
+    reduced config, then its serving form in a runner whose chunk is
+    captured (a replay launching the family's kernels: the head, and the
+    decode kernel where the family attends), three replays with slots
+    admitted between them, each bit for bit the eager chunk on a copy of
+    its carry."""
+    runner = _graph_runner(cuda_device, arch=arch, trained=True)
+    want = {"uncertainty_head": 4}
+    if arch != "mamba2_370m":   # 2 layers, applications or decoder layers
+        want["paged_decode_attention"] = 2 * 4
+    assert runner.captured == want
+    _check_replays_against_eager(runner, cuda_device,
+                                 frames=arch == "seamless_m4t_medium")
 
 
 def test_cuda_escalation_lane_chunk_equals_the_eager_chunk(cuda_device):

@@ -4,7 +4,8 @@ contract, and the port against the JAX engine.
 In operand-entropy mode the port's accepted stream (tokens and the full
 uncertainty triplet, with the flag counts) must equal the same queue
 served with speculation off, bit for bit, for the dense, moe, hybrid and
-encdec families (the reference's ``SPEC_FAMILIES``), with the prefix
+encdec families (the reference's ``SPEC_FAMILIES``) and for ssm and vlm
+(which ``registry.supports_spec_decode`` admits too), with the prefix
 cache and its copy-on-write, with a mean-head draft, with drafts that are
 all rejected, and with the adaptive depth; threshold 0 never drafts; a
 rejected tail's blocks roll back.  The reference's adaptive-depth tests
@@ -26,7 +27,7 @@ import torch
 
 from _torch_parity import (CPU, dense_pair, encdec_pair,  # noqa: F401
                            hybrid_pair, jax_head_noise, meshless_reference,
-                           moe_pair)
+                           moe_pair, ssm_pair, vlm_pair)
 from repro.launch.engine import Request as JRequest
 from repro.launch.engine import ServeEngine as JEngine
 from repro_torch.core.entropy import KernelEntropy
@@ -50,7 +51,7 @@ def _family(name):
     capacity factor of E / K, where no expert can overflow (the one
     cross-slot coupling of a decode step)."""
     pair = {"dense": dense_pair, "moe": moe_pair, "hybrid": hybrid_pair,
-            "encdec": encdec_pair}[name]
+            "encdec": encdec_pair, "ssm": ssm_pair, "vlm": vlm_pair}[name]
     _, _, tcfg, tparams = pair()
     if name == "moe":
         tcfg = dataclasses.replace(
@@ -119,9 +120,11 @@ def _garbage(engine):
     runner.spec_fns = fns
 
 
-@pytest.mark.parametrize("family", ["dense", "encdec", "hybrid", "moe"])
+@pytest.mark.parametrize("family", ["dense", "encdec", "hybrid", "moe",
+                                    "ssm", "vlm"])
 def test_spec_on_equals_spec_off_across_families(family):
-    """The staggered first wave, speculation on against off: every
+    """The staggered first wave, speculation on against off (ssm on its
+    dense fallback; vlm on zero prefix embeds over the first 8 rows): every
     request's tokens, H, SE, MI, p_max and flags bit for bit, rounds
     actually run, no more full-model calls than the chunk path, and the
     pool balanced after the rollbacks."""

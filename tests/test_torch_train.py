@@ -175,6 +175,40 @@ def test_apply_updates_matches_jax(case):
         assert int(ts["step"]) == int(js["step"]) == i + 1
 
 
+def test_apply_updates_in_slices_changes_no_number(monkeypatch):
+    """A leaf above ``adamw.SLICE`` elements is updated a slice at a time
+    (bounded f32 temporaries at full width): with SLICE forced down to 7,
+    which cuts every leaf mid-row, three updates (no clipping) give the
+    whole-leaf parameters and moments bit for bit, a bf16 leaf and the
+    undecayed 1-D leaf included; the global norm, whose f32 sum the
+    slices reorder, within 1e-6."""
+    rng = np.random.default_rng(5)
+    p0 = _opt_tree(rng)
+    cfg = TA.AdamWConfig(lr=1e-2, warmup_steps=0, clip_norm=1e9)
+    grads = [{k: torch.from_numpy(rng.standard_normal(v.shape)
+                                  .astype(np.float32))
+              for k, v in p0.items()} for _ in range(3)]
+    out = []
+    for sl in (TA.SLICE, 7):
+        monkeypatch.setattr(TA, "SLICE", sl)
+        tp = {k: torch.from_numpy(v.copy()).to(
+            torch.bfloat16 if k == "emb" else torch.float32)
+            for k, v in p0.items()}
+        st = TA.init_state(tp, cfg)
+        norms = []
+        for g in grads:
+            tp, st, m = TA.apply_updates(
+                tp, {k: v.to(tp[k].dtype) for k, v in g.items()}, st, cfg)
+            norms.append(float(m["grad_norm"]))
+        out.append((tp, st, norms))
+    (pa, sa, na), (pb, sb, nb) = out
+    for k in p0:
+        assert torch.equal(pa[k], pb[k]), k
+        for mom in ("mu", "nu"):
+            assert torch.equal(sa[mom][k], sb[mom][k]), (mom, k)
+    np.testing.assert_allclose(nb, na, rtol=1e-6)
+
+
 def test_quantile_matches_jnp_quantile():
     x = np.random.default_rng(3).standard_normal(1001).astype(np.float32)
     for q in (0.0, 0.3, 0.7, 0.999, 1.0):
@@ -335,16 +369,51 @@ def test_training_params_serve_without_copying_the_body():
 
 
 def test_other_families_refuse_training():
-    """moe, ssm, hybrid and encdec train in the next slice: their
-    training entry points raise, naming the roadmap."""
+    """Every family trains (``TRAIN_FAMILIES``): each family's reduced
+    config, from ``registry.init_train_params``, takes one train step
+    (the CLI's batch: zero frames for encdec, zero prefix embeds for vlm)
+    with a finite loss and grad norm, every gradient finite and the head's
+    rho moved; an unknown family still raises."""
     from repro_torch.configs.registry import get_config, reduced
-    for arch in ("deepseek_moe_16b", "mamba2_370m", "zamba2_7b",
-                 "seamless_m4t_medium"):
+    archs = {"dense": "qwen2_1_5b", "vlm": "phi_3_vision_4_2b",
+             "moe": "deepseek_moe_16b", "ssm": "mamba2_370m",
+             "hybrid": "zamba2_7b", "encdec": "seamless_m4t_medium"}
+    assert set(TM.TRAIN_FAMILIES) == set(archs)
+    opt = TA.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
+    orig = S.adamw.apply_updates
+    for family, arch in archs.items():
         cfg = reduced(get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.init_train_params(cfg, torch.Generator(), CPU)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.nll_loss({}, cfg, {}, K.root(0))
+        assert cfg.family == family
+        params = TM.init_train_params(cfg, torch.Generator().manual_seed(0),
+                                      CPU)
+        rho0 = params["head"]["rho"].clone()
+        grads = []
+
+        def capture(p, g, st, c):
+            grads.extend(T.leaves(g))
+            return orig(p, g, st, c)
+
+        S.adamw.apply_updates = capture
+        try:
+            fn = S.build_train_step(cfg, opt, TS.SVIConfig())
+            toks, _ = token_batch(TokenStreamState(seed=0, host=0,
+                                                   num_hosts=1), 2, 17,
+                                  cfg.vocab_size)
+            state, m = fn({"params": params,
+                           "opt": TA.init_state(params, opt)},
+                          TT.lm_batch(cfg, toks, CPU))
+        finally:
+            S.adamw.apply_updates = orig
+        assert np.isfinite(float(m["loss"])), family
+        assert np.isfinite(float(m["grad_norm"])), family
+        assert all(bool(torch.isfinite(g).all()) for g in grads), family
+        assert not torch.equal(state["params"]["head"]["rho"], rho0), family
+    unknown = dataclasses.replace(reduced(get_config("qwen2_1_5b")),
+                                  family="diffusion")
+    with pytest.raises(ValueError, match="unknown model family"):
+        TM.init_train_params(unknown, torch.Generator(), CPU)
+    with pytest.raises(ValueError, match="unknown model family"):
+        TM.nll_loss({}, unknown, {}, K.root(0))
 
 
 def test_noise_keys_are_pure_functions_of_their_path():
