@@ -164,10 +164,20 @@ Phases (any failure exits non-zero before the result line):
      the kernel path with its launches counted; two phi-3-vision-4.2b
      steps; card against CPU at the reduced configs; the train CLI's
      crash and resume; the blood-cell BNN's paper bars.
- 17. one JSON line of per-kernel numbers (eleven kernels; the serving
+ 17. mesh (``tools/mesh_phase.py``): qwen2-1.5B at full width on phase
+     4's trace through the kernel path, unsharded (graphed) against
+     ``--mesh 1x2``: two spawned ranks, a gloo group on the one card
+     (collectives staged through host memory, the chunk eager), in
+     operand and kernel entropy; cuBLAS column halves of the served
+     products against the full products' columns; tokens, H / SE / MI /
+     p_max and flag counts bit for bit on both ranks; each rank's
+     ``paged_decode_mma`` / ``paged_prefill_mma`` launches of a short
+     serve under torch.profiler on one kv head; each rank's parameter,
+     KV and peak bytes against the prediction.
+ 18. one JSON line of per-kernel numbers (eleven kernels; the serving
      kernels' launches are phase 4's first run plus phases 9's, 11's,
-     12's, 13's, 14's, 15's and 16's, and phase 10's for the head), the
-     card's nvidia-smi line, then the result line.
+     12's, 13's, 14's, 15's, 16's and 17's (both ranks), and phase 10's
+     for the head), the card's nvidia-smi line, then the result line.
 
 Imports nothing of the JAX package.
 """
@@ -4154,6 +4164,16 @@ def main():
     print(f"train (serves of the trained states) launches {train_counts}",
           flush=True)
     print(f"phase train: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    import mesh_phase
+    torch.cuda.empty_cache()
+    mesh_counts = mesh_phase.mesh_phase(smi)
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "uncertainty_head"):
+        counts[name] += mesh_counts[name]
+    print(f"mesh launches (both ranks) {mesh_counts}", flush=True)
+    print(f"phase mesh: {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

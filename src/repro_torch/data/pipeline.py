@@ -8,7 +8,7 @@ rides along with checkpoints (exact resume: no batch replayed or
 skipped).  ``to_device`` moves a host batch to the device from pinned
 memory without blocking the host (the JAX package's
 ``device_put_sharded_batch`` lays it over a mesh instead; the port's
-mesh is ROADMAP item 13).
+training mesh, and its sharded batch, are ROADMAP item 13b).
 """
 
 from __future__ import annotations

@@ -60,12 +60,26 @@ def flash_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     return fn(q, k, v, causal=causal, q_offset=q_offset)
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_table, cache_len):
+def paged_decode_attention(q, k_pool, v_pool, block_table, cache_len,
+                           kv_heads: int | None = None):
     """Block-sparse decode attention over the paged KV pool: q (B, 1, H,
-    D); pools (NB, BS, Hkv, D); block_table (B, MB); cache_len () or (B,)."""
+    D); pools (NB, BS, Hkv, D); block_table (B, MB); cache_len () or (B,).
+
+    ``kv_heads``: the model's kv-head count where the pools hold a
+    tensor-parallel rank's share of it (default the pools' Hkv).  The
+    kernel's split of the keys (``decode_tiles`` / ``decode_split``) is
+    taken from it, so each head merges its online softmax in the order
+    the unsharded call does."""
+    B, MB = block_table.shape
+    _, BS, Hkv, D = k_pool.shape
+    kv_heads = kv_heads or Hkv
+    if PA.decode_route(q.dtype, D) == "mma":
+        split = {"tiles": PA.decode_tiles(B, kv_heads, MB, BS)}
+    else:
+        split = {"nb_split": PA.decode_split(B, kv_heads, MB)}
     fn = PA.paged_decode_attention_cuda if _on_cuda(q) \
         else PA.paged_decode_attention_plain
-    return fn(q, k_pool, v_pool, block_table, cache_len)
+    return fn(q, k_pool, v_pool, block_table, cache_len, **split)
 
 
 def paged_prefill_attention(q, k_pool, v_pool, block_row, offset,

@@ -393,13 +393,15 @@ def _decode_workspace(device, floats: int, counters: int):
 
 def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, cache_len,
                                 *, route: str | None = None,
-                                tiles: int | None = None):
+                                tiles: int | None = None,
+                                nb_split: int | None = None):
     """The decode kernel on CUDA tensors.  Dispatch by dtype and head dim
     (``decode_route``), not a fallback on failure: bf16 with a head dim
     that is a multiple of 16 launches the tensor-core kernel
     (``paged_decode_mma``, one launch, ``tiles`` 16-key tiles a split,
     default ``decode_tiles``); f32, and bf16 at other head dims, launch
-    the SIMT kernel and its merge (``paged_decode_simt``).  ``route``
+    the SIMT kernel and its merge (``paged_decode_simt``, ``nb_split``
+    table blocks a split, default ``decode_split``).  ``route``
     ("simt" or "mma") forces one, for tests and ``chip_smoke.py``; a
     forced "mma" that the kernel cannot take raises.  Either launches or
     raises.  Head dims above 128 and more than 16 query heads per kv head
@@ -434,7 +436,7 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_table, cache_len,
                                         B * Hkv)
         count_ptr = count.data_ptr()
     else:
-        split = decode_split(B, Hkv, MB)
+        split = nb_split or decode_split(B, Hkv, MB)
         splits = -(-MB // split)
         part = torch.empty((B * H * splits * (D + 2),), dtype=torch.float32,
                            device=q.device)

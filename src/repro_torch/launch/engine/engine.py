@@ -21,8 +21,11 @@ bit in operand-entropy mode.  With ``policy="priority"`` a better class
 preempts a worse decoding slot at admission (the victim replays from its
 prompt), and with ``escalate_mi`` a slot whose carried MI reaches the
 threshold finishes on a one-slot high-S lane (``escalate.EscalationLane``)
-whose decode chunk is a CUDA graph of its own.  The tensor-parallel mesh
-is not ported yet (ROADMAP.md); the port's CLI refuses its flag.
+whose decode chunk is a CUDA graph of its own.  With ``mesh`` (a
+``launch.mesh.TP``) the engine is one rank of a tensor-parallel group:
+every rank runs this same host-side loop on the same requests over its
+own ``ModelRunner`` share, and reads the same (gathered) outputs, so the
+ranks take the same schedule.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ from repro_torch.models import registry as M
 
 
 class ServeEngine:
-    """Continuous-batching uncertainty engine on one device.
+    """Continuous-batching uncertainty engine on one device, or on one rank
+    of a tensor-parallel mesh.
 
     ``num_slots`` concurrent decode slots over one slot-indexed KV cache;
     ``chunk`` decode steps per host round-trip.  ``entropy`` (a
@@ -86,8 +90,19 @@ class ServeEngine:
     samples (default 4x the serving S) on a one-slot dense runner over
     the same parameter tensors (``escalation_runner``, one per S).
 
+    ``mesh`` (a ``launch.mesh.TP``, the JAX engine's ``mesh=``) serves
+    tensor-parallel: the runner shards the parameters by the serve rules
+    and the KV cache on its kv-head axis where the ranks divide the
+    heads, and each rank's paged decode and prefill kernels read its own
+    heads (no gather read in their place, unlike the JAX engine, whose
+    GSPMD cannot partition a Pallas body).  Speculative decoding, the
+    escalation lane and the priority policy's SLO deadlines are not
+    ported to a mesh (ROADMAP.md item 13c) and raise
+    ``NotImplementedError``.
+
     ``device`` defaults to CUDA and raises when no GPU is present; the
-    parameters must already live there.  ``head_noise`` replaces the
+    parameters must already live there (under a mesh, on the rank's
+    device).  ``head_noise`` replaces the
     operand-mode noise provider (``layers.decode_head_noise``), e.g. to
     feed another implementation's variates in a parity test.
     """
@@ -105,7 +120,7 @@ class ServeEngine:
                  spec_draft_s: int = 1, spec_k_min: Optional[int] = None,
                  spec_k_max: Optional[int] = None, policy="fifo",
                  escalate_mi: Optional[float] = None,
-                 escalate_s: Optional[int] = None):
+                 escalate_s: Optional[int] = None, mesh=None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if kv_block < 1:
@@ -130,6 +145,11 @@ class ServeEngine:
                              f"{prefill_chunk}")
         if trace_every < 1:
             raise ValueError(f"trace_every must be >= 1, got {trace_every}")
+        if mesh is not None and (spec_decode or escalate_mi is not None):
+            raise NotImplementedError(
+                "speculative decoding and the escalation lane are not "
+                "ported to a tensor-parallel mesh; see ROADMAP.md item 13c")
+        self.mesh = mesh
         if spec_decode:
             if spec_k < 1:
                 raise ValueError(f"spec_k must be >= 1, got {spec_k}")
@@ -220,8 +240,10 @@ class ServeEngine:
             kv_blocks=self.kv_blocks, device=self.device,
             head_noise=head_noise,
             spec_k_max=self.spec_k_max if spec_decode else 0,
-            spec_draft_s=spec_draft_s)
-        self.params = params
+            spec_draft_s=spec_draft_s, tp=self.mesh)
+        # the runner's parameters (under a mesh the rank's share: the whole
+        # tensors are not kept)
+        self.params = self.runner.params
         self._modalities: dict[int, torch.Tensor] = {}
         # the escalation lane's runners, one per verify S, built on demand
         self._esc_runners: dict[int, ModelRunner] = {}
@@ -440,6 +462,13 @@ class ServeEngine:
 
     def _run(self, requests: list[Request]) -> dict:
         paged = self.kv_layout == "paged"
+        if self.mesh is not None and self.policy.name == "priority" \
+                and any(r.slo_s is not None for r in requests):
+            # a deadline reads the rank's own clock, so ranks could rank
+            # the queue differently and leave the one schedule
+            raise NotImplementedError(
+                "SLO deadlines of the priority policy are not ported to a "
+                "tensor-parallel mesh; see ROADMAP.md item 13c")
         for r in requests:
             if len(r.prompt) == 0:
                 raise ValueError(f"request {r.rid}: empty prompt")

@@ -26,8 +26,21 @@ round's own buffers (the stacked hiddens, the (k, 1 + outputs, B) ``ys``
 and the stacked recurrent states), captured lazily at the first round of
 that depth, whose eager run is that round's result; every depth's graph
 allocates from one shared memory pool.  The commit writes the carry in
-place between replays.  The mesh (tensor-parallel) mode of the JAX runner
-is not ported yet.
+place between replays.
+
+Mesh mode (``tp``, a ``launch.mesh.TP``; the JAX runner's ``mesh=``)
+serves tensor-parallel, one runner per rank process, every rank on the
+same requests: the runner keeps the rank's parameters
+(``sharding.partition.shard_params`` by the serve rules; in kernel
+entropy the head stays whole, see ``models.uncertain_head``), builds the
+rank's cache (its kv heads where the ranks divide them, lens, tables and
+recurrent states whole) and passes ``tp`` to every model call, whose
+layers all-gather the sharded columns.  The outputs the engine reads
+are whole on every rank, so every rank's scheduler takes the same
+decisions.  Under NCCL the chunk's graph captures its collectives; gloo
+collectives (host-staged) cannot be captured, so a gloo group on a card
+runs the chunk eagerly (``TP.graphs``; the result's ``mesh`` field says
+so).
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from repro_torch.kernels import launches
 from repro_torch.launch import steps as S
 from repro_torch.models import layers as L
 from repro_torch.models import registry as M
+from repro_torch.sharding.partition import serve_dims, shard_params
 
 FLAGS = ("epistemic", "aleatoric")
 
@@ -64,15 +78,26 @@ class ModelRunner:
     build width.  A failed capture raises: there is no eager fallback on
     CUDA.  ``spec_k_max`` (speculative decoding on) sizes the spec
     round's buffers for the deepest draft; ``spec_draft_s`` is the draft
-    head's sample count."""
+    head's sample count.  ``tp``: the rank's mesh handle (see the module
+    docstring); ``params`` are then the whole model's, and the runner
+    keeps the rank's share."""
 
     def __init__(self, params, cfg, *, num_slots: int, max_len: int,
                  chunk: int, entropy: Optional[KernelEntropy],
                  mi_threshold: float, se_threshold: float, kv_layout: str,
                  kv_block: int, kv_blocks: int, device: torch.device,
                  head_noise=None, spec_k_max: int = 0,
-                 spec_draft_s: int = 1):
+                 spec_draft_s: int = 1, tp=None):
+        self.tp = tp
+        if tp is not None:
+            dims = serve_dims(params, tp.size)
+            if cfg.head_entropy == "kernel":       # the fused head: whole
+                dims["head"] = dict.fromkeys(dims["head"])
+            params = shard_params(params, tp.rank, tp.size, dims)
         self.params = params
+        self.kv_shards = tp.size if L.heads_local(cfg, tp) else 1
+        # a CUDA graph per chunk, unless the collectives cannot be captured
+        self.graphed = device.type == "cuda" and (tp is None or tp.graphs)
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_len = max_len
@@ -84,7 +109,7 @@ class ModelRunner:
         self._scan = S.build_scan_decode(cfg, entropy=entropy, chunk=chunk,
                                          mi_threshold=mi_threshold,
                                          se_threshold=se_threshold,
-                                         head_noise=head_noise)
+                                         head_noise=head_noise, tp=tp)
         dev = device
         self.tok = torch.zeros((num_slots,), dtype=torch.int32, device=dev)
         self.cache = self.make_cache(num_slots)
@@ -139,7 +164,7 @@ class ModelRunner:
                 leaf: torch.zeros((spec_k_max, *self.cache[leaf].shape),
                                   dtype=self.cache[leaf].dtype, device=dev)
                 for leaf in M.RECURRENT_LEAVES if leaf in self.cache}
-        if dev.type == "cuda":
+        if self.graphed:
             self._capture()
 
     def _args(self):
@@ -172,7 +197,7 @@ class ModelRunner:
         self.graph_key = self._graph_key(width)
         (self.spec_graphs, self.spec_captured, self.spec_capture_s) = \
             self._spec_by_width.setdefault(width, ({}, {}, {}))
-        if self.device.type != "cuda":
+        if not self.graphed:
             return
         if width not in self._graphs:
             self._capture(keep_carry=True)
@@ -254,7 +279,8 @@ class ModelRunner:
         return M.make_cache(self.cfg, num_slots, self.max_len,
                             device=self.device, layout=self.kv_layout,
                             kv_block=self.kv_block,
-                            num_blocks=self.kv_blocks)
+                            num_blocks=self.kv_blocks,
+                            kv_shards=self.kv_shards)
 
     def _staged(self, a: np.ndarray) -> torch.Tensor:
         """A copy of a host array to send to the device without a host
@@ -294,7 +320,7 @@ class ModelRunner:
         paged = self.kv_layout == "paged"
         width = len(toks) if paged else self.max_len
         _, sub = M.prefill(self.params, self.cfg, self.tokens(toks), width,
-                           modality)
+                           modality, tp=self.tp)
         return M.write_slot(self.cfg, cache, slot, sub,
                             self.place_table(row) if paged else None)
 
@@ -318,7 +344,8 @@ class ModelRunner:
         if frames is not None:
             kw["frames"] = frames
         return M.prefill_chunk(self.params, self.cfg, self.tokens(toks),
-                               cache, slot, offset, new_len, span, **kw)
+                               cache, slot, offset, new_len, span,
+                               tp=self.tp, **kw)
 
     def expert_offsets(self) -> torch.Tensor:
         """A moe prompt's running expert load before its first chunk:
@@ -359,7 +386,7 @@ class ModelRunner:
                 strips[n] = pool[:, idx].reshape(
                     pool.shape[0], 1, nb * pool.shape[2], *pool.shape[3:])
         _, sub = M.prefill_suffix(self.params, self.cfg, self.tokens(toks),
-                                  strips, hit_len)
+                                  strips, hit_len, tp=self.tp)
         return M.write_slot(self.cfg, cache, slot, sub, table,
                             offset=hit_len)
 
@@ -396,7 +423,7 @@ class ModelRunner:
         ``launches.COUNTS``."""
         self.spec_lens0.copy_(self._staged(np.asarray(lens0, np.int32)),
                               non_blocking=True)
-        if self.device.type != "cuda":
+        if not self.graphed:
             self._spec_body(k)
         elif k in self.spec_graphs:
             self.spec_graphs[k].replay()

@@ -1,0 +1,247 @@
+"""The serving mesh: one process per tensor-parallel rank.
+
+PyTorch counterpart of ``repro.launch.mesh``.  The JAX package builds a
+``jax.sharding.Mesh`` over the devices of one process and lets GSPMD
+place the work; here every rank is a process of its own in a
+``torch.distributed`` group and runs the same program on its own slices
+(SPMD).  A ``--mesh DxM`` flag names the shape; serving puts nothing on
+``data`` (the JAX serve rules shard only ``model``), so D must be 1: D > 1
+ranks would each repeat the whole computation.
+
+Backends, chosen by the devices the machine has:
+
+* NCCL, rank r on ``cuda:r``, when the machine has at least M cards;
+* gloo otherwise, every rank on the device it was given (``cpu``, or the
+  one card, which the ranks then share, with every collective staged
+  through host memory: ``sharding.partition.gather_rep``).
+
+A process joins the group in one of two ways: under ``torchrun``
+(``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` set) it joins from the
+environment; otherwise ``Ranks`` spawns the M ranks with
+``torch.multiprocessing`` and a ``file://`` rendezvous in a temporary
+directory, so no network is needed.  ``Ranks`` keeps them up between
+calls: every call sends one function and its arguments to all ranks and
+returns each rank's result.
+
+Importing this module starts nothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import queue
+import shutil
+import tempfile
+import traceback
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+# seconds a collective may wait for its peers before it raises (ranks that
+# left the same schedule would otherwise wait forever)
+TIMEOUT_S = 600
+
+
+@dataclasses.dataclass(frozen=True)
+class TP:
+    """One rank's handle on the tensor-parallel group (the process's
+    default group): what the runner holds and the model layers receive
+    (``layers.apply_attention(..., tp=)``)."""
+    rank: int
+    size: int
+    backend: str                 # "nccl" | "gloo"
+    device: torch.device
+
+    @property
+    def graphs(self) -> bool:
+        """Whether the decode chunk can be a CUDA graph: NCCL collectives
+        capture, gloo's (host-staged) cannot."""
+        return self.device.type == "cuda" and self.backend == "nccl"
+
+    def describe(self) -> str:
+        """``result["mesh"]``: ranks, backend, devices (and, on a card,
+        whether the chunk is a graph)."""
+        if self.device.type != "cuda":
+            where = str(self.device)
+        elif self.backend == "nccl":
+            where = f"cuda:0-{self.size - 1}"
+        else:
+            where = f"{self.device} shared"
+        graphs = "" if self.device.type != "cuda" else \
+            f", graphs {'on' if self.graphs else 'off'}"
+        return f"{self.size} ranks, {self.backend}, {where}{graphs}"
+
+
+def parse_mesh(spec: Optional[str]) -> Optional[int]:
+    """The model-axis size M of a ``--mesh DxM`` flag ("1x4" -> 4); None,
+    "" and "none" mean no mesh.  D > 1 raises: serving shards nothing
+    over ``data``, so those ranks would only repeat the model ranks'
+    work."""
+    if not spec or spec == "none":
+        return None
+    parts = spec.lower().split("x")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0
+                                  for p in parts):
+        raise ValueError(f"--mesh wants DxM (e.g. 1x4), got {spec!r}")
+    d, m = int(parts[0]), int(parts[1])
+    if d != 1:
+        raise ValueError(
+            f"--mesh {spec}: serving shards only the model axis (D must be "
+            "1); data-parallel ranks would each repeat the whole model's "
+            "work (see ROADMAP.md item 13b)")
+    return m
+
+
+def backend_for(device, m: int) -> tuple[str, torch.device]:
+    """(backend, rank 0's device) of an M-rank group asked on ``device``:
+    NCCL over cards 0..M-1 when the machine has M cards, else gloo on the
+    device itself (shared by every rank)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= m > 1:
+        return "nccl", torch.device("cuda", 0)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    return "gloo", dev
+
+
+def join(m: int, device, *, rank: Optional[int] = None,
+         init_method: Optional[str] = None,
+         timeout_s: int = TIMEOUT_S) -> TP:
+    """Join (or form) the M-rank group and return this rank's ``TP``.
+    Without ``rank`` / ``init_method`` the group comes from the
+    environment (``torchrun``); a process already in a group reuses it."""
+    backend, dev = backend_for(device, m)
+    if not dist.is_initialized():
+        if rank is None:
+            if "RANK" not in os.environ:
+                raise RuntimeError(
+                    f"a {m}-rank mesh needs {m} rank processes: launch with "
+                    "torchrun, or spawn them (mesh.Ranks / mesh.spawn)")
+            rank = int(os.environ["RANK"])
+            init_method = "env://"
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=m,
+            timeout=datetime.timedelta(seconds=timeout_s))
+    if dist.get_world_size() != m:
+        raise ValueError(f"--mesh asks {m} ranks, the group has "
+                         f"{dist.get_world_size()}")
+    rank = dist.get_rank()
+    if backend == "nccl":
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+    return TP(rank=rank, size=m, backend=backend, device=dev)
+
+
+def in_group() -> bool:
+    """Whether this process is already a rank (a group exists, or
+    ``torchrun`` set the environment)."""
+    return dist.is_initialized() or "RANK" in os.environ
+
+
+def _rank_main(rank: int, m: int, device: str, init: str, timeout_s: int,
+               tasks, results) -> None:
+    """A spawned rank: join the group, then run each task ``(fn, args,
+    kwargs)`` from ``tasks`` as ``fn(tp, *args, **kwargs)`` and put
+    ``(rank, ok, value or traceback)`` on ``results``, until a None
+    task."""
+    import repro_torch  # noqa: F401  (pins the precision flags)
+    # the ranks share the host's cores; one thread each also keeps a CPU
+    # GEMM's blocking that of a one-thread unsharded reference
+    torch.set_num_threads(1)
+    tp = join(m, device, rank=rank, init_method=init, timeout_s=timeout_s)
+    try:
+        while True:
+            task = tasks.get()
+            if task is None:
+                break
+            fn, args, kwargs = task
+            try:
+                results.put((rank, True, fn(tp, *args, **kwargs)))
+            except Exception:
+                results.put((rank, False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+class Ranks:
+    """M spawned rank processes, kept up between calls.
+
+        with Ranks(2, "cpu") as ranks:
+            out = ranks.run(fn, a, b=2)   # fn(tp, a, b=2) on every rank
+
+    ``run`` returns the ranks' results in rank order (rank 0's first) and
+    raises ``RuntimeError`` with the tracebacks if any rank raised or
+    died.  ``fn`` and its arguments and results cross processes by
+    pickle: ``fn`` must be importable by name."""
+
+    def __init__(self, m: int, device="cpu", timeout_s: int = TIMEOUT_S):
+        import torch.multiprocessing as mp
+
+        self.m = m
+        self.timeout_s = timeout_s
+        ctx = mp.get_context("spawn")
+        self._dir = tempfile.mkdtemp(prefix="repro_mesh_")
+        init = "file://" + os.path.join(self._dir, "rendezvous")
+        self._tasks = [ctx.Queue() for _ in range(m)]
+        self._results = ctx.Queue()
+        self._procs = [ctx.Process(
+            target=_rank_main, daemon=True,
+            args=(r, m, str(device), init, timeout_s, self._tasks[r],
+                  self._results)) for r in range(m)]
+        for p in self._procs:
+            p.start()
+
+    def run(self, fn, *args, **kwargs) -> list:
+        for q in self._tasks:
+            q.put((fn, args, kwargs))
+        got: dict[int, tuple[bool, object]] = {}
+        while len(got) < self.m:
+            try:
+                rank, ok, value = self._results.get(timeout=5)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(self._procs)
+                        if not p.is_alive() and r not in got]
+                if dead:
+                    self.close()
+                    raise RuntimeError(f"rank(s) {dead} died") from None
+                if any(not ok for ok, _ in got.values()):
+                    # a rank raised; the others wait in a collective until
+                    # the timeout: do not wait for them
+                    break
+                continue
+            got[rank] = (ok, value)
+        errors = {r: v for r, (ok, v) in got.items() if not ok}
+        if errors or len(got) < self.m:
+            self.close()
+            raise RuntimeError("a rank failed:\n" + "\n".join(
+                f"rank {r}:\n{v}" for r, v in sorted(errors.items())))
+        return [got[r][1] for r in range(self.m)]
+
+    def close(self) -> None:
+        """Stop the ranks (each leaves the group), killing any that does
+        not stop within a few seconds, and remove the rendezvous file."""
+        for q in self._tasks:
+            q.put(None)
+        for p in self._procs:
+            p.join(timeout=10)
+        for p in self._procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+    def __enter__(self) -> "Ranks":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def spawn(m: int, device, fn, *args, **kwargs) -> list:
+    """``fn(tp, *args, **kwargs)`` on M freshly spawned ranks; the ranks'
+    results in rank order."""
+    with Ranks(m, device) as ranks:
+        return ranks.run(fn, *args, **kwargs)

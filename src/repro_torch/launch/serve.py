@@ -1,4 +1,5 @@
-"""Continuous-batching uncertainty serving engine on a GPU — CLI.
+"""Continuous-batching uncertainty serving engine on a GPU (or several,
+tensor-parallel) — CLI.
 
 PyTorch counterpart of ``repro.launch.serve``: the same flags, defaults
 and ``--stats-json`` schema, plus ``--device`` (default ``cuda``; a
@@ -11,8 +12,15 @@ equals spec-decode off bit for bit (it needs ``--entropy operand``).
 deadline (``--slo-ms``) and order, and preempts a worse decoding slot for
 a better class; ``--escalate-mi X`` finishes a request whose carried MI
 reaches X on a one-slot lane at ``--escalate-s`` head samples (default
-4x S).  ``--mesh`` (tensor parallelism) is not ported yet and raises
-``NotImplementedError`` (see ROADMAP.md).  Every ``--arch`` is served.
+4x S).  ``--mesh 1xM`` serves tensor-parallel over M ranks
+(``launch.mesh``): the CLI spawns them (or joins ``torchrun``'s), NCCL
+with one card a rank where the machine has M cards, else gloo with every
+rank on ``--device`` (the CPU, or one shared card with the decode chunk
+run eagerly); every rank serves the same trace on its share of the
+parameters and KV heads, and rank 0's result is reported, with
+``result["mesh"]`` naming ranks, backend and devices.  Speculative
+decoding, the escalation lane and ``--slo-ms`` under ``--policy
+priority`` refuse a mesh (``NotImplementedError``, ROADMAP.md item 13c).  Every ``--arch`` is served.
 The ssm family (``mamba2_370m``) keeps no KV: ``--kv-layout paged``,
 ``--decode-attn kernel`` and ``--prefill chunked`` fall back silently to
 the dense layout, the gather read and batch prefill at the exact prompt
@@ -55,6 +63,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch phi_3_vision_4_2b --device cpu --kv-layout paged \
       --decode-attn kernel --prefill chunked
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --mesh 1x2 --kv-layout paged --decode-attn kernel --prefill chunked
 """
 
 from __future__ import annotations
@@ -71,10 +81,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import get_config, reduced
 from repro_torch.core.entropy import KernelEntropy
 from repro_torch.data.synthetic import TokenStreamState, token_batch
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.engine import Request, ServeEngine
 from repro_torch.models import registry as M
-
-_ROADMAP = "is not ported to PyTorch yet; see ROADMAP.md"
 
 
 def make_requests(args, cfg) -> list[Request]:
@@ -109,14 +118,8 @@ def make_requests(args, cfg) -> list[Request]:
     return reqs
 
 
-def check_ported(args) -> None:
-    """Refuse the flag of the feature the port does not have yet."""
-    if args.mesh not in (None, "", "none"):
-        raise NotImplementedError(f"--mesh {_ROADMAP}")
-
-
 def build_engine(args, params=None, head_noise=None,
-                 cfg: ArchConfig | None = None
+                 cfg: ArchConfig | None = None, tp=None
                  ) -> tuple[ServeEngine, ArchConfig]:
     """The engine the CLI serves with, and its config: random weights
     from ``--seed`` on ``--device``, or ``params`` already there (another
@@ -126,14 +129,15 @@ def build_engine(args, params=None, head_noise=None,
     ``cfg``: the model's config where it is not ``--arch``'s own (a
     training state cut in depth, ``launch.train.train_config``).  On
     CUDA this captures the decode chunk's graph (``ModelRunner``); the
-    engine serves any number of ``run`` calls with it."""
-    check_ported(args)
+    engine serves any number of ``run`` calls with it.  ``tp``: this
+    rank's ``launch.mesh.TP`` under ``--mesh`` (the engine then runs on
+    its device and keeps its share of the parameters)."""
     if cfg is None:
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = reduced(cfg)
     cfg = dataclasses.replace(cfg, head_entropy=args.entropy)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device if tp is None else tp.device)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = M.init_params(cfg, gen, device)
@@ -160,13 +164,28 @@ def build_engine(args, params=None, head_noise=None,
         spec_draft_s=args.spec_draft_s, spec_k_min=args.spec_k_min,
         spec_k_max=args.spec_k_max, policy=args.policy,
         escalate_mi=args.escalate_mi, escalate_s=args.escalate_s,
-        head_noise=head_noise)
+        head_noise=head_noise, mesh=tp)
     return engine, cfg
+
+
+def serve_rank(tp, args) -> dict:
+    """One rank of a ``--mesh`` serve (``launch.mesh.spawn`` runs it):
+    build this rank's engine and serve the trace."""
+    return serve(args, build_engine(args, tp=tp))
 
 
 def serve(args, built=None) -> dict:
     """Serve ``args``' request trace; ``built`` is a ``build_engine(args)``
-    pair to serve with again (a new engine without it)."""
+    pair to serve with again (a new engine without it).  Under ``--mesh
+    1xM`` (M > 1) and outside a process group this spawns the M ranks
+    (``serve_rank``) and returns rank 0's result; a process that already
+    is a rank (``torchrun``) joins the group and serves its share."""
+    m = meshlib.parse_mesh(args.mesh)
+    if built is None and m is not None and m > 1:
+        if not meshlib.in_group():
+            resolve_device(args.device)   # no GPU raises before a rank starts
+            return meshlib.spawn(m, args.device, serve_rank, args)[0]
+        built = build_engine(args, tp=meshlib.join(m, args.device))
     engine, cfg = built or build_engine(args)
     device = engine.device
     result = engine.run(make_requests(args, cfg))
@@ -178,7 +197,8 @@ def serve(args, built=None) -> dict:
     result["entropy_mode"] = args.entropy
     result["entropy_hbm_bytes_per_token"] = 0 if in_kernel else \
         cfg.mc_samples * cfg.vocab_size * 4
-    result["mesh"] = "none"
+    result["mesh"] = "none" if engine.mesh is None \
+        else engine.mesh.describe()
     return result
 
 
@@ -295,7 +315,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "4x the serving S); each S builds its own lane "
                          "runner once")
     ap.add_argument("--mesh", default=None,
-                    help="not ported: any mesh raises")
+                    help="serve tensor-parallel over 1xM ranks (spawned, "
+                         "or torchrun's): NCCL with a card a rank where "
+                         "the machine has M cards, else gloo on --device")
     ap.add_argument("--stats-json", default=None, metavar="PATH",
                     help="also dump the run's stats dict (counters only, "
                          "no per-request streams) as JSON")
@@ -318,6 +340,8 @@ def main():
     if r["kv"]["layout"] == "paged":
         print(f"tables: {r['table_growths']} growths")
     print(f"policy: {r['policy']}  preemptions {r['preemptions']}")
+    if r["mesh"] != "none":
+        print(f"mesh: {r['mesh']}")
     print(f"decode {r['decode_tok_per_s']:.1f} tok/s "
           f"(e2e {r['e2e_tok_per_s']:.1f})  "
           f"latency p50 {r['latency_p50_s']:.2f}s "

@@ -155,22 +155,25 @@ def decode_seed(entropy) -> int:
     return entropy.seed if entropy is not None else LEGACY_SEED
 
 
-def build_decode_step(cfg: ArchConfig, entropy=None, head_noise=None):
+def build_decode_step(cfg: ArchConfig, entropy=None, head_noise=None,
+                      tp=None):
     """Single uncertain decode step: (params, token, cache, step,
     offset=0) -> (outputs, cache); the head stream's step is ``step +
-    offset``, ``step`` an int or a one-element int32 device tensor."""
+    offset``, ``step`` an int or a one-element int32 device tensor.
+    ``tp``: a tensor-parallel rank's mesh handle (``launch.mesh.TP``),
+    with the rank's parameters and cache."""
     seed = decode_seed(entropy)
 
     def decode_step(params, token, cache, step, offset: int = 0):
         return M.decode_step(params, cfg, token, cache, (seed, step, offset),
-                             head_noise=head_noise)
+                             head_noise=head_noise, tp=tp)
 
     return decode_step
 
 
 def build_scan_decode(cfg: ArchConfig, entropy=None, chunk: int = 8,
                       mi_threshold: float = 0.05, se_threshold: float = 1.0,
-                      head_noise=None):
+                      head_noise=None, tp=None):
     """Chunked decode: ``chunk`` tokens per host round-trip.
 
     Returns ``scan_decode(params, token, cache, step0, active, flags, ys)
@@ -184,7 +187,8 @@ def build_scan_decode(cfg: ArchConfig, entropy=None, chunk: int = 8,
     ``step0`` is the chunk's first global step, a one-element int32
     tensor on the cache's device.
     """
-    step_fn = build_decode_step(cfg, entropy=entropy, head_noise=head_noise)
+    step_fn = build_decode_step(cfg, entropy=entropy, head_noise=head_noise,
+                                tp=tp)
 
     def scan_decode(params, token, cache, step0, active, flags, ys):
         epi, alea = flags["epistemic"], flags["aleatoric"]

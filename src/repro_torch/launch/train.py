@@ -17,8 +17,10 @@ Every family trains (``registry.TRAIN_FAMILIES``).  ``--full`` trains
 at full width; where one card cannot hold a family's whole training
 state (bf16 weights and gradients, f32 moments, the f32 head), it is cut
 in depth to ``CARD_DEPTH``, and grok-1-314b,
-too large for one card at any depth, is refused.  The mesh of the JAX
-launcher is ROADMAP item 13: the port trains on one device.
+too large for one card at any depth, is refused.  The JAX launcher's
+training mesh (FSDP / TP ``param_pspecs``, ``constrain``) is ROADMAP item
+13b: the port trains on one device (serving has its mesh,
+``launch.mesh``).
 ``train_bnn`` is the paper BNN's SVI loop (the reference's quickstart
 and tests train it the same way).
 

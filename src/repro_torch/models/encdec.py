@@ -99,7 +99,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
 # encoder
 # ---------------------------------------------------------------------------
 
-def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
+def encode(params, cfg: ArchConfig, frames: torch.Tensor,
+           tp=None) -> torch.Tensor:
     """frames: (B, S_enc, d) stub frontend embeddings -> encoder memory
     (B, S_enc, d) in the parameter dtype: bidirectional self-attention
     with RoPE at positions [0, S_enc), then ``enc_norm``.  Under autograd
@@ -112,23 +113,25 @@ def encode(params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
         def fwd(xx, bp=bp):
             h, _ = L.apply_attention(bp["attn"], cfg,
                                      L.rms_norm(xx, bp["ln1"]), rot=rot,
-                                     causal=False)
+                                     causal=False, tp=tp)
             xx = xx + h
-            return xx + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(xx, bp["ln2"]))
+            return xx + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(xx, bp["ln2"]),
+                                    tp)
         x = T.rematted(fwd, x) if remat else fwd(x)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _dec_block(bp, cfg: ArchConfig, x, self_attend, cross_kv):
+def _dec_block(bp, cfg: ArchConfig, x, self_attend, cross_kv, tp=None):
     """One decoder layer: ``self_attend(attn_params, normed_x) -> (out,
     kv)`` (prefill, decode or a prompt chunk), cross-attention over
     ``cross_kv``, the MLP.  Returns (x, kv)."""
     h, kv = self_attend(bp["self_attn"], L.rms_norm(x, bp["ln1"]))
     x = x + h
     hc, _ = L.apply_attention(bp["cross_attn"], cfg,
-                              L.rms_norm(x, bp["ln_x"]), cross_kv=cross_kv)
+                              L.rms_norm(x, bp["ln_x"]), cross_kv=cross_kv,
+                              tp=tp)
     x = x + hc
-    x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+    x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]), tp)
     return x, kv
 
 
@@ -195,14 +198,14 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int,
-            frames: torch.Tensor):
+            frames: torch.Tensor, tp=None):
     """Encode ``frames``, compute every layer's cross K/V, run the decoder
     over the prompt; returns (hidden_last, cache) with (L, B, max_len,
     Hkv, hd) self-attention strips, (L, B, ENC_LEN, Hkv, hd) ``ck`` /
     ``cv`` and ``len``."""
     if frames is None:
         raise ValueError("encdec prefill needs the encoder frames")
-    enc_out = encode(params, cfg, frames)
+    enc_out = encode(params, cfg, frames, tp)
     x = L.apply_embed(params["embed"], tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)[None, :]
@@ -211,9 +214,10 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int,
     ks, vs, cks, cvs = [], [], [], []
     for i in range(n_dec(cfg)):
         bp = layer(params["decoder"], i)
-        ckv = L.make_cross_kv(bp["cross_attn"], cfg, enc_out)
+        ckv = L.make_cross_kv(bp["cross_attn"], cfg, enc_out, tp)
         x, (k, v) = _dec_block(bp, cfg, x, lambda p, u:
-                               L.apply_attention(p, cfg, u, rot=rot), ckv)
+                               L.apply_attention(p, cfg, u, rot=rot, tp=tp),
+                               ckv, tp)
         ks.append(F.pad(k, pad))
         vs.append(F.pad(v, pad))
         cks.append(ckv[0])
@@ -228,7 +232,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int,
 
 def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
                   slot: int, offset: int, new_len: int, span: int,
-                  frames: Optional[torch.Tensor] = None) -> dict:
+                  frames: Optional[torch.Tensor] = None, tp=None) -> dict:
     """One chunk of an incremental prompt prefill for ``slot`` (see
     ``transformer.prefill_chunk``).
 
@@ -247,23 +251,24 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
     at = torch.full((1,), offset, dtype=torch.int32, device=x.device)
     kv_index = L.paged_index(cache["k"].shape[1], cache["k"].shape[2], row,
                              at, S)
-    enc_out = None if frames is None else encode(params, cfg, frames)
+    enc_out = None if frames is None else encode(params, cfg, frames, tp)
     for i in range(n_dec(cfg)):
         bp = layer(params["decoder"], i)
         ck, cv = cache["ck"][i, slot:slot + 1], cache["cv"][i, slot:slot + 1]
         if enc_out is not None:
-            k, v = L.make_cross_kv(bp["cross_attn"], cfg, enc_out)
+            k, v = L.make_cross_kv(bp["cross_attn"], cfg, enc_out, tp)
             ck.copy_(k)
             cv.copy_(v)
         pools = (cache["k"][i], cache["v"][i])
         x, _ = _dec_block(bp, cfg, x, lambda p, u: L.apply_attention_chunk(
             p, cfg, u, kv_pools=pools, block_row=row, offset=offset,
-            span=span, rot=rot, kv_index=kv_index), (ck, cv))
+            span=span, rot=rot, kv_index=kv_index, tp=tp), (ck, cv), tp)
     cache["len"][slot].fill_(new_len)  # item assignment would sync the host
     return cache
 
 
-def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
+def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
+                  tp=None):
     """The KV-writing decode body (see ``transformer.decode_hidden``): each
     layer writes its self-attention K/V at the slot's pre-step depth, IN
     PLACE, and reads its ``ck`` / ``cv`` untouched; ``len`` advances by
@@ -279,17 +284,17 @@ def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
         kv = (cache["k"][i], cache["v"][i])
         x, _ = _dec_block(bp, cfg, x, lambda p, u: L.apply_attention(
             p, cfg, u, rot=rot, kv_cache=kv, cache_len=lens,
-            block_table=table, kv_index=kv_index),
-            (cache["ck"][i], cache["cv"][i]))
+            block_table=table, kv_index=kv_index, tp=tp),
+            (cache["ck"][i], cache["cv"][i]), tp)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     lens.add_(1)
     return x[:, 0], cache
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
-                key: tuple, head_noise=None):
+                key: tuple, head_noise=None, tp=None):
     """One uncertain decode step (see ``transformer.decode_step``)."""
     lens0 = cache["len"].clone()        # the body advances len in place
-    hidden, cache = decode_hidden(params, cfg, token, cache)
+    hidden, cache = decode_hidden(params, cfg, token, cache, tp)
     return U.head_outputs(params, cfg, hidden, lens0, key,
-                          head_noise=head_noise), cache
+                          head_noise=head_noise, tp=tp), cache

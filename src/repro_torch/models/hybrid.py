@@ -78,13 +78,14 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
     }
 
 
-def _shared_fwd(sp, cfg: ArchConfig, x: torch.Tensor, attend):
+def _shared_fwd(sp, cfg: ArchConfig, x: torch.Tensor, attend, tp=None):
     """One application of the shared block: ``attend(attn_params,
     normed_x) -> (out, kv)`` (prefill, decode or a prompt chunk), then the
-    MLP.  Returns (x, kv)."""
+    MLP.  Returns (x, kv).  Under a serving mesh (``tp``) the shared
+    block's attention and MLP shard; the Mamba mixers replicate."""
     h, kv = attend(sp["attn"], L.rms_norm(x, sp["ln1"]))
     x = x + h
-    x = x + L.apply_mlp(sp["mlp"], cfg, L.rms_norm(x, sp["ln2"]))
+    x = x + L.apply_mlp(sp["mlp"], cfg, L.rms_norm(x, sp["ln2"]), tp)
     return x, kv
 
 
@@ -146,7 +147,8 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
     return cache
 
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int,
+            tp=None):
     """Run the full prompt (its exact length: the recurrent state would
     fold in pad tokens); returns (hidden_last, cache) with (A, B,
     max_len, Hkv, hd) strips, every layer's state and ``len``."""
@@ -158,7 +160,8 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
     ks, vs, hs, cs = [], [], [], []
     for _, lo, hi in groups(cfg):
         x, (k, v) = _shared_fwd(params["shared"], cfg, x, lambda p, u:
-                                L.apply_attention(p, cfg, u, rot=rot))
+                                L.apply_attention(p, cfg, u, rot=rot,
+                                                  tp=tp), tp)
         ks.append(F.pad(k, pad))
         vs.append(F.pad(v, pad))
         for i in range(lo, hi):
@@ -175,7 +178,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
 
 def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
                   slot: int, offset: int, new_len: int, span: int,
-                  state: dict, finalize: bool):
+                  state: dict, finalize: bool, tp=None):
     """One chunk of an incremental prompt prefill for ``slot`` (see
     ``transformer.prefill_chunk``); returns ``(cache, new_state)``.
 
@@ -206,7 +209,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
                            L.apply_attention_chunk(
                                p, cfg, u, kv_pools=pools, block_row=row,
                                offset=offset, span=span, rot=rot,
-                               kv_index=kv_index))
+                               kv_index=kv_index, tp=tp), tp)
         for i in range(lo, hi):
             x, h, c = ssm.apply_block(layer(params["blocks"], i), cfg, x,
                                       ssm_state=state["ssm"][i],
@@ -222,7 +225,8 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
     return cache, state
 
 
-def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
+def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
+                  tp=None):
     """The state- and KV-writing decode body: each application writes its
     K/V into its own plane at the slot's pre-step depth, each layer its
     SSM state and conv tail, all IN PLACE; ``len`` advances by one in
@@ -241,7 +245,7 @@ def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
                            L.apply_attention(
                                p, cfg, u, rot=rot, kv_cache=kv,
                                cache_len=lens, block_table=table,
-                               kv_index=kv_index))
+                               kv_index=kv_index, tp=tp), tp)
         for i in range(lo, hi):
             x, h, c = ssm.apply_block(layer(params["blocks"], i), cfg, x,
                                       ssm_state=cache["ssm"][i],
@@ -254,9 +258,9 @@ def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
-                key: tuple, head_noise=None):
+                key: tuple, head_noise=None, tp=None):
     """One uncertain decode step (see ``transformer.decode_step``)."""
     lens0 = cache["len"].clone()        # the body advances len in place
-    hidden, cache = decode_hidden(params, cfg, token, cache)
+    hidden, cache = decode_hidden(params, cfg, token, cache, tp)
     return U.head_outputs(params, cfg, hidden, lens0, key,
-                          head_noise=head_noise), cache
+                          head_noise=head_noise, tp=tp), cache

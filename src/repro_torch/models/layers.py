@@ -4,12 +4,22 @@ PyTorch counterpart of ``repro.models.layers``.  Parameters are plain
 dicts of tensors with the JAX package's layouts (weights (in, out),
 attention (B, S, H, D)); storage is ``cfg.param_dtype`` and every matmul
 accumulates in float32 (``repro_torch`` pins the backend flags).  The
-JAX package's sharding seams (``constrain``, ``gather_rep``) have no
-counterpart: the port serves on one GPU.
+JAX package's training-side constraints (``constrain``) are not ported
+(ROADMAP.md item 13b).
 
 Caches are updated IN PLACE where the JAX package returns a new array
 (it donates the old one to XLA instead): ``paged_scatter`` writes into
 the pool it is given.
+
+Tensor parallelism (``--mesh 1xM``): the layers that meet a column-sharded
+weight take the rank's ``launch.mesh.TP`` as ``tp=`` and all-gather the
+sharded columns before anything contracts over them
+(``sharding.partition.gather_rep``, the JAX package's seams of the same
+name).  Where the ranks divide the kv heads (``heads_local``) attention
+runs on the rank's own heads against its own slice of the KV cache, and
+its output is gathered before ``wo``; otherwise q, k and v are gathered
+and every rank attends over all heads.  ``tp`` None is the unsharded
+model.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import rng
+from repro_torch.sharding.partition import gather_rep, shardable
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -68,6 +79,30 @@ def rope(x: torch.Tensor, rot: tuple[torch.Tensor, torch.Tensor]):
 def _mm(x, w):
     # output dtype == activation dtype, f32 accumulation inside the GEMM
     return torch.matmul(x, w)
+
+
+def heads_local(cfg: ArchConfig, tp) -> bool:
+    """Whether attention runs on the rank's own heads: a mesh of M > 1
+    ranks that divides the kv heads, so that the column slices of wq / wk
+    / wv are whole heads (query heads r·H/M.. use kv heads r·Hkv/M.., a
+    GQA group never straddles ranks) and the KV cache shards on its
+    kv-head axis (``registry.make_cache(kv_shards=)``)."""
+    return tp is not None and tp.size > 1 \
+        and shardable(cfg.num_kv_heads, tp.size)
+
+
+def _whole(y: torch.Tensor, width: int, tp) -> torch.Tensor:
+    """``y`` with its full last axis ``width``: gathered across the ranks
+    where a column-sharded weight gave this rank a slice of it."""
+    return y if y.shape[-1] == width else gather_rep(y, tp)
+
+
+def _attn_out(p, out: torch.Tensor, cfg: ArchConfig, tp) -> torch.Tensor:
+    """The (B, S, h·hd) attention output through ``wo`` (replicated),
+    gathered first when it holds only this rank's heads."""
+    B, S = out.shape[:2]
+    out = _whole(out.reshape(B, S, -1), cfg.num_heads * cfg.head_dim, tp)
+    return _mm(out, p["wo"])
 
 
 def he_init(gen: torch.Generator, shape, fan_in: int, dtype, device):
@@ -253,7 +288,9 @@ def init_attention(gen, cfg: ArchConfig, device, lead=()):
     return p
 
 
-def _qkv(p, cfg: ArchConfig, x: torch.Tensor, rot: tuple):
+def _qkv(p, cfg: ArchConfig, x: torch.Tensor, rot: tuple, tp=None):
+    """(q, k, v), each (B, S, heads, hd): the rank's own heads where
+    ``heads_local``, else all of them (sharded columns gathered)."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _mm(x, p["wq"])
@@ -261,6 +298,12 @@ def _qkv(p, cfg: ArchConfig, x: torch.Tensor, rot: tuple):
     v = _mm(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if heads_local(cfg, tp):
+        H, Hkv = H // tp.size, Hkv // tp.size
+    else:
+        q = _whole(q, H * hd, tp)
+        k = _whole(k, Hkv * hd, tp)
+        v = _whole(v, Hkv * hd, tp)
     q = rope(q.reshape(B, S, H, hd), rot)
     k = rope(k.reshape(B, S, Hkv, hd), rot)
     return q, k, v.reshape(B, S, Hkv, hd)
@@ -272,7 +315,7 @@ def apply_attention(p, cfg: ArchConfig, x: torch.Tensor, *,
                     cache_len: Optional[torch.Tensor] = None,
                     block_table: Optional[torch.Tensor] = None,
                     kv_index: Optional[tuple] = None,
-                    cross_kv: Optional[tuple] = None):
+                    cross_kv: Optional[tuple] = None, tp=None):
     """Returns (out, new_kv): the computed (k, v) for prefill (no cache),
     or the cache pair after this step's writes for decode.  ``rot`` is
     ``rope_tables`` at the tokens' positions; ``kv_index`` the paged
@@ -290,18 +333,25 @@ def apply_attention(p, cfg: ArchConfig, x: torch.Tensor, *,
     block-sparse CUDA kernel (plain version on CPU tensors) that reads
     only mapped blocks below the depth.  The dense layout writes the
     (B, max_len, Hkv, D) strips in place; a position past max_len is
-    dropped."""
+    dropped.
+
+    ``tp``: the rank's mesh handle (see the module docstring); the caches
+    then hold the rank's kv heads where ``heads_local``, and the decode
+    kernel takes its split from the unsharded head count, so that each
+    head's reduction runs as in the unsharded call."""
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     if cross_kv is not None:
         q = _mm(x, p["wq"])
         if "bq" in p:
             q = q + p["bq"]
-        out = flash_attention(q.reshape(B, S, H, hd), *cross_kv, causal=False,
-                              q_chunk=cfg.attn_q_chunk,
+        if not heads_local(cfg, tp):
+            q = _whole(q, H * hd, tp)
+        out = flash_attention(q.reshape(B, S, -1, hd), *cross_kv,
+                              causal=False, q_chunk=cfg.attn_q_chunk,
                               kv_chunk=cfg.attn_kv_chunk)
-        return _mm(out.reshape(B, S, H * hd), p["wo"]), None
-    q, k, v = _qkv(p, cfg, x, rot)
+        return _attn_out(p, out, cfg, tp), None
+    q, k, v = _qkv(p, cfg, x, rot, tp)
     if kv_cache is None:
         out = flash_attention(q, k, v, causal=causal,
                               q_chunk=cfg.attn_q_chunk,
@@ -319,7 +369,8 @@ def apply_attention(p, cfg: ArchConfig, x: torch.Tensor, *,
             if cfg.decode_attn == "kernel" and S == 1:
                 from repro_torch.kernels.ops import paged_decode_attention
                 out = paged_decode_attention(q, kc, vc, block_table,
-                                             lens + S)
+                                             lens + S,
+                                             kv_heads=cfg.num_kv_heads)
             else:
                 eff = mapped_span(block_table, kc.shape[1], lens + S)
                 out = decode_attention(q, paged_gather(kc, block_table),
@@ -337,12 +388,12 @@ def apply_attention(p, cfg: ArchConfig, x: torch.Tensor, *,
             vc[rows, at] = torch.where(keep, v[:, 0].to(vc.dtype), vc[rows, at])
             out = decode_attention(q, kc, vc, lens + S)
         new_kv = (kc, vc)
-    out = out.reshape(B, S, H * hd)
-    return _mm(out, p["wo"]), new_kv
+    return _attn_out(p, out, cfg, tp), new_kv
 
 
 def apply_attention_suffix(p, cfg: ArchConfig, x: torch.Tensor, *,
-                           prefix_kv: tuple, prefix_len: int, rot: tuple):
+                           prefix_kv: tuple, prefix_len: int, rot: tuple,
+                           tp=None):
     """Prefill continuation: attention for the UNCACHED suffix of a prompt
     whose first ``prefix_len`` positions already live in the KV cache (a
     prefix-cache hit).
@@ -359,21 +410,19 @@ def apply_attention_suffix(p, cfg: ArchConfig, x: torch.Tensor, *,
     cold path's operands at the same indices and the same reduction
     extent (the engine pads the suffix to the cold bucket).  Query rows
     are independent, so the query chunking may differ."""
-    B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
-    q, k, v = _qkv(p, cfg, x, rot)
+    q, k, v = _qkv(p, cfg, x, rot, tp)
     kc, vc = prefix_kv
     ks = torch.cat([kc.to(k.dtype), k], dim=1)
     vs = torch.cat([vc.to(v.dtype), v], dim=1)
     out = flash_attention(q, ks, vs, causal=True, q_chunk=cfg.attn_q_chunk,
                           kv_chunk=cfg.attn_kv_chunk, q_offset=prefix_len)
-    return _mm(out.reshape(B, S, H * hd), p["wo"]), (k, v)
+    return _attn_out(p, out, cfg, tp), (k, v)
 
 
 def apply_attention_chunk(p, cfg: ArchConfig, x: torch.Tensor, *,
                           kv_pools: tuple, block_row: torch.Tensor,
                           offset: int, span: int, rot: tuple,
-                          kv_index: tuple):
+                          kv_index: tuple, tp=None):
     """Chunked-prefill attention for ONE slot against its paged KV pool.
 
     x: (1, S, d) hidden states of the prompt chunk at absolute positions
@@ -384,10 +433,11 @@ def apply_attention_chunk(p, cfg: ArchConfig, x: torch.Tensor, *,
     The chunk's K/V are scattered into the pools first (in place), then
     the leading ``span`` tokens are attended causally — by the
     block-sparse prefill kernel when ``cfg.decode_attn == 'kernel'``,
-    else by gather + ``flash_attention`` (the reference)."""
-    B, S, _ = x.shape
-    H, hd = cfg.num_heads, cfg.head_dim
-    q, k, v = _qkv(p, cfg, x, rot)
+    else by gather + ``flash_attention`` (the reference).  The prefill
+    kernel's grid is (kv head, row block): a head's walk does not depend
+    on how many heads the pool holds, so a rank's own heads need no
+    unsharded count."""
+    q, k, v = _qkv(p, cfg, x, rot, tp)
     kc, vc = kv_pools
     paged_scatter(kc, block_row, None, k, kv_index)
     paged_scatter(vc, block_row, None, v, kv_index)
@@ -403,18 +453,19 @@ def apply_attention_chunk(p, cfg: ArchConfig, x: torch.Tensor, *,
         out = flash_attention(q, ks, vs, causal=True,
                               q_chunk=cfg.attn_q_chunk,
                               kv_chunk=cfg.attn_kv_chunk, q_offset=offset)
-    out = out.reshape(B, S, H * hd)
-    return _mm(out, p["wo"]), (kc, vc)
+    return _attn_out(p, out, cfg, tp), (kc, vc)
 
 
-def make_cross_kv(p, cfg: ArchConfig, enc_out: torch.Tensor):
+def make_cross_kv(p, cfg: ArchConfig, enc_out: torch.Tensor, tp=None):
     """Cross-attention K/V, each (B, S_enc, Hkv, D), from the encoder
     output: the projections alone, no bias and no RoPE (as the reference
-    computes them)."""
+    computes them); the rank's own kv heads where ``heads_local``."""
     B, S, _ = enc_out.shape
     Hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    return (_mm(enc_out, p["wk"]).reshape(B, S, Hkv, hd),
-            _mm(enc_out, p["wv"]).reshape(B, S, Hkv, hd))
+    k, v = _mm(enc_out, p["wk"]), _mm(enc_out, p["wv"])
+    if not heads_local(cfg, tp):
+        k, v = _whole(k, Hkv * hd, tp), _whole(v, Hkv * hd, tp)
+    return k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd)
 
 
 # --------------------------------------------------------------------------
@@ -432,14 +483,19 @@ def init_mlp(gen, cfg: ArchConfig, device, lead=()):
             "w2": he_init(gen, (*lead, ff, d), ff, dt, device)}  # down
 
 
-def apply_mlp(p, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p, cfg: ArchConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """The MLP; under a mesh w1 / w3 give the rank its ff columns, the
+    activation is elementwise, and the (…, ff) product is gathered once
+    before ``w2`` (replicated)."""
     if cfg.mlp_activation == "relu2":
-        return _mm(torch.square(F.relu(_mm(x, p["w1"]))), p["w2"])
-    g = _mm(x, p["w1"])
-    u = _mm(x, p["w3"])
-    act = F.silu(g) if cfg.mlp_activation == "silu" \
-        else F.gelu(g, approximate="tanh")
-    return _mm(act * u, p["w2"])
+        h = torch.square(F.relu(_mm(x, p["w1"])))
+    else:
+        g = _mm(x, p["w1"])
+        u = _mm(x, p["w3"])
+        act = F.silu(g) if cfg.mlp_activation == "silu" \
+            else F.gelu(g, approximate="tanh")
+        h = act * u
+    return _mm(_whole(h, p["w2"].shape[-2], tp), p["w2"])
 
 
 # --------------------------------------------------------------------------
@@ -484,8 +540,11 @@ def serving_head(head: dict) -> dict:
     return {"mu": head["mu"], "sigma": F.softplus(head["rho"])}
 
 
-def head_logits_mean(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    logits = x.float() @ p["mu"]
+def head_logits_mean(p, x: torch.Tensor, cfg: ArchConfig,
+                     tp=None) -> torch.Tensor:
+    """The mean head's f32 logits; a head sharded on its vocabulary
+    columns is gathered along V before the softcap."""
+    logits = _whole(x.float() @ p["mu"], cfg.vocab_size, tp)
     if cfg.logits_softcap:
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)
@@ -516,12 +575,15 @@ def decode_head_noise(seed: int, cache_len: torch.Tensor, num_samples: int,
 
 
 def head_logits_sampled(p, x: torch.Tensor, cfg: ArchConfig,
-                        xi: torch.Tensor) -> torch.Tensor:
+                        xi: torch.Tensor, tp=None) -> torch.Tensor:
     """One LRT draw of the Bayesian head per leading xi index: x (..., d),
-    xi (..., V) -> f32 logits."""
+    xi (..., V) -> f32 logits.  A head sharded on its vocabulary columns
+    gives the rank its columns of the mean and the variance, gathered
+    along V before the combine (JAX ``layers.py``'s two ``gather_rep``)."""
     x32 = x.float()
-    mean = x32 @ p["mu"]
-    var = (x32 * x32) @ (p["sigma"] ** 2)
+    V = cfg.vocab_size
+    mean = _whole(x32 @ p["mu"], V, tp)
+    var = _whole((x32 * x32) @ (p["sigma"] ** 2), V, tp)
     logits = mean + torch.sqrt(torch.clamp(var, min=0.0)) * xi
     if cfg.logits_softcap:
         c = cfg.logits_softcap

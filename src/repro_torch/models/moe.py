@@ -13,9 +13,12 @@ capacity overflow drops the assignment).  The
 shared experts (DeepSeekMoE) see every token.
 
 The dispatch is one group (the JAX package's ``_dispatch_groups`` without
-a mesh): the port serves on one GPU.  Every step is a fixed-shape tensor
-op with integer indices — no boolean-mask indexing, no one-hot of unknown
-width, no host read — so a decode step captures in a CUDA graph.  Inactive
+a mesh).  Under a tensor-parallel serving mesh the experts, the router and
+the shared experts replicate (the serve rules), so every rank runs the
+whole dispatch; only the attention and the head take ``tp``.  Every step
+is a fixed-shape tensor op with integer indices — no boolean-mask
+indexing, no one-hot of unknown width, no host read — so a decode step
+captures in a CUDA graph.  Inactive
 decode slots are dispatched too, as in the reference: they take capacity
 like any token.
 
@@ -242,7 +245,8 @@ def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None,
 make_cache = T.make_cache  # the dense transformer's KV layouts
 
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int,
+            tp=None):
     """Run the full prompt; returns (hidden_last, cache) with (L, B,
     max_len, Hkv, hd) strips and ``len`` = prompt length.  All B prompts
     share one dispatch, as in the reference."""
@@ -254,7 +258,8 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
     for i in range(cfg.num_layers):
         bp = T.layer(params["blocks"], i)
         h, (k, v) = L.apply_attention(bp["attn"], cfg,
-                                      L.rms_norm(x, bp["ln1"]), rot=rot)
+                                      L.rms_norm(x, bp["ln1"]), rot=rot,
+                                      tp=tp)
         x = x + h
         y, _ = moe_ffn(bp, cfg, L.rms_norm(x, bp["ln2"]))
         x = x + y
@@ -271,7 +276,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
 
 def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
                   slot: int, offset: int, new_len: int, span: int,
-                  expert_offsets: torch.Tensor):
+                  expert_offsets: torch.Tensor, tp=None):
     """One chunk of an incremental prompt prefill for ``slot`` (see
     ``transformer.prefill_chunk``).
 
@@ -296,7 +301,7 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
         h, _ = L.apply_attention_chunk(
             bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
             kv_pools=(cache["k"][i], cache["v"][i]), block_row=row,
-            offset=offset, span=span, rot=rot, kv_index=kv_index)
+            offset=offset, span=span, rot=rot, kv_index=kv_index, tp=tp)
         x = x + h
         y, _, off = moe_ffn(bp, cfg, L.rms_norm(x, bp["ln2"]),
                             expert_offsets=expert_offsets[i], capacity=C)
@@ -306,7 +311,8 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
     return cache, torch.stack(offs)
 
 
-def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
+def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
+                  tp=None):
     """The KV-writing decode body (see ``transformer.decode_hidden``):
     ``len`` advances by one IN PLACE."""
     x = L.apply_embed(params["embed"], token[:, None])
@@ -320,7 +326,7 @@ def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
         h, _ = L.apply_attention(
             bp["attn"], cfg, L.rms_norm(x, bp["ln1"]), rot=rot,
             kv_cache=(cache["k"][i], cache["v"][i]), cache_len=lens,
-            block_table=table, kv_index=kv_index)
+            block_table=table, kv_index=kv_index, tp=tp)
         x = x + h
         y, _ = moe_ffn(bp, cfg, L.rms_norm(x, bp["ln2"]))
         x = x + y
@@ -330,9 +336,9 @@ def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
-                key: tuple, head_noise=None):
+                key: tuple, head_noise=None, tp=None):
     """One uncertain decode step (see ``transformer.decode_step``)."""
     lens0 = cache["len"].clone()        # the body advances len in place
-    hidden, cache = decode_hidden(params, cfg, token, cache)
+    hidden, cache = decode_hidden(params, cfg, token, cache, tp)
     return U.head_outputs(params, cfg, hidden, lens0, key,
-                          head_noise=head_noise), cache
+                          head_noise=head_noise, tp=tp), cache

@@ -7,15 +7,17 @@ serving API:
 
     init_params(cfg, generator, device) -> params
     params_from_numpy(tree, cfg, device) -> params
-    make_cache(cfg, batch, max_len, device=..., layout=...) -> cache
-    prefill(params, cfg, tokens, max_len, modality=None) -> (hidden, cache)
+    make_cache(cfg, batch, max_len, device=..., layout=...,
+               kv_shards=1) -> cache
+    prefill(params, cfg, tokens, max_len, modality=None, tp=None)
+        -> (hidden, cache)
     prefill_chunk(params, cfg, tokens, cache, slot, offset, new_len, span,
-                  **family_kw)
-    decode_step(params, cfg, token, cache, key, head_noise=None)
-    decode_hidden(params, cfg, token, cache) -> (hidden, cache)
+                  tp=None, **family_kw)
+    decode_step(params, cfg, token, cache, key, head_noise=None, tp=None)
+    decode_hidden(params, cfg, token, cache, tp=None) -> (hidden, cache)
     head_outputs(params, cfg, hidden, cache_len, key, num_samples=None,
-                 head_noise=None)
-    prefill_suffix(params, cfg, tokens, prefix_kv, prefix_len)
+                 head_noise=None, tp=None)
+    prefill_suffix(params, cfg, tokens, prefix_kv, prefix_len, tp=None)
     write_slot(cfg, cache, slot, sub, block_row=None, offset=0)
     copy_block(cfg, cache, src, dst)
 
@@ -41,9 +43,19 @@ modality input, its prefix embeds, replaces the first prompt positions
 at batch prefill; it has no chunked prefill, as in the reference.  Paged
 KV pools carry one trailing sink block that no table maps
 (``layers.paged_index``); ``kv_bytes`` leaves it out.
+
+``tp`` is a tensor-parallel rank's mesh handle (``launch.mesh.TP``; None
+unsharded), passed through to the layers with the rank's parameters
+(``sharding.partition.shard_params``).  Its cache holds the rank's kv
+heads of every ``KV_HEAD_LEAVES`` leaf where the ranks divide the heads
+(``make_cache(kv_shards=M)``); lens, tables and recurrent states
+replicate, and the slot writes, copy-on-write and suffix prefill act on
+the rank's own pool.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -57,6 +69,11 @@ from repro_torch.models.layers import paged_index, paged_table_width  # noqa: F4
 
 # cache leaves that live in the global block pool under the paged layout
 PAGED_KV_LEAVES = ("k", "v", "attn_k", "attn_v")
+
+# cache leaves with a kv-head axis (at -2): the self-attention strips or
+# pools, the hybrid family's attention planes, the encdec cross strips;
+# the only leaves a serving mesh shards
+KV_HEAD_LEAVES = ("k", "v", "attn_k", "attn_v", "ck", "cv")
 
 # per-slot recurrent state leaves (ssm, hybrid): written whole at admission,
 # and rewound to the accepted step after a speculative round
@@ -198,20 +215,26 @@ def supports_spec_decode(cfg: ArchConfig) -> bool:
 
 
 def prefill_suffix(params, cfg: ArchConfig, tokens, prefix_kv: dict,
-                   prefix_len: int):
+                   prefix_len: int, tp=None):
     """Prefill only the uncached suffix of a prefix-cache hit
     (``transformer.prefill_suffix``); ``supports_prefix_cache`` gates it."""
     if not supports_prefix_cache(cfg):
         raise ValueError(f"family {cfg.family!r} cannot prefix-share "
                          "prompt KV")
     return module_for(cfg).prefill_suffix(params, cfg, tokens, prefix_kv,
-                                          prefix_len)
+                                          prefix_len, tp=tp)
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
                layout: str = "dense", kv_block: int = 16,
-               num_blocks: int = 0):
+               num_blocks: int = 0, kv_shards: int = 1):
+    """The family's slot-indexed cache; ``kv_shards`` M > 1 gives its
+    ``KV_HEAD_LEAVES`` a tensor-parallel rank's Hkv / M kv heads (the
+    caller shards only where M divides Hkv, ``layers.heads_local``)."""
     mod = module_for(cfg)
+    if kv_shards > 1:
+        cfg = dataclasses.replace(
+            cfg, num_kv_heads=cfg.num_kv_heads // kv_shards)
     if layout == "paged" and supports_paged(cfg):
         return mod.make_cache(cfg, batch, max_len, device=device,
                               layout="paged", kv_block=kv_block,
@@ -219,21 +242,23 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
     return mod.make_cache(cfg, batch, max_len, device=device)
 
 
-def prefill(params, cfg: ArchConfig, tokens, max_len: int, modality=None):
+def prefill(params, cfg: ArchConfig, tokens, max_len: int, modality=None,
+            tp=None):
     """Batch prefill; ``modality`` is the encdec family's encoder frames
     (B, ENC_LEN, d) or the vlm family's prefix embeds (B,
     num_prefix_embeds, d), unused by the others."""
     mod = module_for(cfg)
     if cfg.family == "encdec":
-        return mod.prefill(params, cfg, tokens, max_len, frames=modality)
+        return mod.prefill(params, cfg, tokens, max_len, frames=modality,
+                           tp=tp)
     if cfg.family == "vlm":
         return mod.prefill(params, cfg, tokens, max_len,
-                           prefix_embeds=modality)
-    return mod.prefill(params, cfg, tokens, max_len)
+                           prefix_embeds=modality, tp=tp)
+    return mod.prefill(params, cfg, tokens, max_len, tp=tp)
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
-                  offset: int, new_len: int, span: int, **kw):
+                  offset: int, new_len: int, span: int, tp=None, **kw):
     """One incremental prefill chunk for ``slot`` (paged layout only).
     Family keywords: ``expert_offsets`` (moe, which then returns
     ``(cache, new_offsets)``); ``state`` and ``finalize`` (hybrid: the
@@ -244,32 +269,34 @@ def prefill_chunk(params, cfg: ArchConfig, tokens, cache, slot: int,
     if not supports_chunked_prefill(cfg):
         raise ValueError(f"family {cfg.family!r} has no chunked prefill")
     return module_for(cfg).prefill_chunk(params, cfg, tokens, cache, slot,
-                                         offset, new_len, span, **kw)
+                                         offset, new_len, span, tp=tp, **kw)
 
 
-def decode_step(params, cfg: ArchConfig, token, cache, key, head_noise=None):
+def decode_step(params, cfg: ArchConfig, token, cache, key, head_noise=None,
+                tp=None):
     return module_for(cfg).decode_step(params, cfg, token, cache, key,
-                                       head_noise=head_noise)
+                                       head_noise=head_noise, tp=tp)
 
 
-def decode_hidden(params, cfg: ArchConfig, token, cache):
+def decode_hidden(params, cfg: ArchConfig, token, cache, tp=None):
     """The KV-writing decode BODY alone: ``(hidden (B, d), cache)`` with
     the step's cache writes done and ``len`` advanced in place, but no
     head.  ``decode_step`` is exactly this followed by ``head_outputs`` at
     the pre-step depths: the split that speculative decoding builds on
     (the draft runs the body, so its KV writes are plain decode's; the
     verify runs only the head)."""
-    return module_for(cfg).decode_hidden(params, cfg, token, cache)
+    return module_for(cfg).decode_hidden(params, cfg, token, cache, tp=tp)
 
 
 def head_outputs(params, cfg: ArchConfig, hidden, cache_len, key,
-                 num_samples=None, head_noise=None):
+                 num_samples=None, head_noise=None, tp=None):
     """The family-shared uncertain head (``uncertain_head.head_outputs``):
     {next_token, H, SE, MI, p_max} from ``num_samples`` (default
     ``cfg.mc_samples``; 0 the mean head) LRT draws over ``hidden`` at
     depth ``cache_len``."""
     return U.head_outputs(params, cfg, hidden, cache_len, key,
-                          head_noise=head_noise, num_samples=num_samples)
+                          head_noise=head_noise, num_samples=num_samples,
+                          tp=tp)
 
 
 def copy_block(cfg: ArchConfig, cache, src: int, dst: int):

@@ -298,10 +298,13 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
     }
 
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int,
+            tp=None):
     """Run the full prompt (its exact length: recurrent state would fold
     in pad tokens); returns (hidden_last, cache) with ``len`` = prompt
-    length.  ``max_len`` is unused: the state does not grow."""
+    length.  ``max_len`` is unused: the state does not grow; so is ``tp``:
+    no leaf of the ssm body shards under a serving mesh (the head does,
+    in ``decode_step``)."""
     x = L.apply_embed(params["embed"], tokens)
     hs, cs = [], []
     for i in range(cfg.num_layers):
@@ -316,10 +319,12 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int):
     return x[:, -1], cache
 
 
-def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
+def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
+                  tp=None):
     """The state-advancing decode body: pure recurrence, no KV strips.
     Writes each layer's SSM state and conv tail IN PLACE and advances
-    ``len`` by one in place; returns ``(hidden (B, d), cache)``."""
+    ``len`` by one in place; returns ``(hidden (B, d), cache)``.  ``tp``
+    is unused (see ``prefill``)."""
     x = L.apply_embed(params["embed"], token[:, None])
     for i in range(cfg.num_layers):
         x, h, c = apply_block(T.layer(params["blocks"], i), cfg, x,
@@ -333,9 +338,9 @@ def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
-                key: tuple, head_noise=None):
+                key: tuple, head_noise=None, tp=None):
     """One uncertain decode step (see ``transformer.decode_step``)."""
     lens0 = cache["len"].clone()        # the body advances len in place
     hidden, cache = decode_hidden(params, cfg, token, cache)
     return U.head_outputs(params, cfg, hidden, lens0, key,
-                          head_noise=head_noise), cache
+                          head_noise=head_noise, tp=tp), cache

@@ -17,6 +17,10 @@ block pools (L, NB + 1, BS, Hkv, hd) behind a (B, MB) ``block_table``
 step writes the cache in place, ``len`` included, and returns the same
 dict holding the same tensors, so a CUDA graph captured over a decode
 step replays it on the cache's fixed addresses.
+
+The serving functions take ``tp``, a tensor-parallel rank's mesh handle
+(``launch.mesh.TP``; None unsharded), and hand it to the layers; the
+cache then holds the rank's kv heads where they shard.
 """
 
 from __future__ import annotations
@@ -129,17 +133,17 @@ def splice_prefix(x: torch.Tensor, prefix_embeds: torch.Tensor):
     return torch.cat([prefix_embeds.to(x.dtype), x[:, P:]], dim=1)
 
 
-def _block_fwd(bp, cfg: ArchConfig, x, rot):
+def _block_fwd(bp, cfg: ArchConfig, x, rot, tp=None):
     h, kv = L.apply_attention(bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
-                              rot=rot)
+                              rot=rot, tp=tp)
     x = x + h
-    x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+    x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]), tp)
     return x, kv
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeds: torch.Tensor | None = None,
-            return_kv: bool = False):
+            return_kv: bool = False, tp=None):
     """tokens: (B, S) -> hidden (B, S, d); optionally the per-layer (k, v)
     stacked to (L, B, S, Hkv, hd).  ``prefix_embeds`` (B, P, d), P <= S,
     take the place of the first P embedded tokens, cast to the body's
@@ -157,7 +161,7 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
         if remat:
             x = rematted(lambda xx, bp=bp: _block_fwd(bp, cfg, xx, rot)[0], x)
             continue
-        x, (k, v) = _block_fwd(bp, cfg, x, rot)
+        x, (k, v) = _block_fwd(bp, cfg, x, rot, tp)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -232,12 +236,12 @@ def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,
 
 
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int,
-            prefix_embeds: torch.Tensor | None = None):
+            prefix_embeds: torch.Tensor | None = None, tp=None):
     """Run the full prompt (its first positions ``prefix_embeds``, if
     given); returns (hidden_last, cache) with (L, B, max_len, Hkv, hd)
     strips and ``len`` = prompt length."""
     hidden, (k, v) = forward(params, cfg, tokens, prefix_embeds,
-                             return_kv=True)
+                             return_kv=True, tp=tp)
     B, S = tokens.shape
     pad = (0, 0, 0, 0, 0, max_len - S)
     cache = {"k": torch.nn.functional.pad(k, pad),
@@ -248,7 +252,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, max_len: int,
 
 
 def prefill_suffix(params, cfg: ArchConfig, tokens: torch.Tensor,
-                   prefix_kv: dict, prefix_len: int):
+                   prefix_kv: dict, prefix_len: int, tp=None):
     """Prefill ONLY the uncached suffix of a prefix-cache hit.
 
     tokens: (B, S) the suffix at absolute positions ``prefix_len + [0,
@@ -271,9 +275,9 @@ def prefill_suffix(params, cfg: ArchConfig, tokens: torch.Tensor,
             bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
             prefix_kv=(prefix_kv["k"][i, :, :prefix_len],
                        prefix_kv["v"][i, :, :prefix_len]),
-            prefix_len=prefix_len, rot=rot)
+            prefix_len=prefix_len, rot=rot, tp=tp)
         x = x + h
-        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]), tp)
         ks.append(k)
         vs.append(v)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -284,7 +288,8 @@ def prefill_suffix(params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
-                  slot: int, offset: int, new_len: int, span: int) -> dict:
+                  slot: int, offset: int, new_len: int, span: int,
+                  tp=None) -> dict:
     """One chunk of an incremental prompt prefill for ``slot``.
 
     tokens: (1, S) chunk at absolute positions ``offset + [0, S)``;
@@ -307,9 +312,9 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
         h, _ = L.apply_attention_chunk(
             bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
             kv_pools=(cache["k"][i], cache["v"][i]), block_row=row,
-            offset=offset, span=span, rot=rot, kv_index=kv_index)
+            offset=offset, span=span, rot=rot, kv_index=kv_index, tp=tp)
         x = x + h
-        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]), tp)
     cache["len"][slot].fill_(new_len)  # item assignment would sync the host
     return cache
 
@@ -318,7 +323,8 @@ def prefill_chunk(params, cfg: ArchConfig, tokens: torch.Tensor, cache: dict,
 # decode
 # ---------------------------------------------------------------------------
 
-def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
+def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
+                  tp=None):
     """The KV-writing decode body: embed -> blocks -> final norm.
 
     token: (B,).  Writes each slot's K/V at its PRE-step depth and returns
@@ -337,21 +343,21 @@ def decode_hidden(params, cfg: ArchConfig, token: torch.Tensor, cache: dict):
         h, _ = L.apply_attention(
             bp["attn"], cfg, L.rms_norm(x, bp["ln1"]), rot=rot,
             kv_cache=(cache["k"][i], cache["v"][i]), cache_len=lens,
-            block_table=table, kv_index=kv_index)
+            block_table=table, kv_index=kv_index, tp=tp)
         x = x + h
-        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]))
+        x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]), tp)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     lens.add_(1)
     return x[:, 0], cache
 
 
 def decode_step(params, cfg: ArchConfig, token: torch.Tensor, cache: dict,
-                key: tuple, head_noise=None):
+                key: tuple, head_noise=None, tp=None):
     """One uncertain decode step: (outputs, cache) with outputs =
     {next_token, H, SE, MI, p_max} per slot from ``cfg.mc_samples`` LRT
     head draws (``uncertain_head``); ``key`` is (seed, step) or (seed,
     step, offset) of the head stream."""
     lens0 = cache["len"].clone()        # the body advances len in place
-    hidden, cache = decode_hidden(params, cfg, token, cache)
+    hidden, cache = decode_hidden(params, cfg, token, cache, tp)
     return U.head_outputs(params, cfg, hidden, lens0, key,
-                          head_noise=head_noise), cache
+                          head_noise=head_noise, tp=tp), cache

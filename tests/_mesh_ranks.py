@@ -1,0 +1,121 @@
+"""What the mesh tests run inside the spawned ranks.
+
+``launch.mesh.Ranks.run`` pickles a function by its import path, so the
+functions a rank runs live here, in a module the ranks can import (the
+test process's ``sys.path`` travels to a spawned child).  It imports
+torch and the port only: a rank loads no JAX.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.launch.engine import mesh_check as MC
+from repro_torch.models import layers as L
+from repro_torch.models import registry as M
+from repro_torch.sharding.partition import gather_rep, serve_dims, shard_params
+
+
+class TableNoise:
+    """An operand-noise provider from a (slots, depths, S, V) table of
+    another implementation's xi: column b of a step's (S, B, V) xi is
+    ``table[b, cache_len[b]]``, which is what a (slot, depth)-keyed
+    provider gives.  Picklable, so that a rank can draw it."""
+
+    def __init__(self, table):
+        self.table = torch.as_tensor(table)
+
+    def __call__(self, seed, cache_len, num_samples, vocab):
+        slots = torch.arange(cache_len.shape[0])
+        xi = self.table[slots, cache_len.long().cpu()]           # (B, S, V)
+        return xi[:, :num_samples, :vocab].transpose(0, 1).contiguous() \
+            .to(cache_len.device)
+
+
+def _leaves(tree, path=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{path}/{k}")
+        else:
+            yield f"{path}/{k}", v
+
+
+def gathered_params(tp, family: str) -> list[str]:
+    """The leaves of ``family``'s parameters that ``shard_params`` then
+    ``gather_rep`` along each leaf's axis do NOT give back bit for bit
+    (empty: all do), beside the count of sharded leaves."""
+    cfg = MC.family_config(family)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), tp.device)
+    dims = serve_dims(params, tp.size)
+    mine = shard_params(params, tp.rank, tp.size, dims)
+    bad, sharded = [], 0
+    for (path, full), (_, part), (_, d) in zip(_leaves(params), _leaves(mine),
+                                               _leaves(dims)):
+        if d is None:
+            if part is not full:
+                bad.append(f"{path}: a replicated leaf was copied")
+            continue
+        sharded += 1
+        if not torch.equal(gather_rep(part, tp, dim=d), full):
+            bad.append(path)
+    return bad + [f"sharded {sharded}"]
+
+
+def served_heads(tp, family: str, entropy: str = "operand") -> dict:
+    """``family``'s traffic through this rank's engine with the paged
+    kernels' entry points recorded: for each call the kv heads of the
+    pool it was given and the head count it takes its split from, and
+    how many gather reads (``layers.decode_attention``) ran; plus the
+    rank's parameter and KV leaf shapes."""
+    seen = {"decode": set(), "prefill": set(), "gather_reads": 0}
+    decode, prefill, gather = (ops.paged_decode_attention,
+                               ops.paged_prefill_attention,
+                               L.decode_attention)
+
+    def dec(q, kp, vp, table, lens, kv_heads=None):
+        seen["decode"].add((kp.shape[2], kv_heads))
+        return decode(q, kp, vp, table, lens, kv_heads=kv_heads)
+
+    def pre(q, kp, *args, **kw):
+        seen["prefill"].add(kp.shape[2])
+        return prefill(q, kp, *args, **kw)
+
+    def read(*args):
+        seen["gather_reads"] += 1
+        return gather(*args)
+
+    ops.paged_decode_attention = dec
+    ops.paged_prefill_attention = pre
+    L.decode_attention = read
+    try:
+        out = MC.run_family(tp, family, entropy=entropy)
+    finally:
+        ops.paged_decode_attention = decode
+        ops.paged_prefill_attention = prefill
+        L.decode_attention = gather
+    return {"decode": sorted(seen["decode"]),
+            "prefill": sorted(seen["prefill"]),
+            "gather_reads": seen["gather_reads"],
+            "gen_tokens": out["gen_tokens"], "mesh": out["mesh"]}
+
+
+def rank_layout(tp, family: str, entropy: str = "operand") -> dict:
+    """Shapes of this rank's runner parameters and cache leaves."""
+    cfg = MC.family_config(family, entropy)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), tp.device)
+    eng = MC.ServeEngine(params, cfg, **MC.ENGINE, device=tp.device,
+                         decode_attn="kernel", mesh=tp)
+    return {"params": {p: tuple(t.shape) for p, t in
+                       _leaves(eng.runner.params)},
+            "cache": {n: tuple(t.shape) for n, t in
+                      eng.runner.cache.items()}}
+
+
+def loaded(tp, prefixes=("jax", "repro")) -> list[str]:
+    """The modules named by ``prefixes`` (or under them) that this rank
+    has imported."""
+    return sorted(m for m in sys.modules
+                  if any(m == p or m.startswith(p + ".") for p in prefixes))

@@ -42,6 +42,30 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) > 20
+    # the tensor-parallel serving modules are among those checked
+    assert {"repro_torch.launch.mesh", "repro_torch.sharding.partition",
+            "repro_torch.launch.engine.mesh_check"} <= set(mods)
+
+
+def test_spawned_ranks_load_no_jax_and_no_repro():
+    """A mesh's rank processes start from a fresh import (spawn): after
+    serving a request trace they hold no module of JAX or of the JAX
+    package, and neither does the process that spawned them."""
+    code = (
+        "import sys\n"
+        "import _mesh_ranks as R\n"
+        "from repro_torch.launch import mesh\n"
+        "with mesh.Ranks(2, 'cpu', timeout_s=120) as ranks:\n"
+        "    served = ranks.run(R.served_heads, 'dense')\n"
+        "    bad = ranks.run(R.loaded)\n"
+        "assert all(s['gen_tokens'] > 0 for s in served), served\n"
+        "assert bad == [[], []], bad\n"
+        "assert not R.loaded(None), R.loaded(None)\n")
+    env = _env()
+    env["PYTHONPATH"] += os.pathsep + str(ROOT / "tests")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -104,48 +128,52 @@ def test_chip_smoke_fails_without_a_gpu_and_prints_no_result(tmp_path):
 # the flags each ported feature needs beside its own: the prefix cache
 # shares blocks of the paged pool, speculative decoding needs the operand
 # (depth-keyed) head noise, the priority burst a class-0 request arriving
-# while class-2 ones decode, the escalation lane its verify S
+# while class-2 ones decode, the escalation lane its verify S, the mesh
+# the paged kernels' path (each rank reads its own heads)
 PORTED = {"--prefix-cache": ["--kv-layout", "paged", "--shared-prefix", "12"],
           "--spec-decode": ["--entropy", "operand"],
           "--policy": ["--kv-layout", "paged", "--chunk", "2",
                        "--priorities", "2,2,2,0", "--arrivals", "0,0,0,2"],
-          "--escalate-mi": ["--kv-layout", "paged", "--escalate-s", "8"]}
+          "--escalate-mi": ["--kv-layout", "paged", "--escalate-s", "8"],
+          "--mesh": ["--kv-layout", "paged", "--decode-attn", "kernel",
+                     "--prefill", "chunked"]}
 
 
 @pytest.mark.parametrize("flags", [
     ["--prefix-cache", "on"], ["--spec-decode", "on"],
     ["--policy", "priority"], ["--escalate-mi", "0.5"], ["--mesh", "1x4"]])
 def test_cli_refuses_unported_features(flags):
-    """The unported feature's flag (``--mesh``) raises; the prefix cache,
-    speculative decoding, the priority policy and the escalation lane,
-    ported since, build and serve on the CPU at the reduced size through
-    the same entry points."""
+    """Every feature these flags name has been ported since the flag was
+    refused: the prefix cache, speculative decoding, the priority policy,
+    the escalation lane and the tensor-parallel mesh (``--mesh 1x4``: four
+    spawned gloo ranks on the CPU) build and serve at the reduced size
+    through the same entry points."""
     from repro_torch.launch.serve import build_parser, serve
-    if flags[0] in PORTED:
-        args = build_parser().parse_args(
-            ["--device", "cpu", "--slots", "2", "--num-requests", "4",
-             "--prompt-len", "16", "--gen-len", "4", "--chunk", "4",
-             *PORTED[flags[0]], *flags])
-        r = serve(args)
-        assert r["gen_tokens"] == 16
-        if flags[0] == "--prefix-cache":
-            # the second wave hits the 12 shared tokens
-            pc = r["prefix_cache"]
-            assert pc["enabled"] and pc["hits"] == 2
-            assert pc["prompt_tokens_saved"] >= 24
-        elif flags[0] == "--spec-decode":
-            assert r["spec_decode"]["enabled"]
-        elif flags[0] == "--policy":
-            # the class-0 arrival at step 2 preempts decoding class-2 slots
-            # (a slot, then the pool's watermark)
-            assert r["policy"] == "priority" and r["preemptions"] >= 1
-            assert r["per_class"][2]["preemptions"] == r["preemptions"]
-            assert r["per_class"][0]["preemptions"] == 0
-        else:
-            esc = r["escalation"]
-            assert esc["enabled"] and esc["mi_threshold"] == 0.5
-            assert esc["verify_samples"] == 8
-        return
-    args = build_parser().parse_args(["--device", "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve(args)
+    args = build_parser().parse_args(
+        ["--device", "cpu", "--slots", "2", "--num-requests", "4",
+         "--prompt-len", "16", "--gen-len", "4", "--chunk", "4",
+         *PORTED[flags[0]], *flags])
+    r = serve(args)
+    assert r["gen_tokens"] == 16
+    assert r["mesh"] == ("4 ranks, gloo, cpu" if flags[0] == "--mesh"
+                         else "none")
+    if flags[0] == "--prefix-cache":
+        # the second wave hits the 12 shared tokens
+        pc = r["prefix_cache"]
+        assert pc["enabled"] and pc["hits"] == 2
+        assert pc["prompt_tokens_saved"] >= 24
+    elif flags[0] == "--spec-decode":
+        assert r["spec_decode"]["enabled"]
+    elif flags[0] == "--policy":
+        # the class-0 arrival at step 2 preempts decoding class-2 slots
+        # (a slot, then the pool's watermark)
+        assert r["policy"] == "priority" and r["preemptions"] >= 1
+        assert r["per_class"][2]["preemptions"] == r["preemptions"]
+        assert r["per_class"][0]["preemptions"] == 0
+    elif flags[0] == "--escalate-mi":
+        esc = r["escalation"]
+        assert esc["enabled"] and esc["mi_threshold"] == 0.5
+        assert esc["verify_samples"] == 8
+    else:
+        # rank 0's requests: every one served in full
+        assert [len(q.tokens) for q in r["requests"]] == [4] * 4

@@ -459,6 +459,32 @@ def test_cuda_decode_mma_split_sizes_match_plain(cuda_device, tiles, BS):
         assert torch.isnan(got[4]).all() and not torch.isnan(got[:4]).any()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_on_a_kv_head_slice_takes_the_unsharded_split(
+        cuda_device, dtype):
+    """A tensor-parallel rank's call: qwen2's 2 kv heads over 2 ranks, 4
+    slots up to depth 4090, the pool's kv head h alone with its 6 query
+    heads, given the model's head count (``kv_heads=2``): bit for bit the
+    full call's heads of h, on the tensor-core kernel (bf16) and the SIMT
+    one (f32), whose splits at 1 kv head would differ."""
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    q, k, v, table, lens = (t.to(cuda_device) for t in _decode_case(
+        13, 12, 2, 128, BS=16, MB=256, lens=(4090, 2000, 300, 17)))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    if dtype == torch.bfloat16:
+        assert PA.decode_tiles(4, 2, 256, 16) != PA.decode_tiles(4, 1, 256,
+                                                                 16)
+    else:
+        assert PA.decode_split(4, 2, 256) != PA.decode_split(4, 1, 256)
+    full = ops.paged_decode_attention(q, k, v, table, lens)
+    for h in range(2):
+        qs = q[:, :, 6 * h:6 * h + 6].contiguous()
+        ks, vs = (t[:, :, h:h + 1].contiguous() for t in (k, v))
+        got = ops.paged_decode_attention(qs, ks, vs, table, lens,
+                                         kv_heads=2)
+        assert torch.equal(got, full[:, :, 6 * h:6 * h + 6]), h
+
+
 def test_cuda_decode_mma_replays_in_a_cuda_graph(cuda_device):
     """One call captured in a CUDA graph, new depths written into lens in
     place between replays: each replay matches the plain version at its
