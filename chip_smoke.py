@@ -174,10 +174,22 @@ Phases (any failure exits non-zero before the result line):
      ``paged_decode_mma`` / ``paged_prefill_mma`` launches of a short
      serve under torch.profiler on one kv head; each rank's parameter,
      KV and peak bytes against the prediction.
- 18. one JSON line of per-kernel numbers (eleven kernels; the serving
+ 18. train mesh (``tools/train_mesh_phase.py``): qwen2-1.5B at full
+     width at ``--mesh 2x2`` (data parallel 2 x tensor parallel 2 with
+     the sequence-parallel stream; four spawned gloo ranks on the one
+     card, collectives staged through host memory), two steps of 8 x 256
+     against the unsharded step on the same batches and keys, step 1's
+     loss, nll, kl and grad norm within the predicted tolerance; each
+     rank's parameter, gradient and moment bytes, peak and collective
+     bytes a step against the prediction; qwen2-7b reduced with FSDP at
+     2x2, saved and restored at 1x2 bit for bit, a third step against
+     the unsharded one; the trained parameters gathered whole and served
+     on the kernel path in rank 0 (launches counted).
+ 19. one JSON line of per-kernel numbers (eleven kernels; the serving
      kernels' launches are phase 4's first run plus phases 9's, 11's,
-     12's, 13's, 14's, 15's, 16's and 17's (both ranks), and phase 10's
-     for the head), the card's nvidia-smi line, then the result line.
+     12's, 13's, 14's, 15's, 16's, 17's (both ranks) and 18's, and phase
+     10's for the head), the card's nvidia-smi line, then the result
+     line.
 
 Imports nothing of the JAX package.
 """
@@ -4174,6 +4186,17 @@ def main():
         counts[name] += mesh_counts[name]
     print(f"mesh launches (both ranks) {mesh_counts}", flush=True)
     print(f"phase mesh: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    import train_mesh_phase
+    torch.cuda.empty_cache()
+    train_mesh_counts = train_mesh_phase.train_mesh_phase(launches, smi)
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "uncertainty_head"):
+        counts[name] += train_mesh_counts[name]
+    print(f"train mesh launches (the serve of the gathered state) "
+          f"{train_mesh_counts}", flush=True)
+    print(f"phase train mesh: {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

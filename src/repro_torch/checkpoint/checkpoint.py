@@ -18,6 +18,14 @@ layout:
     loop).
   * GC: the ``keep`` most recent steps are retained.
 
+Under a train mesh (``launch.mesh.TrainMesh``, with the state's specs
+``dims``, ``sharding.partition.state_pspecs``) a save gathers every leaf
+whole into rank 0's host memory, one leaf at a time, and rank 0 writes
+the same files; a restore reads the whole leaves on every rank and keeps
+the rank's blocks, under any mesh (the JAX ``restore(..., shardings)``,
+the elastic path): a checkpoint written at 2 x 2 restores at 1 x 2 or
+unsharded, and the other way round.
+
 numpy has no bfloat16, so a bf16 leaf is stored as its uint16 bit
 pattern and its meta dtype says ``bfloat16``.  The JAX package names the
 LM head's leaves ``head/q/0`` (mu) and ``head/q/1`` (rho) where the port
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree as T
+from repro_torch.sharding import partition as P
 
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float16: "float16", torch.int32: "int32",
@@ -65,10 +74,19 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def snapshot(tree: Any) -> tuple[dict, dict]:
-    """(arrays, meta leaves) of ``tree`` copied to host memory."""
+def snapshot(tree: Any, mesh=None, dims: Any = None) -> tuple[dict, dict]:
+    """(arrays, meta leaves) of ``tree`` copied to host memory.  Under a
+    ``mesh`` every rank takes part in gathering each leaf whole (``dims``
+    its specs) and rank 0 alone keeps them: the other ranks get empty
+    dicts."""
+    specs = dict(T.items(dims)) if mesh is not None else None
     arrays, leaves = {}, {}
     for path, t in T.items(tree):
+        if mesh is not None:
+            spec = specs[path]
+            t = P.gather_leaf(t, spec, mesh, host=True)
+            if mesh.rank != 0:
+                continue
         arrays[path] = _host(t)
         leaves[path] = [list(t.shape), _DTYPE_NAMES[t.dtype]]
     return arrays, leaves
@@ -91,9 +109,15 @@ def _write(path: str, step: int, arrays: dict, leaves: dict,
     return final
 
 
-def save(path: str, step: int, tree: Any, extra: Optional[dict] = None):
-    """Synchronous atomic save of ``tree`` (+ msgpack-able ``extra``)."""
-    return _write(path, step, *snapshot(tree), extra)
+def save(path: str, step: int, tree: Any, extra: Optional[dict] = None,
+         mesh=None, dims: Any = None):
+    """Synchronous atomic save of ``tree`` (+ msgpack-able ``extra``);
+    under a ``mesh`` every rank calls it and rank 0 writes (the others
+    return None)."""
+    arrays, leaves = snapshot(tree, mesh, dims)
+    if mesh is not None and mesh.rank != 0:
+        return None
+    return _write(path, step, arrays, leaves, extra)
 
 
 def list_steps(path: str) -> list[int]:
@@ -121,12 +145,16 @@ def _to_torch(a: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 @torch.no_grad()
-def restore(path: str, step: int, template: Any) -> tuple[Any, dict]:
+def restore(path: str, step: int, template: Any, mesh=None,
+            dims: Any = None) -> tuple[Any, dict]:
     """Load ``step`` INTO ``template``: every leaf is copied into the
     template's tensor of the same name (in place, on its device, cast to
     its dtype), which is returned with the checkpoint's ``extra``.  A
     name missing from the checkpoint raises ``KeyError``, a shape that
-    differs ``ValueError``."""
+    differs ``ValueError``.  Under a ``mesh`` the template holds the
+    rank's blocks (``dims`` their specs): each whole leaf is read and the
+    rank's block of it copied in, whatever mesh wrote it."""
+    specs = dict(T.items(dims)) if mesh is not None else None
     d = os.path.join(path, f"step_{step:09d}")
     with open(os.path.join(d, "meta.msgpack"), "rb") as f:
         meta = msgpack.unpackb(f.read())
@@ -137,10 +165,15 @@ def restore(path: str, step: int, template: Any) -> tuple[Any, dict]:
             if key not in names:
                 raise KeyError(f"checkpoint missing leaf {name}")
             a = npz[key]
-            if tuple(a.shape) != tuple(leaf.shape):
+            want = tuple(leaf.shape) if mesh is None else \
+                P.full_shape(leaf, specs[name], mesh)
+            if tuple(a.shape) != want:
                 raise ValueError(f"shape mismatch at {name}: ckpt "
-                                 f"{a.shape} vs {tuple(leaf.shape)}")
-            leaf.copy_(_to_torch(a, meta["leaves"][key][1]).to(leaf.dtype))
+                                 f"{a.shape} vs {want}")
+            t = _to_torch(a, meta["leaves"][key][1])
+            if mesh is not None:
+                t = P.shard_leaf(t, specs[name], mesh)
+            leaf.copy_(t.to(leaf.dtype))
     return template, meta["extra"]
 
 
@@ -159,11 +192,16 @@ class CheckpointManager:
             self._thread = None
 
     def save_async(self, step: int, tree: Any,
-                   extra: Optional[dict] = None):
+                   extra: Optional[dict] = None, mesh=None,
+                   dims: Any = None):
+        """Snapshot ``tree`` now and write it on a thread; under a
+        ``mesh`` every rank gathers and rank 0 writes."""
         self.wait()
         # snapshot to host synchronously: the next step updates the
         # device tensors in place
-        arrays, leaves = snapshot(tree)
+        arrays, leaves = snapshot(tree, mesh, dims)
+        if mesh is not None and mesh.rank != 0:
+            return
 
         def work():
             _write(self.path, step, arrays, leaves, extra)
@@ -178,11 +216,12 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.path, f"step_{s:09d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, template: Any):
+    def restore_latest(self, template: Any, mesh=None, dims: Any = None):
         """(step, tree, extra) of the newest checkpoint restored into
-        ``template`` (on its device), or (None, None, None)."""
+        ``template`` (on its device; a rank's blocks under ``mesh``), or
+        (None, None, None)."""
         step = latest_step(self.path)
         if step is None:
             return None, None, None
-        tree, extra = restore(self.path, step, template)
+        tree, extra = restore(self.path, step, template, mesh, dims)
         return step, tree, extra

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import keys as K
 from repro_torch.core.bayesian import GaussianVariational
+from repro_torch.sharding import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +65,21 @@ def kl_beta(step: int, cfg: SVIConfig) -> torch.Tensor:
 
 
 def elbo_loss(nll_fn: Callable, params: Any, batch: Any, key: K.Key,
-              step: int, cfg: SVIConfig) -> tuple[torch.Tensor, dict]:
+              step: int, cfg: SVIConfig,
+              mesh=None) -> tuple[torch.Tensor, dict]:
     """Negative per-example ELBO = NLL + beta * KL / N_train.
 
     ``nll_fn`` returns the mean per-example negative log likelihood; it
     is averaged over ``train_mc_samples`` draws, each on its own key
-    (``keys.split``)."""
+    (``keys.split``).
+
+    Under a train ``mesh`` the parameters are the rank's shards and
+    ``nll_fn`` gives this data rank's share of the global mean: the value
+    returned is then the rank's share of the ELBO (its gradient, summed
+    over the ranks, is the ELBO's), with the KL of the rank's own blocks
+    of the head (which shards on every mesh axis).  The metrics sum the
+    shares: ``nll`` over ``data``, ``kl`` over every rank, and ``loss``
+    is the global ELBO."""
     outs = [nll_fn(params, batch, k)
             for k in K.split(key, cfg.train_mc_samples)]
     nll = torch.stack([o[0] for o in outs]).mean()
@@ -79,4 +89,9 @@ def elbo_loss(nll_fn: Callable, params: Any, batch: Any, key: K.Key,
     aux = {name: torch.stack([o[1][name] for o in outs]).float().mean(0)
            for name in outs[0][1]}
     aux.update({"nll": nll, "kl": kl, "beta": beta})
+    if mesh is not None:
+        nll_g = C.all_reduce(nll.detach(), mesh.data)
+        kl_g = C.all_reduce(kl.detach(), mesh.world)
+        aux.update({"nll": nll_g, "kl": kl_g,
+                    "loss": nll_g + beta * kl_g / cfg.num_train_examples})
     return loss, aux

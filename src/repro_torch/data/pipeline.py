@@ -6,9 +6,9 @@ global batch into per-host shards, builds batches ahead on a background
 thread, and exposes ``state_dict`` / ``load_state_dict`` so the cursor
 rides along with checkpoints (exact resume: no batch replayed or
 skipped).  ``to_device`` moves a host batch to the device from pinned
-memory without blocking the host (the JAX package's
-``device_put_sharded_batch`` lays it over a mesh instead; the port's
-training mesh, and its sharded batch, are ROADMAP item 13b).
+memory without blocking the host; under a train mesh ``shard_batch``
+first takes the data rank's rows, as the JAX package's
+``device_put_sharded_batch`` lays a batch over the mesh.
 """
 
 from __future__ import annotations
@@ -107,6 +107,30 @@ class ShardedLoader:
         self.close()
         self.state = syn.TokenStreamState(**d)
         self._start()
+
+
+def shard_batch(batch: dict, mesh, micro_batches: int = 1) -> dict:
+    """Data rank ``mesh.data.index``'s rows of a global host batch (every
+    leaf split on its leading axis), for a train step of
+    ``micro_batches``: micro-batch i is global rows [i·B/mb, (i+1)·B/mb)
+    split evenly over the data ranks, and the rank's shares of the
+    micro-batches follow one another.  With one micro-batch that is the
+    rank's contiguous block of B / D rows (``device_put_sharded_batch``'s
+    layout); the model ranks of a data rank take the same rows."""
+    d, i = mesh.data.size, mesh.data.index
+    out = {}
+    for k, v in batch.items():
+        B = v.shape[0]
+        if B % (d * micro_batches):
+            raise ValueError(f"a batch of {B} rows does not split into "
+                             f"{micro_batches} micro-batches over {d} data "
+                             "ranks")
+        n = B // (d * micro_batches)
+        rows = [v[j * d * n + i * n:j * d * n + (i + 1) * n]
+                for j in range(micro_batches)]
+        out[k] = np.concatenate(rows) if isinstance(v, np.ndarray) \
+            else torch.cat(rows)
+    return out
 
 
 def to_device(batch: dict, device) -> dict:

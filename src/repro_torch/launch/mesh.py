@@ -1,12 +1,16 @@
-"""The serving mesh: one process per tensor-parallel rank.
+"""The serving and training meshes: one process per rank.
 
 PyTorch counterpart of ``repro.launch.mesh``.  The JAX package builds a
 ``jax.sharding.Mesh`` over the devices of one process and lets GSPMD
 place the work; here every rank is a process of its own in a
 ``torch.distributed`` group and runs the same program on its own slices
-(SPMD).  A ``--mesh DxM`` flag names the shape; serving puts nothing on
-``data`` (the JAX serve rules shard only ``model``), so D must be 1: D > 1
-ranks would each repeat the whole computation.
+(SPMD).  A ``--mesh DxM`` flag names the shape.  Serving puts nothing on
+``data`` (the JAX serve rules shard only ``model``), so there D must be 1
+(``parse_mesh``): D > 1 ranks would each repeat the whole computation.
+Training takes any D x M (``parse_train_mesh``, ``train_mesh``): rank r
+sits at (data r // M, model r % M), the row-major layout of
+``jax.make_mesh((D, M), ("data", "model"))``, with one process group per
+line of each axis.
 
 Backends, chosen by the devices the machine has:
 
@@ -76,7 +80,8 @@ class TP:
 
 
 def parse_mesh(spec: Optional[str]) -> Optional[int]:
-    """The model-axis size M of a ``--mesh DxM`` flag ("1x4" -> 4); None,
+    """The model-axis size M of a serving ``--mesh DxM`` flag ("1x4" ->
+    4); None,
     "" and "none" mean no mesh.  D > 1 raises: serving shards nothing
     over ``data``, so those ranks would only repeat the model ranks'
     work."""
@@ -91,7 +96,8 @@ def parse_mesh(spec: Optional[str]) -> Optional[int]:
         raise ValueError(
             f"--mesh {spec}: serving shards only the model axis (D must be "
             "1); data-parallel ranks would each repeat the whole model's "
-            "work (see ROADMAP.md item 13b)")
+            "work (data parallelism is training's: launch.train --mesh "
+            "DxM)")
     return m
 
 
@@ -133,6 +139,120 @@ def join(m: int, device, *, rank: Optional[int] = None,
         dev = torch.device("cuda", rank)
         torch.cuda.set_device(dev)
     return TP(rank=rank, size=m, backend=backend, device=dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One axis of the train mesh as a rank sees it: its ``size``, the
+    rank's ``index`` along it, and the process group of the rank's line
+    along it (None where the axis has one rank, where every collective is
+    the identity).  ``staged``: a gloo group on a card, whose collectives
+    go through host memory (``sharding.collectives``)."""
+    name: str
+    size: int
+    index: int
+    group: object = None
+    staged: bool = False
+    # bytes this rank has put into the axis' collectives, by axis name
+    # (the mesh's ``traffic``; None: not counted)
+    traffic: Optional[dict] = dataclasses.field(default=None, compare=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainMesh:
+    """One rank's handle on a D x M train mesh (``train_mesh``): its
+    ``data`` and ``model`` axes, and ``world``, every rank of the mesh
+    (index = the rank).  ``traffic`` counts the bytes this rank puts into
+    each axis' collectives (an all-reduce's tensor, an all-gather's
+    slice); the caller may zero it."""
+    shape: tuple
+    backend: str
+    device: torch.device
+    data: Axis
+    model: Axis
+    world: Axis
+    traffic: dict = dataclasses.field(default_factory=dict, compare=False)
+
+    @property
+    def rank(self) -> int:
+        return self.world.index
+
+    def axis(self, name: str) -> Axis:
+        return {"data": self.data, "model": self.model}[name]
+
+    def describe(self) -> str:
+        d, m = self.shape
+        where = str(self.device) if self.device.type != "cuda" or \
+            self.backend == "nccl" else f"{self.device} shared"
+        return f"{d}x{m} (data x model), {d * m} ranks, {self.backend}, " \
+            f"{where}"
+
+
+def parse_train_mesh(spec: Optional[str]) -> Optional[tuple[int, int]]:
+    """(D, M) of a training ``--mesh DxM`` flag ("2x2" -> (2, 2)); None,
+    "", "none" and a 1x1 mesh mean no mesh.  Unlike serving, D > 1 is
+    data parallelism (and FSDP where the config asks for it)."""
+    if not spec or spec == "none":
+        return None
+    parts = spec.lower().split("x")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0
+                                  for p in parts):
+        raise ValueError(f"--mesh wants DxM (e.g. 2x2), got {spec!r}")
+    d, m = int(parts[0]), int(parts[1])
+    return None if d * m == 1 else (d, m)
+
+
+def default_train_mesh(device) -> Optional[tuple[int, int]]:
+    """The JAX launcher's ``make_mesh_for_args``: 2 x 2 where the job has
+    exactly four ranks (``torchrun``'s ``WORLD_SIZE``) or the machine
+    four cards, else no mesh."""
+    if "WORLD_SIZE" in os.environ:
+        return (2, 2) if int(os.environ["WORLD_SIZE"]) == 4 else None
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_available() \
+            and torch.cuda.device_count() == 4:
+        return (2, 2)
+    return None
+
+
+# (D, M) -> the process's (world, data, model) groups: a group lives as
+# long as the process's default group, and creating one is collective, so
+# each shape's groups are created once and kept
+_TRAIN_MESHES: dict = {}
+
+
+def train_mesh(tp: TP, d: int, m: int) -> Optional[TrainMesh]:
+    """This rank's handle on the D x M train mesh over ranks 0..D·M-1 of
+    its group (``tp``, from ``join`` or ``Ranks``), or None for a rank
+    past the mesh.  Every rank of the group must call it with the same
+    shape, in the same order: it creates the mesh's process groups
+    (``dist.new_group``, collective), once per shape."""
+    n = d * m
+    if n > tp.size:
+        raise ValueError(f"a {d}x{m} mesh needs {n} ranks, the group has "
+                         f"{tp.size}")
+    if (d, m) not in _TRAIN_MESHES:
+        def group(ranks):
+            # every rank takes part in every group's creation
+            g = dist.new_group(ranks) if len(ranks) > 1 else None
+            return g if tp.rank in ranks else None
+
+        world = group(list(range(n)))
+        data = [group([i * m + j for i in range(d)]) for j in range(m)]
+        model = [group([i * m + j for j in range(m)]) for i in range(d)]
+        _TRAIN_MESHES[(d, m)] = (world, data, model)
+    if tp.rank >= n:
+        return None
+    world, data, model = _TRAIN_MESHES[(d, m)]
+    i, j = divmod(tp.rank, m)
+    staged = tp.backend == "gloo" and tp.device.type == "cuda"
+    traffic = dict.fromkeys(("data", "model", "world"), 0)
+    return TrainMesh(
+        shape=(d, m), backend=tp.backend, device=tp.device,
+        data=Axis("data", d, i, data[j], staged, traffic),
+        model=Axis("model", m, j, model[i], staged, traffic),
+        world=Axis("world", n, tp.rank, world, staged, traffic),
+        traffic=traffic)
 
 
 def in_group() -> bool:

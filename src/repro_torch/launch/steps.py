@@ -44,6 +44,8 @@ from repro_torch.core import tree as T
 from repro_torch.core.svi import SVIConfig, elbo_loss
 from repro_torch.models import registry as M
 from repro_torch.optim import adamw
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import partition as P
 
 LEGACY_SEED = 17
 
@@ -80,10 +82,36 @@ def deterministic(device: torch.device):
         torch.utils.deterministic.fill_uninitialized_memory = fill
 
 
+def _sharded_grads(grads: list, dims: dict, partial: dict, mesh) -> list:
+    """The rank's whole gradients of its blocks from its partial ones:
+    a leaf that replicates over ``data`` (every leaf FSDP does not shard)
+    is all-reduced over ``data`` (the data ranks saw other rows), and a
+    leaf the model says is ``partial`` over ``model``
+    (``registry.model_partial``: under the sequence-parallel stream, the
+    norms) over ``model`` (the model ranks saw other positions).
+    FSDP-sharded leaves came back reduce-scattered from their gather's
+    backward, and model-sharded ones whole.  Each reduction runs in
+    float32 and rounds to the gradient's dtype once, as the unsharded
+    step's one product does."""
+    out = []
+    for g, (_, spec), part in zip(grads, T.items(dims), T.leaves(partial)):
+        axes = [mesh.data] if "data" not in P.spec_axes(spec) else []
+        if part:
+            axes.append(mesh.model)
+        axes = [a for a in axes if a.size > 1]
+        if axes:
+            r = g.float()
+            for a in axes:
+                r = C.all_reduce(r, a)
+            g = r.to(g.dtype)
+        out.append(g)
+    return out
+
+
 def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
                      svi_cfg: SVIConfig | None = None,
                      micro_batches: int = 1, seed: int = 0, noise=None,
-                     nll_fn=None):
+                     nll_fn=None, mesh=None, dims=None):
     """``(state, batch) -> (state, metrics)`` with ``state = {"params",
     "opt"}``: the negative ELBO (``core.svi.elbo_loss`` of ``nll_fn``,
     default the family's ``registry.nll_loss``), its gradients by
@@ -97,9 +125,26 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
     averaged, as the reference's scan does.  ``noise`` replaces the head's
     draw (tests inject the JAX package's).  Metrics: ``loss``, ``nll``,
     ``kl``, ``beta``, ``accuracy``, ``grad_norm`` (0-d device tensors) and
-    ``lr`` (a float)."""
+    ``lr`` (a float).
+
+    Under a train ``mesh`` (``launch.mesh.TrainMesh``) the state is the
+    rank's share (``sharding.partition.shard_state`` under ``dims``, the
+    parameters' specs) and the batch the data rank's rows
+    (``data.pipeline.shard_batch`` with the same ``micro_batches``):
+    micro-batch i is then the rank's rows of global rows [i·B/mb,
+    (i+1)·B/mb), as the reference's reshape of the global batch gives.
+    The rank's gradients are completed across the ranks
+    (``_sharded_grads``), AdamW runs on its blocks, and every metric is
+    the global one, equal on every rank.  The dense and vlm families
+    train sharded; the others raise NotImplementedError (ROADMAP.md item
+    13b-2), as does top-k compression in AdamW."""
     svi = svi_cfg or SVIConfig()
-    nll = nll_fn or (lambda p, b, k: M.nll_loss(p, cfg, b, k, noise=noise))
+    owned = None
+    if mesh is not None:
+        M.check_trains_sharded(cfg, dims, mesh)
+        owned = P.owned(dims, mesh)
+    nll = nll_fn or (lambda p, b, k: M.nll_loss(p, cfg, b, k, noise=noise,
+                                                 mesh=mesh, dims=dims))
 
     def grads_of(params, batch, key, step):
         leaves = T.leaves(params)
@@ -107,12 +152,16 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
             for p in leaves:
                 p.requires_grad_(True)
             try:
-                loss, aux = elbo_loss(nll, params, batch, key, step, svi)
+                loss, aux = elbo_loss(nll, params, batch, key, step, svi,
+                                      mesh=mesh)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                             materialize_grads=True)
             finally:
                 for p in leaves:
                     p.requires_grad_(False)
+        # under a mesh the value differentiated is the rank's share; the
+        # metric is the global ELBO
+        loss = aux.pop("loss", loss)
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
     def train_step(state, batch):
@@ -139,8 +188,15 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
                 loss = sum(losses[1:], losses[0]) * inv
                 aux = {k: torch.stack([a[k] for a in auxs]).mean(0)
                        for k in auxs[0]}
+            sharded = {}
+            if mesh is not None:
+                partial = M.model_partial(cfg, dims, mesh,
+                                          batch["tokens"].shape[1])
+                grads = _sharded_grads(list(grads), dims, partial, mesh)
+                sharded = {"mesh": mesh, "owned": owned}
             params, opt, om = adamw.apply_updates(
-                params, T.unflatten(params, list(grads)), opt, opt_cfg)
+                params, T.unflatten(params, list(grads)), opt, opt_cfg,
+                **sharded)
         metrics = {"loss": loss, **aux, **om}
         return {"params": params, "opt": opt}, metrics
 

@@ -12,15 +12,24 @@
   * Failure injection (``--fail-at-step``), which tests use to show that
     a mid-run crash resumes losslessly; the checkpoint writer is joined on
     every exit from the step loop, so a crash never leaves a ``.tmp``.
+  * The train mesh (``--mesh DxM``): data parallelism, and FSDP where the
+    config asks, over ``data``; tensor and sequence parallelism over
+    ``model`` (``launch.mesh.train_mesh``, the JAX launcher's rules,
+    ``sharding.partition.train_dims``).  ``main`` spawns the D·M ranks
+    (gloo on the CPU, or on one shared card; NCCL with a card a rank) or
+    joins ``torchrun``'s; without the flag the mesh is the JAX launcher's
+    ``make_mesh_for_args``: 2 x 2 with exactly four ranks or cards, else
+    none.  Each rank draws the whole state from the seed, keeps its share
+    and reads its rows of every global batch; checkpoints hold whole
+    leaves and restore under any mesh.  The dense and vlm families train
+    sharded; the others raise NotImplementedError under a mesh (ROADMAP.md
+    item 13b-2).
 
 Every family trains (``registry.TRAIN_FAMILIES``).  ``--full`` trains
 at full width; where one card cannot hold a family's whole training
 state (bf16 weights and gradients, f32 moments, the f32 head), it is cut
 in depth to ``CARD_DEPTH``, and grok-1-314b,
-too large for one card at any depth, is refused.  The JAX launcher's
-training mesh (FSDP / TP ``param_pspecs``, ``constrain``) is ROADMAP item
-13b: the port trains on one device (serving has its mesh,
-``launch.mesh``).
+too large for one card at any depth, is refused.
 ``train_bnn`` is the paper BNN's SVI loop (the reference's quickstart
 and tests train it the same way).
 
@@ -31,6 +40,8 @@ Usage:
       --batch 8 --seq 256            # qwen2-1.5B at full width, on a GPU
   PYTHONPATH=src python -m repro_torch.launch.train --full \\
       --arch zamba2_7b --steps 3 --batch 4 --seq 512   # 54 of 81 layers
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --mesh 2x2 --steps 8 --batch 8 --seq 32     # four gloo ranks
 """
 
 from __future__ import annotations
@@ -47,11 +58,13 @@ from repro_torch import resolve_device
 from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs.registry import get_config, reduced
 from repro_torch.core.svi import SVIConfig
-from repro_torch.data.pipeline import to_device
+from repro_torch.data.pipeline import shard_batch, to_device
 from repro_torch.data.synthetic import TokenStreamState, token_batch
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import steps as S
 from repro_torch.models import registry as M
 from repro_torch.optim import adamw
+from repro_torch.sharding import partition as P
 
 
 class StragglerMonitor:
@@ -121,33 +134,43 @@ def lm_batch(cfg, toks: np.ndarray, device) -> dict:
     return batch
 
 
-def train(args) -> dict:
-    """Run ``args``' training; returns the loss history, the straggler
-    count and the final state."""
+def train(args, mesh=None) -> dict:
+    """Run ``args``' training, on this rank's share under a train
+    ``mesh`` (``launch.mesh.TrainMesh``; rank 0 prints); returns the loss
+    history, the straggler count and the final state (the rank's
+    share)."""
     cfg = train_config(args.arch, args.reduced)
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     opt_cfg = adamw.AdamWConfig(
         lr=args.lr, total_steps=args.steps, warmup_steps=args.steps // 10,
         moment_dtype=cfg.moment_dtype, compress_topk=args.compress_topk)
     svi = SVIConfig(num_train_examples=max(60_000, args.batch * args.steps),
                     kl_warmup_steps=max(args.steps // 4, 1))
-    step_fn = S.build_train_step(cfg, opt_cfg, svi,
-                                 micro_batches=args.micro_batches,
-                                 seed=args.seed)
 
     mgr = CheckpointManager(args.ckpt_dir, keep=3) if args.ckpt_dir else None
     stream = TokenStreamState(seed=args.seed, host=0, num_hosts=1)
     start_step = 0
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_train_params(cfg, gen, device)
+    dims = None
+    if mesh is not None:
+        # the rank keeps its blocks (the whole leaves are freed here) and
+        # its moments are those blocks' (zeros, like the whole moments')
+        dims = P.train_dims(cfg, params, mesh.shape)
+        params = P.shard_tree(params, dims, mesh)
     state = {"params": params, "opt": adamw.init_state(params, opt_cfg)}
+    sdims = None if mesh is None else P.state_pspecs(dims, state["opt"])
+    step_fn = S.build_train_step(cfg, opt_cfg, svi,
+                                 micro_batches=args.micro_batches,
+                                 seed=args.seed, mesh=mesh, dims=dims)
     if mgr is not None and args.resume:
-        step, tree, extra = mgr.restore_latest(state)
+        step, tree, extra = mgr.restore_latest(state, mesh, sdims)
         if step is not None:
             state = tree
             start_step = int(extra["step"])
             stream = TokenStreamState(**extra["stream"])
-            print(f"resumed from step {start_step}")
+            say(f"resumed from step {start_step}")
 
     monitor = StragglerMonitor()
     history = []
@@ -159,6 +182,9 @@ def train(args) -> dict:
         for i in range(start_step, args.steps):
             toks, stream = token_batch(stream, args.batch, args.seq + 1,
                                        cfg.vocab_size)
+            if mesh is not None:
+                toks = shard_batch({"t": toks}, mesh,
+                                   args.micro_batches)["t"]
             batch = lm_batch(cfg, toks, device)
             t0 = time.time()
             state, metrics = step_fn(state, batch)
@@ -170,9 +196,10 @@ def train(args) -> dict:
                 raise RuntimeError(f"injected failure at step {i}")
             if mgr is not None and (i + 1) % args.ckpt_every == 0:
                 mgr.save_async(i + 1, state,
-                               extra={"step": i + 1, "stream": vars(stream)})
+                               extra={"step": i + 1, "stream": vars(stream)},
+                               mesh=mesh, dims=sdims)
             if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
-                print(f"step {i:5d} loss {loss:8.4f} "
+                say(f"step {i:5d} loss {loss:8.4f} "
                       f"nll {float(metrics['nll']):8.4f} "
                       f"kl {float(metrics['kl']):10.1f} "
                       f"gnorm {float(metrics['grad_norm']):7.3f} "
@@ -182,7 +209,8 @@ def train(args) -> dict:
             mgr.wait()
     if mgr is not None:
         mgr.save_async(args.steps, state,
-                       extra={"step": args.steps, "stream": vars(stream)})
+                       extra={"step": args.steps, "stream": vars(stream)},
+                       mesh=mesh, dims=sdims)
         mgr.wait()
     return {"final_loss": history[-1] if history else float("nan"),
             "history": history, "straggler_flags": monitor.flagged,
@@ -254,11 +282,49 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--fail-at-step", type=int, default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="train mesh DxM (data x model), e.g. 2x2: D·M "
+                         "ranks; default 2x2 with exactly four ranks or "
+                         "cards, else none ('none' or 1x1: unsharded)")
     return ap
 
 
-def main():
-    out = train(build_parser().parse_args())
+def mesh_shape(args):
+    """The (D, M) ``args`` train at, or None: ``--mesh``, else the JAX
+    launcher's default (``launch.mesh.default_train_mesh``)."""
+    spec = getattr(args, "mesh", None)
+    if spec is not None:
+        return meshlib.parse_train_mesh(spec)
+    return meshlib.default_train_mesh(args.device)
+
+
+def train_rank(tp, args) -> dict:
+    """One rank of a ``--mesh`` run (``launch.mesh.spawn`` runs it):
+    ``train`` on this rank's share; the result without the state."""
+    out = train(args, meshlib.train_mesh(tp, *mesh_shape(args)))
+    out.pop("state")
+    return out
+
+
+def run(args) -> dict:
+    """``train(args)``, on the train mesh the arguments name: spawned
+    ranks (rank 0's result, without the state), or this process's share
+    when it already is a rank (``torchrun``).  A family that does not
+    train sharded raises before a rank starts."""
+    shape = mesh_shape(args)
+    if shape is None:
+        return train(args)
+    M.check_trains_sharded(train_config(args.arch, args.reduced))
+    n = shape[0] * shape[1]
+    if meshlib.in_group():
+        tp = meshlib.join(n, args.device)
+        return train(args, meshlib.train_mesh(tp, *shape))
+    resolve_device(args.device)         # no GPU raises before a rank starts
+    return meshlib.spawn(n, args.device, train_rank, args)[0]
+
+
+def main(argv=None):
+    out = run(build_parser().parse_args(argv))
     print(f"final loss {out['final_loss']:.4f} "
           f"(stragglers flagged: {out['straggler_flags']})")
 

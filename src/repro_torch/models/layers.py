@@ -3,9 +3,7 @@
 PyTorch counterpart of ``repro.models.layers``.  Parameters are plain
 dicts of tensors with the JAX package's layouts (weights (in, out),
 attention (B, S, H, D)); storage is ``cfg.param_dtype`` and every matmul
-accumulates in float32 (``repro_torch`` pins the backend flags).  The
-JAX package's training-side constraints (``constrain``) are not ported
-(ROADMAP.md item 13b).
+accumulates in float32 (``repro_torch`` pins the backend flags).
 
 Caches are updated IN PLACE where the JAX package returns a new array
 (it donates the old one to XLA instead): ``paged_scatter`` writes into
@@ -20,6 +18,20 @@ runs on the rank's own heads against its own slice of the KV cache, and
 its output is gathered before ``wo``; otherwise q, k and v are gathered
 and every rank attends over all heads.  ``tp`` None is the unsharded
 model.
+
+Training under a D x M train mesh (``launch.mesh.TrainMesh``) runs the
+same functions on a rank's shards, with the mesh's ``model`` axis
+(``launch.mesh.Axis``) as ``tp``: Megatron-LM's layout on the JAX
+package's train rules (``sharding.partition.train_dims``), the JAX
+``constrain`` / ``constrain_seq`` become the autograd collectives of
+``sharding.collectives``.  ``wq wk wv w1 w3`` (and the biases) are
+column-parallel and ``wo w2`` row-parallel, so the products leave partial
+sums (``leave``); a weight FSDP-sharded over ``data`` is gathered a layer
+at a time first (``gathered``); the stream enters the column-parallel
+products through ``enter``.  Where the heads do not divide the model axis,
+q / k / v are gathered under autograd and each rank's columns of the
+output go into its rows of ``wo`` (the JAX package shards the query chunks
+there instead).
 """
 
 from __future__ import annotations
@@ -32,6 +44,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import rng
+from repro_torch.launch.mesh import Axis
+from repro_torch.sharding import collectives as C
 from repro_torch.sharding.partition import gather_rep, shardable
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -93,16 +107,27 @@ def heads_local(cfg: ArchConfig, tp) -> bool:
 
 def _whole(y: torch.Tensor, width: int, tp) -> torch.Tensor:
     """``y`` with its full last axis ``width``: gathered across the ranks
-    where a column-sharded weight gave this rank a slice of it."""
-    return y if y.shape[-1] == width else gather_rep(y, tp)
+    where a column-sharded weight gave this rank a slice of it.  On a
+    train mesh's axis the gather is differentiable: every rank then
+    repeats the work on the whole, so its backward keeps the rank's
+    slice of the gradient."""
+    if y.shape[-1] == width:
+        return y
+    if isinstance(tp, Axis):
+        return C.gather(y, tp, -1, grad="split")
+    return gather_rep(y, tp)
 
 
 def _attn_out(p, out: torch.Tensor, cfg: ArchConfig, tp) -> torch.Tensor:
-    """The (B, S, h·hd) attention output through ``wo`` (replicated),
-    gathered first when it holds only this rank's heads."""
+    """The (B, S, h·hd) attention output through ``wo``: gathered first
+    when it holds only this rank's heads and ``wo`` is whole (serving);
+    the rank's columns when it holds all heads and ``wo`` is the rank's
+    rows (training's row-parallel ``wo``, the heads gathered)."""
     B, S = out.shape[:2]
-    out = _whole(out.reshape(B, S, -1), cfg.num_heads * cfg.head_dim, tp)
-    return _mm(out, p["wo"])
+    out, rows = out.reshape(B, S, -1), p["wo"].shape[-2]
+    if out.shape[-1] > rows:
+        out = C.split(out, tp, -1)
+    return _mm(_whole(out, rows, tp), p["wo"])
 
 
 def he_init(gen: torch.Generator, shape, fan_in: int, dtype, device):
@@ -484,9 +509,10 @@ def init_mlp(gen, cfg: ArchConfig, device, lead=()):
 
 
 def apply_mlp(p, cfg: ArchConfig, x: torch.Tensor, tp=None) -> torch.Tensor:
-    """The MLP; under a mesh w1 / w3 give the rank its ff columns, the
-    activation is elementwise, and the (…, ff) product is gathered once
-    before ``w2`` (replicated)."""
+    """The MLP; under a mesh w1 / w3 give the rank its ff columns and the
+    activation is elementwise; the (…, ff) product is gathered once
+    before a whole ``w2`` (serving), or meets the rank's rows of ``w2``
+    and leaves partial sums (training)."""
     if cfg.mlp_activation == "relu2":
         h = torch.square(F.relu(_mm(x, p["w1"])))
     else:
@@ -507,8 +533,21 @@ def init_embed(gen, cfg: ArchConfig, device):
                              dtype_of(cfg), device)}
 
 
-def apply_embed(p, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens.long()]
+def apply_embed(p, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The table's rows of ``tokens``.  With a train mesh's model axis
+    (``tp``) the table holds the rank's block of vocabulary rows: each
+    rank reads the tokens of its rows (zeros for the others) and the
+    ranks' rows are all-reduced, a sum of one row and zeros, exact."""
+    t, tokens = p["table"], tokens.long()
+    if tp is None or tp.size == 1:
+        return t[tokens]
+    n = t.shape[0]
+    idx = tokens - tp.index * n
+    mine = (idx >= 0) & (idx < n)
+    x = t[idx.clamp(0, n - 1)]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return C.reduce(x, tp)
 
 
 def init_head(gen, cfg: ArchConfig, device, train: bool = False):
@@ -589,3 +628,45 @@ def head_logits_sampled(p, x: torch.Tensor, cfg: ArchConfig,
         c = cfg.logits_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+# --------------------------------------------------------------------------
+# training under a D x M mesh (``launch.mesh.TrainMesh``)
+# --------------------------------------------------------------------------
+#
+# ``spec`` trees are a layer's leaves' specs (``sharding.partition``), the
+# layer axis dropped.  The residual stream ``x`` is whole on every model
+# rank, or S-sharded over ``model`` where ``sp`` (the sequence-parallel
+# stream, the JAX ``constrain_seq``): a product's input is then gathered
+# along S and a row-parallel output reduce-scattered back, where the plain
+# layout copies in and all-reduces out.  With no mesh each is the
+# identity.
+
+def gathered(tree: dict, spec: dict, mesh) -> dict:
+    """``tree``'s leaves as their products use them: a leaf whose spec
+    gives ``data`` alone to an axis (FSDP) gathered over ``data`` along
+    it (its backward reduce-scatters the gradient); the rest as they
+    are."""
+    def one(w, sp):
+        for axis, entry in enumerate(sp):
+            if entry == "data":
+                return C.gather(w, mesh.data, axis)
+        return w
+
+    return {k: gathered(v, spec[k], mesh) if isinstance(v, dict)
+            else one(v, spec[k]) for k, v in tree.items()}
+
+
+def enter(x: torch.Tensor, mesh, sp: bool) -> torch.Tensor:
+    """A column-parallel product's whole-S input from the stream."""
+    if mesh is None:
+        return x
+    return C.gather(x, mesh.model, 1) if sp else C.copy(x, mesh.model)
+
+
+def leave(y: torch.Tensor, mesh, sp: bool) -> torch.Tensor:
+    """A row-parallel product's partial sums back into the stream."""
+    if mesh is None:
+        return y
+    return C.reduce_scatter(y, mesh.model, 1) if sp \
+        else C.reduce(y, mesh.model)

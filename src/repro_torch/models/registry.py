@@ -167,13 +167,48 @@ def serving_params(train_params: dict) -> dict:
             for k, v in train_params.items()}
 
 
-def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None):
+# the families whose train step runs sharded over a D x M train mesh
+SHARDED_TRAIN_FAMILIES = ("dense", "vlm")
+
+
+def check_trains_sharded(cfg: ArchConfig, dims=None, mesh=None) -> None:
+    """Raise NotImplementedError for a family that does not train under a
+    train mesh yet (ROADMAP.md item 13b-2), or, given the parameters'
+    specs ``dims`` on ``mesh``, where they leave whole a leaf that the
+    family's sharded step splits."""
+    _check_trains(cfg)
+    if cfg.family not in SHARDED_TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}) does not train under a train mesh "
+            "yet: the moe, ssm, hybrid and encdec families are ROADMAP.md "
+            "item 13b-2; train it unsharded with --mesh none (without "
+            "--mesh, a job of exactly four ranks or cards trains at 2x2)")
+    if dims is not None:
+        module_for(cfg).check_sharded(cfg, dims, mesh)
+
+
+def model_partial(cfg: ArchConfig, dims: dict, mesh, S: int) -> dict:
+    """For each leaf, whether a model rank's gradient of it, at sequence
+    length S, is only its share, to be summed over ``model``: the
+    family's rule (``transformer.model_partial``)."""
+    return module_for(cfg).model_partial(cfg, dims, mesh, S)
+
+
+def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None,
+             mesh=None, dims=None):
     """The family's mean next-token NLL with one weight-space draw of the
     head (``transformer.head_loss``): ``(nll, {"accuracy"})``; the moe
     family adds 0.01 x its Switch aux loss to the first value and
     reports it as ``"aux_loss"``.  The batch carries ``tokens`` and
-    ``labels``, plus ``frames`` (encdec) or ``prefix_embeds`` (vlm)."""
+    ``labels``, plus ``frames`` (encdec) or ``prefix_embeds`` (vlm).
+    Under a train ``mesh`` (with the parameters' specs ``dims``) the
+    dense and vlm families run on the rank's shards
+    (``transformer.nll_loss``); the others raise NotImplementedError."""
     _check_trains(cfg)
+    if mesh is not None:
+        check_trains_sharded(cfg)
+        return module_for(cfg).nll_loss(params, cfg, batch, key, noise=noise,
+                                        mesh=mesh, dims=dims)
     return module_for(cfg).nll_loss(params, cfg, batch, key, noise=noise)
 
 

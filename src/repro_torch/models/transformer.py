@@ -20,7 +20,10 @@ step replays it on the cache's fixed addresses.
 
 The serving functions take ``tp``, a tensor-parallel rank's mesh handle
 (``launch.mesh.TP``; None unsharded), and hand it to the layers; the
-cache then holds the rank's kv heads where they shard.
+cache then holds the rank's kv heads where they shard.  The training
+functions (``forward``, ``nll_loss``, ``head_loss``) take ``mesh``
+(``launch.mesh.TrainMesh``) and ``dims`` (the parameters' specs,
+``sharding.partition.train_dims``) and run on the rank's shards.
 """
 
 from __future__ import annotations
@@ -31,8 +34,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import keys as K
+from repro_torch.core import tree as T
 from repro_torch.models import layers as L
 from repro_torch.models import uncertain_head as U
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import partition as P
 
 
 def layer(tree, i: int):
@@ -133,35 +139,73 @@ def splice_prefix(x: torch.Tensor, prefix_embeds: torch.Tensor):
     return torch.cat([prefix_embeds.to(x.dtype), x[:, P:]], dim=1)
 
 
-def _block_fwd(bp, cfg: ArchConfig, x, rot, tp=None):
-    h, kv = L.apply_attention(bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
+def _block_fwd(bp, cfg: ArchConfig, x, rot, tp=None, mesh=None, spec=None,
+               sp: bool = False):
+    """A block.  Under a train ``mesh`` (``spec``: the layer's specs) the
+    weights are FSDP-gathered first, the model axis is the layers' ``tp``
+    and the stream enters and leaves each product through the mesh's
+    collectives (``layers.enter`` / ``leave``; ``sp``: S-sharded)."""
+    if mesh is not None:
+        bp, tp = L.gathered(bp, spec, mesh), mesh.model
+    h, kv = L.apply_attention(bp["attn"], cfg,
+                              L.enter(L.rms_norm(x, bp["ln1"]), mesh, sp),
                               rot=rot, tp=tp)
-    x = x + h
-    x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]), tp)
-    return x, kv
+    x = x + L.leave(h, mesh, sp)
+    h = L.apply_mlp(bp["mlp"], cfg, L.enter(L.rms_norm(x, bp["ln2"]), mesh,
+                                            sp), tp)
+    return x + L.leave(h, mesh, sp), kv
+
+
+def seq_parallel(cfg: ArchConfig, mesh, S: int) -> bool:
+    """Whether a train ``mesh``'s residual stream is S-sharded over
+    ``model``: the config asks (``seq_parallel``) and S divides the model
+    ranks (the JAX ``constrain_seq`` is a no-op otherwise)."""
+    if mesh is None:
+        return False
+    m = mesh.model.size
+    return cfg.seq_parallel and m > 1 and S % m == 0
+
+
+def layer_specs(dims: dict) -> dict:
+    """A layer's specs from the stacked leaves' (the layer axis dropped)."""
+    return {k: layer_specs(v) if isinstance(v, dict) else v[1:]
+            for k, v in dims.items()}
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeds: torch.Tensor | None = None,
-            return_kv: bool = False, tp=None):
+            return_kv: bool = False, tp=None, mesh=None, dims=None):
     """tokens: (B, S) -> hidden (B, S, d); optionally the per-layer (k, v)
     stacked to (L, B, S, Hkv, hd).  ``prefix_embeds`` (B, P, d), P <= S,
     take the place of the first P embedded tokens, cast to the body's
     dtype (the tokens under them are ignored).  Under autograd with
     ``cfg.remat`` each layer is recomputed in the backward pass
-    (``rematted``)."""
-    x = L.apply_embed(params["embed"], tokens)
+    (``rematted``).  Under a train ``mesh`` the parameters are the
+    rank's shards (``dims``), the tokens the data rank's rows, the
+    embedding vocabulary-parallel, and the hidden state (b, S / M, d)
+    where ``seq_parallel``, else (b, S, d) on every model rank; the
+    prefix embeds are spliced into the whole rows before the stream is
+    split."""
+    emb, axis, spec = params["embed"], None, None
+    if mesh is not None:
+        emb, axis = L.gathered(emb, dims["embed"], mesh), mesh.model
+        spec = layer_specs(dims["blocks"])
+    x = L.apply_embed(emb, tokens, axis)
     if prefix_embeds is not None:
         x = splice_prefix(x, prefix_embeds)
+    sp = seq_parallel(cfg, mesh, tokens.shape[1])
+    if sp:
+        x = C.split(x, mesh.model, 1)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     remat = remats(cfg) and not return_kv
     ks, vs = [], []
     for bp in unstacked(params["blocks"]):
         if remat:
-            x = rematted(lambda xx, bp=bp: _block_fwd(bp, cfg, xx, rot)[0], x)
+            x = rematted(lambda xx, bp=bp: _block_fwd(
+                bp, cfg, xx, rot, tp, mesh, spec, sp)[0], x)
             continue
-        x, (k, v) = _block_fwd(bp, cfg, x, rot, tp)
+        x, (k, v) = _block_fwd(bp, cfg, x, rot, tp, mesh, spec, sp)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -172,19 +216,24 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
 
 
 def nll_loss(params, cfg: ArchConfig, batch: dict, key: K.Key,
-             noise=None):
+             noise=None, mesh=None, dims=None):
     """Mean next-token NLL with one weight-space draw of the Bayesian head
     (``repro.models.transformer.nll_loss``; ``head_loss``).  batch:
     ``tokens`` (B, S), ``labels`` (B, S) (shifted; labels < 0 are
     padding), optional ``prefix_embeds``.  Returns (nll, {"accuracy"}),
-    both 0-d float32."""
+    both 0-d float32.  Under a train ``mesh`` the batch is the data
+    rank's rows and the parameters its shards (``dims``): the value is
+    this data rank's share of the global mean."""
     hidden, _ = forward(params, cfg, batch["tokens"],
-                        prefix_embeds=batch.get("prefix_embeds"))
-    return head_loss(params, cfg, hidden, batch["labels"], key, noise)
+                        prefix_embeds=batch.get("prefix_embeds"),
+                        mesh=mesh, dims=dims)
+    return head_loss(params, cfg, hidden, batch["labels"], key, noise,
+                     mesh=mesh, dims=dims)
 
 
 def head_loss(params, cfg: ArchConfig, hidden: torch.Tensor,
-              labels: torch.Tensor, key: K.Key, noise=None):
+              labels: torch.Tensor, key: K.Key, noise=None, mesh=None,
+              dims=None):
     """The NLL of ``labels`` under one weight-space draw of the head, the
     tail every family's ``nll_loss`` shares: w = mu + softplus(rho)·eps,
     eps of mu's shape from ``noise(key, shape, device)`` (default
@@ -192,10 +241,32 @@ def head_loss(params, cfg: ArchConfig, hidden: torch.Tensor,
     hidden @ w cast to the body's dtype, accumulated and returned in
     float32, soft-capped where ``cfg.logits_softcap`` is set; the head is
     in its training form ``{"mu", "rho"}``.  Returns (nll,
-    {"accuracy"}), both 0-d float32."""
+    {"accuracy"}), both 0-d float32.
+
+    Under a train ``mesh`` (``dims``: the parameters' specs) the head is
+    vocabulary-parallel.  The eps of the whole head is drawn as the
+    unsharded loss draws it (a (d, V) float32 tensor, 0.93 GB at
+    qwen2-1.5B's width on every rank) and the rank keeps its block, so
+    every weight is the one the unsharded draw gives; w on the block is
+    gathered over ``data``.  The head shards its vocabulary on ("data",
+    "model"), so once gathered model rank m holds blocks m, M + m, ...
+    of V / (D·M) ids each (``_vocab_parallel``).  The value is this data
+    rank's NLL sum over the GLOBAL count of valid tokens (the data ranks'
+    values sum to the unsharded mean); the accuracy is the global one."""
     mu, rho = params["head"]["mu"], params["head"]["rho"]
-    eps = (noise or K.normal)(key, tuple(mu.shape), mu.device)
+    shape = tuple(mu.shape)
+    if mesh is not None:
+        spec = dims["head"]["mu"]
+        shape = P.full_shape(mu, spec, mesh)
+    eps = (noise or K.normal)(key, shape, mu.device)
+    if mesh is not None:
+        eps = P.shard_leaf(eps, spec, mesh)
     w = mu + F.softplus(rho) * eps
+    del eps
+    if mesh is not None:
+        w = C.gather(w, mesh.data, 1)
+        hidden = L.enter(hidden, mesh,
+                         seq_parallel(cfg, mesh, labels.shape[1]))
     # bf16 operands, float32 products and output: the reference's
     # preferred_element_type=f32 (a bf16 matmul would round its output)
     logits = hidden.float() @ w.to(hidden.dtype).float()
@@ -205,14 +276,81 @@ def head_loss(params, cfg: ArchConfig, hidden: torch.Tensor,
     labels = labels.long()
     valid = labels >= 0
     lab = torch.where(valid, labels, torch.zeros_like(labels))
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    # gather, not nll_loss: its backward has a deterministic CUDA form
-    tok_nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    if mesh is None or mesh.model.size == 1:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        # gather, not nll_loss: its backward has a deterministic CUDA form
+        tok_nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+        pred = logits.argmax(-1)
+    else:
+        tok_nll, pred = _vocab_parallel(logits, lab, cfg.vocab_size, mesh)
     tok_nll = torch.where(valid, tok_nll, torch.zeros_like(tok_nll))
-    count = torch.clamp(valid.sum(), min=1).float()
-    nll = tok_nll.sum() / count
-    acc = ((logits.argmax(-1) == labels) & valid).sum().float() / count
-    return nll, {"accuracy": acc}
+    count, hits = valid.sum(), ((pred == labels) & valid).sum()
+    if mesh is not None:
+        count, hits = (C.all_reduce(t, mesh.data) for t in (count, hits))
+    count = torch.clamp(count, min=1).float()
+    return tok_nll.sum() / count, {"accuracy": hits.float() / count}
+
+
+def _vocab_parallel(logits: torch.Tensor, lab: torch.Tensor, V: int, mesh):
+    """(-log softmax at ``lab``, argmax) of the logits the model ranks
+    hold in column blocks (``head_loss``): the log-softmax from the
+    all-reduced max and sum of exponentials, the target's logit from the
+    rank that holds it, and the argmax over the ranks (the first of
+    equal maxima, as ``argmax``)."""
+    m, j = mesh.model.size, mesh.model.index
+    n = V // (mesh.data.size * m)              # ids a block
+    gmax = C.all_reduce(logits.detach().amax(-1), mesh.model,
+                        op=torch.distributed.ReduceOp.MAX)
+    sumexp = C.reduce(torch.exp(logits - gmax[..., None]).sum(-1),
+                      mesh.model)
+    mine = (lab // n) % m == j
+    pos = torch.where(mine, lab // n // m * n + lab % n,
+                      torch.zeros_like(lab))
+    tl = torch.gather(logits, -1, pos[..., None])[..., 0]
+    tl = C.reduce(torch.where(mine, tl, torch.zeros_like(tl)), mesh.model)
+    val, idx = logits.detach().max(-1)
+    vals = C.all_gather(val[None], mesh.model, 0)
+    ids = C.all_gather(((idx // n * m + j) * n + idx % n)[None], mesh.model,
+                       0)
+    best = vals.max(0).values
+    pred = torch.where(vals == best, ids, V).min(0).values
+    return gmax + torch.log(sumexp) - tl, pred
+
+
+# the leaves whose products the model axis must split (Megatron's column-
+# and row-parallel weights, the vocabulary-parallel embedding and head)
+_MODEL_SPLIT = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "bq", "bk", "bv",
+                "table", "mu", "rho")
+
+
+def check_sharded(cfg: ArchConfig, dims: dict, mesh) -> None:
+    """Raise NotImplementedError where ``dims`` (``train_dims``) leaves a
+    leaf whole that the sharded forward splits over ``model``, or the
+    head's vocabulary whole on an axis of the mesh: a width that does not
+    divide the mesh (the JAX package replicates such a leaf)."""
+    need = {"model"} if mesh.model.size > 1 else set()
+    for path, spec in T.items(dims):
+        name = path.rsplit("/", 1)[-1]
+        used = P.spec_axes(spec)
+        want = need | ({a for a in ("data", "model")
+                        if mesh.axis(a).size > 1}
+                       if path.startswith("head/") else set())
+        if name in _MODEL_SPLIT and not want <= used:
+            raise NotImplementedError(
+                f"{cfg.name} at {mesh.describe()}: {path} does not shard "
+                f"over {sorted(want - used)} (its width does not divide "
+                "the mesh); the sharded train step needs it split")
+
+
+def model_partial(cfg: ArchConfig, dims: dict, mesh, S: int) -> dict:
+    """For each leaf, whether a model rank's gradient of it is only its
+    share: under the sequence-parallel stream every leaf the model axis
+    does not split (the norms) sees only the rank's positions.  (A leaf
+    split over ``model`` gets its whole gradient on its rank; without
+    the S-sharded stream every model rank sees every position.)"""
+    sp = seq_parallel(cfg, mesh, S)
+    return T.map_tree(lambda spec: sp and "model" not in P.spec_axes(spec),
+                      dims)
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,

@@ -30,6 +30,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import tree as T
+from repro_torch.sharding import collectives as C
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -104,17 +105,26 @@ def _slices(*ts: torch.Tensor):
         yield tuple(f[i:i + SLICE] for f in flat)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, mesh=None, owned: Any = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32 (a 0-d tensor
-    on the leaves' device)."""
-    sq = sum(torch.sum(torch.square(s.float()))
-             for x in T.leaves(tree) for (s,) in _slices(x))
+    on the leaves' device).  Under a train ``mesh`` the leaves are the
+    rank's blocks: each rank sums the leaves it ``owned``
+    (``sharding.partition.owned``: one rank of every group that holds the
+    same block, so a replicated leaf counts once) and the squares are
+    all-reduced over the mesh."""
+    leaves = T.leaves(tree)
+    mine = T.leaves(owned) if mesh is not None else [True] * len(leaves)
+    sq = sum((torch.sum(torch.square(s.float()))
+              for x, m in zip(leaves, mine) if m for (s,) in _slices(x)),
+             torch.zeros((), dtype=torch.float32, device=leaves[0].device))
+    if mesh is not None:
+        sq = C.all_reduce(sq, mesh.world)
     return torch.sqrt(sq)
 
 
-def _clip_scale(grads: Any, max_norm: float):
+def _clip_scale(grads: Any, max_norm: float, mesh=None, owned: Any = None):
     """(the factor that clips ``grads`` to ``max_norm``, their norm)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, mesh, owned)
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0), norm
 
 
@@ -157,13 +167,22 @@ def compress_topk(grads: Any, error: Any, frac: float):
 
 
 @torch.no_grad()
-def apply_updates(params: Any, grads: Any, state: dict,
-                  cfg: AdamWConfig) -> tuple[Any, dict, dict]:
+def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
+                  mesh=None, owned: Any = None) -> tuple[Any, dict, dict]:
     """One AdamW step, IN PLACE: every parameter, moment and the step
     tensor keep their addresses.  Returns ``(params, state, metrics)``
     (the same trees), metrics ``grad_norm`` (a 0-d device tensor), ``lr``
-    (a float) and, when compressing, ``compressed``."""
+    (a float) and, when compressing, ``compressed``.  Under a train
+    ``mesh`` the trees are the rank's blocks, whole gradients of them:
+    the update is elementwise, so only the global norm crosses the ranks
+    (``global_norm``, with ``owned``).  Compression refuses a mesh: its
+    threshold is a quantile of the whole leaf (ROADMAP.md item 13b-2)."""
     metrics = {}
+    if cfg.compress_topk > 0 and mesh is not None:
+        raise NotImplementedError(
+            "top-k gradient compression under a train mesh: its threshold "
+            "is the whole leaf's quantile, which no rank holds (ROADMAP.md "
+            "item 13b-2)")
     if cfg.compress_topk > 0:
         grads, new_error = compress_topk(grads, state["error"],
                                          cfg.compress_topk)
@@ -172,7 +191,8 @@ def apply_updates(params: Any, grads: Any, state: dict,
         metrics["compressed"] = 1.0
     # clip_by_global_norm, applied leaf by leaf inside the loop below (no
     # scaled copy of the whole gradient tree)
-    scale, metrics["grad_norm"] = _clip_scale(grads, cfg.clip_norm)
+    scale, metrics["grad_norm"] = _clip_scale(grads, cfg.clip_norm, mesh,
+                                              owned)
     step = int(state["step"]) + 1
     lr = schedule_lr(cfg, step)
     metrics["lr"] = lr

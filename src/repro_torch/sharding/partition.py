@@ -1,10 +1,12 @@
-"""Serve-time tensor parallelism: the parameter rules and the gather.
+"""Parameter partition rules: the serving half and the training half.
 
-PyTorch counterpart of the serving half of ``repro.sharding.partition``
-(``_SERVE_RULES``, ``serve_pspecs`` + ``sanitize_pspecs``,
-``gather_rep``).  Its training half (FSDP / TP ``param_pspecs``, the
-activation constraints ``constrain`` / ``constrain_seq``) is not ported
-(ROADMAP.md item 13b).
+PyTorch counterpart of ``repro.sharding.partition``: the serve rules
+(``_SERVE_RULES``, ``serve_pspecs`` + ``sanitize_pspecs``, ``gather_rep``)
+below, and the train rules after them (``_RULES``, ``param_pspecs``,
+``sanitize_pspecs``, ``state_pspecs``; see "Training" further down).  The
+JAX package's activation constraints (``constrain`` / ``constrain_seq``)
+become the explicit collectives of ``sharding.collectives`` at the
+models' training seams.
 
 Serving TP is ALL-GATHER-ONLY.  Only column-parallel weights shard:
 ``wq wk wv bq bk bv w1 w3`` and the head's vocabulary columns, each on
@@ -29,11 +31,14 @@ every layer that gathers takes it as ``tp=`` (None: no mesh).
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.sharding import collectives as C
 
 # (path regex, ndim -> sharded axis of the trailing ndim axes); paths are
 # the parameter tree's keys joined with "/" from a leading "/".  MoE
@@ -128,3 +133,210 @@ def gather_rep(x: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
     dist.all_gather(list(buf.unbind(0)), src)
     out = torch.cat(buf.unbind(0), dim=dim)
     return out.to(x.device) if staged else out
+
+
+# ---------------------------------------------------------------------------
+# Training: FSDP / TP parameter rules over the D x M train mesh
+# ---------------------------------------------------------------------------
+#
+# A spec is a tuple with one entry per axis of the leaf: None (the axis
+# is whole on every rank), a mesh axis name, or a tuple of names (the
+# axis splits over their product, the first name major: ("data",
+# "model") gives rank (d, m) block d·M + m), as a JAX PartitionSpec
+# reads.  The rules are the JAX package's, name for name: column-parallel
+# ``wq wk wv w1 w3`` and row-parallel ``wo w2`` on ``model``, their other
+# axis FSDP-sharded on ``data`` where the config asks (``fsdp_params``);
+# the embedding's vocabulary on ``model`` and its width on ``data``
+# (FSDP); the head's vocabulary on both axes whatever ``fsdp`` says;
+# norms replicated.  Stacked layers add a leading axis that never shards.
+
+_RULES: list[tuple[str, dict[int, tuple]]] = [
+    (r"embed.*table$", {2: ("model", "data")}),
+    (r"head.*(mu|rho|w)$", {2: (None, ("data", "model"))}),
+    (r"(wq|wk|wv)$", {2: ("data", "model")}),
+    (r"wo$", {2: ("model", "data")}),
+    (r"(bq|bk|bv)$", {1: ("model",)}),
+    (r"(w1|w3)$", {2: ("data", "model")}),
+    (r"w2$", {2: ("model", "data")}),
+    (r"experts_ep.*(w1|w3)$", {3: ("model", None, "data")}),
+    (r"experts_ep.*w2$", {3: ("model", "data", None)}),
+    (r"experts_tp.*(w1|w3)$", {3: (None, None, ("data", "model"))}),
+    (r"experts_tp.*w2$", {3: (None, ("data", "model"), None)}),
+    (r"router.*w$", {2: (None, None)}),
+    (r"in_proj$", {2: ("data", "model")}),
+    (r"out_proj$", {2: ("model", "data")}),
+    (r"(conv_w|conv_b|A_log|D|dt_bias)$", {1: ("model",), 2: (None, "model")}),
+    (r".*", {}),
+]
+
+
+def _spec_for(path: str, ndim: int, fsdp: bool) -> tuple:
+    """The rules' spec of a leaf at ``path`` with ``ndim`` axes (padded
+    with None to ``ndim``): the JAX ``_spec_for`` on a (data, model)
+    mesh."""
+    for pat, table in _RULES:
+        if re.search(pat, path):
+            dims = table.get(ndim)
+            if dims is None:
+                for nd, d in table.items():
+                    if nd < ndim:
+                        dims = (None,) * (ndim - nd) + d
+                        break
+            if dims is None:
+                return (None,) * ndim
+            if not fsdp:
+                dims = tuple(None if d == "data" else d for d in dims)
+            return dims
+    return (None,) * ndim
+
+
+def param_pspecs(params: dict, fsdp: bool = True, path: str = "") -> dict:
+    """The spec tree of ``params`` by the train rules, before
+    divisibility (``sanitize_pspecs``)."""
+    return {k: param_pspecs(v, fsdp, f"{path}/{k}")
+            if isinstance(v, dict)
+            else _spec_for(f"{path}/{k}", v.dim(), fsdp)
+            for k, v in params.items()}
+
+
+def _names(entry) -> tuple:
+    """The mesh axes of one spec entry (None, a name, or names)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: tuple) -> set:
+    """The mesh axes a leaf of ``spec`` is split over; it is replicated
+    over every other axis."""
+    return {a for e in spec for a in _names(e)}
+
+
+def sanitize_pspecs(specs: dict, params: dict, shape: dict) -> dict:
+    """``specs`` with every entry whose axes' product does not divide the
+    leaf's size dropped to None (replicated), as the JAX
+    ``sanitize_pspecs`` does; ``shape`` maps mesh axis names to sizes."""
+    out = {}
+    for k, spec in specs.items():
+        if isinstance(spec, dict):
+            out[k] = sanitize_pspecs(spec, params[k], shape)
+            continue
+        fixed = []
+        for size, entry in zip(params[k].shape, spec):
+            n = math.prod(shape[a] for a in _names(entry))
+            fixed.append(entry if entry is not None and size % n == 0
+                         else None)
+        out[k] = tuple(fixed)
+    return out
+
+
+def train_dims(cfg, params: dict, shape: tuple) -> dict:
+    """The spec tree ``params`` (whole leaves, or tensors of their shape)
+    take on a D x M mesh (``shape``): the rules with the config's FSDP
+    choice, sanitized."""
+    d, m = shape
+    return sanitize_pspecs(param_pspecs(params, fsdp=cfg.fsdp_params),
+                           params, {"data": d, "model": m})
+
+
+def state_pspecs(dims: dict, opt: dict) -> dict:
+    """The spec tree of a training state ``{"params", "opt"}`` from its
+    parameters' (``train_dims``): the AdamW moments and the compression
+    error placed like their parameters (ZeRO: the FSDP axis shards them
+    too), the step replicated (the JAX ``steps.state_pspecs``)."""
+    out_opt = {"mu": dims, "nu": dims, "step": ()}
+    if "error" in opt:
+        out_opt["error"] = dims
+    return {"params": dims, "opt": out_opt}
+
+
+def _block(spec: tuple, mesh, coord: Optional[dict] = None) -> list:
+    """(axis, block index, blocks) of every sharded axis of a leaf of
+    ``spec`` on the rank of ``mesh`` at ``coord`` (axis name -> index;
+    default this rank)."""
+    out = []
+    for axis, entry in enumerate(spec):
+        names = _names(entry)
+        if not names:
+            continue
+        idx, n = 0, 1
+        for a in names:
+            ax = mesh.axis(a)
+            at = ax.index if coord is None else coord[a]
+            idx, n = idx * ax.size + at, n * ax.size
+        out.append((axis, idx, n))
+    return out
+
+
+def shard_leaf(x: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of the whole leaf ``x`` under ``spec``, a tensor
+    of its own (so that the whole leaf can be freed), or ``x`` itself
+    where the spec replicates it."""
+    blocks = _block(spec, mesh)
+    if not blocks:
+        return x
+    for axis, idx, n in blocks:
+        w = x.shape[axis] // n
+        x = x.narrow(axis, idx * w, w)
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(tree: dict, dims: dict, mesh) -> dict:
+    """``shard_leaf`` over a tree (``dims`` of the same structure; a leaf
+    whose spec is ``()`` replicates)."""
+    return {k: shard_tree(v, dims[k], mesh) if isinstance(v, dict)
+            else shard_leaf(v, dims[k], mesh) for k, v in tree.items()}
+
+
+def shard_state(state: dict, dims: dict, mesh) -> dict:
+    """This rank's share of a whole training state ``{"params", "opt"}``
+    under ``state_pspecs``."""
+    return shard_tree(state, state_pspecs(dims, state["opt"]), mesh)
+
+
+def gather_leaf(x: torch.Tensor, spec: tuple, mesh,
+                host: bool = False) -> torch.Tensor:
+    """The whole leaf from every rank's block ``x`` under ``spec`` (one
+    all-gather over the mesh), on every rank: on ``x``'s device, or in
+    host memory with ``host``.  A replicated leaf comes back as it is (a
+    host copy with ``host``)."""
+    if not _block(spec, mesh):
+        return x.detach().to("cpu", copy=True) if host else x
+    src = x.detach()
+    if host and mesh.backend == "gloo":
+        src = src.cpu()
+    parts = C.all_gather(src.unsqueeze(0), mesh.world, 0)
+    if host:
+        parts = parts.cpu()
+    full = parts.new_empty(full_shape(x, spec, mesh))
+    m = mesh.shape[1]
+    for r in range(mesh.world.size):
+        view = full
+        for axis, idx, n in _block(spec, mesh, {"data": r // m,
+                                                "model": r % m}):
+            w = full.shape[axis] // n
+            view = view.narrow(axis, idx * w, w)
+        view.copy_(parts[r])
+    return full
+
+
+def full_shape(x: torch.Tensor, spec: tuple, mesh) -> tuple:
+    """The whole leaf's shape from a rank's block ``x`` of it."""
+    shape = list(x.shape)
+    for axis, _, n in _block(spec, mesh):
+        shape[axis] *= n
+    return tuple(shape)
+
+
+def owned(dims: dict, mesh) -> dict:
+    """For each leaf, whether this rank counts it in a sum over the mesh
+    (a global norm, a KL): True on exactly one rank of every group of
+    ranks holding the same block, the one at index 0 of each axis the
+    leaf is replicated over."""
+    def one(spec):
+        used = spec_axes(spec)
+        return all(mesh.axis(a).index == 0 for a in ("data", "model")
+                   if a not in used)
+
+    return {k: owned(v, mesh) if isinstance(v, dict) else one(v)
+            for k, v in dims.items()}

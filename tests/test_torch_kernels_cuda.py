@@ -769,10 +769,14 @@ def _prefill_kernels(*cases):
     """Per case (seed, S, H, Hkv, D, offset, span) of ``_prefill_bf16``:
     the names of the prefill kernels one call launches, from torch.profiler
     in a fresh process (in the test process it records no kernels when
-    the test runs alone), and the call's launch count."""
+    the test runs alone), and the call's launch count.  A profile that
+    recorded no prefill kernel at all for some case (seen once on the
+    card in a run of the whole file, never in a run of the test alone) is
+    taken once more, with a warning that says so."""
     import json
     import os
     import subprocess
+    import warnings
     from pathlib import Path
 
     here = Path(__file__).resolve().parent
@@ -780,11 +784,20 @@ def _prefill_kernels(*cases):
         filter(None, [str(here.parent / "src"),
                       os.environ.get("PYTHONPATH")])))
     args = [json.dumps(c) for c in cases]
-    out = subprocess.run([sys.executable, "-c", _PROFILE_PREFILL, str(here),
-                          *args], env=env, capture_output=True, text=True,
-                         check=True)
-    got = json.loads(out.stdout.strip().splitlines()[-1])
-    return [got[a] for a in args]
+
+    def profiled():
+        out = subprocess.run([sys.executable, "-c", _PROFILE_PREFILL,
+                              str(here), *args], env=env,
+                             capture_output=True, text=True, check=True)
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        return [got[a] for a in args]
+
+    got = profiled()
+    if not all(g["names"] for g in got):
+        warnings.warn(f"the prefill profile recorded no kernel name for "
+                      f"some case ({got}); profiling again")
+        got = profiled()
+    return got
 
 
 @pytest.mark.parametrize("kc", [1024, 64])
@@ -2067,6 +2080,26 @@ def test_cuda_spec_round_replay_equals_the_eager_round(cuda_device):
                 if n != "len":
                     a, b = a[:, :-1], b[:, :-1]
                 assert torch.equal(a, b), n
+
+
+def test_cuda_train_mesh_collectives_equal_the_cpu_ones(cuda_device):
+    """Each autograd collective of the train mesh (``sharding.collectives``:
+    copy, reduce, gather with both backwards, reduce-scatter, split),
+    forward and backward, on two gloo ranks sharing the card (every
+    collective staged through host memory) equals the same on two CPU
+    ranks, bit for bit."""
+    import _train_mesh_ranks as TR
+    from repro_torch.launch import mesh as meshlib
+
+    with meshlib.Ranks(2, "cuda", timeout_s=300) as ranks:
+        got = ranks.run(TR.collective_roundtrip, "cuda")
+    with meshlib.Ranks(2, "cpu", timeout_s=300) as ranks:
+        want = ranks.run(TR.collective_roundtrip, "cpu")
+    for rank, (g, w) in enumerate(zip(got, want)):
+        assert [n for n, _, _ in g] == [n for n, _, _ in w]
+        for (name, y, gx), (_, y0, gx0) in zip(g, w):
+            assert torch.equal(y, y0), (rank, name)
+            assert torch.equal(gx, gx0), (rank, name)
 
 
 if __name__ == "__main__":
