@@ -82,6 +82,36 @@ def deterministic(device: torch.device):
         torch.utils.deterministic.fill_uninitialized_memory = fill
 
 
+def _summed_axes(spec: tuple, partial: bool, mesh) -> list:
+    """The mesh axes over which a rank's gradient of a leaf of ``spec`` is
+    summed (``_sharded_grads``): ``data`` where the leaf replicates over
+    it, ``model`` where the model calls it ``partial``; axes of one rank
+    left out."""
+    axes = [mesh.data] if "data" not in P.spec_axes(spec) else []
+    if partial:
+        axes.append(mesh.model)
+    return [a for a in axes if a.size > 1]
+
+
+def _kl_scope(dims: dict, partial: dict, mesh) -> tuple:
+    """(in the loss, in the metric): whether this rank adds a posterior's
+    KL (by its path, e.g. ``head``) to its share of the loss, and to the
+    KL metric.  In the loss: on the rank at index 0 of every axis its
+    gradient is summed over, so the sum counts it once; in the metric:
+    where the rank ``owned`` its block (``sharding.partition.owned``).
+    A head split on every axis counts on every rank both ways; a whole
+    head (a vocabulary the mesh does not divide) on data rank 0 of each
+    model rank in the loss, on rank 0 alone in the metric."""
+    specs, parts = dict(T.items(dims)), dict(T.items(partial))
+    owned = dict(T.items(P.owned(dims, mesh)))
+
+    def in_loss(path):
+        return all(a.index == 0 for a in _summed_axes(
+            specs[f"{path}/mu"], parts[f"{path}/mu"], mesh))
+
+    return in_loss, lambda path: owned[f"{path}/mu"]
+
+
 def _sharded_grads(grads: list, dims: dict, partial: dict, mesh) -> list:
     """The rank's whole gradients of its blocks from its partial ones:
     a leaf that replicates over ``data`` (every leaf FSDP does not shard)
@@ -95,10 +125,7 @@ def _sharded_grads(grads: list, dims: dict, partial: dict, mesh) -> list:
     step's one product does."""
     out = []
     for g, (_, spec), part in zip(grads, T.items(dims), T.leaves(partial)):
-        axes = [mesh.data] if "data" not in P.spec_axes(spec) else []
-        if part:
-            axes.append(mesh.model)
-        axes = [a for a in axes if a.size > 1]
+        axes = _summed_axes(spec, part, mesh)
         if axes:
             r = g.float()
             for a in axes:
@@ -135,9 +162,9 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
     (i+1)·B/mb), as the reference's reshape of the global batch gives.
     The rank's gradients are completed across the ranks
     (``_sharded_grads``), AdamW runs on its blocks, and every metric is
-    the global one, equal on every rank.  The dense and vlm families
-    train sharded; the others raise NotImplementedError (ROADMAP.md item
-    13b-2), as does top-k compression in AdamW."""
+    the global one, equal on every rank.  Every LM family trains
+    sharded; a width that the family's sharded forward cannot split
+    raises NotImplementedError (``registry.check_trains_sharded``)."""
     svi = svi_cfg or SVIConfig()
     owned = None
     if mesh is not None:
@@ -146,14 +173,14 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
     nll = nll_fn or (lambda p, b, k: M.nll_loss(p, cfg, b, k, noise=noise,
                                                  mesh=mesh, dims=dims))
 
-    def grads_of(params, batch, key, step):
+    def grads_of(params, batch, key, step, kl_scope):
         leaves = T.leaves(params)
         with torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
             try:
                 loss, aux = elbo_loss(nll, params, batch, key, step, svi,
-                                      mesh=mesh)
+                                      mesh=mesh, kl_scope=kl_scope)
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                             materialize_grads=True)
             finally:
@@ -169,16 +196,21 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
         step = int(opt["step"])
         key = K.fold_in(K.root(seed), step)
         device = T.leaves(params)[0].device
+        partial = scope = None
+        if mesh is not None:
+            partial = M.model_partial(cfg, dims, mesh,
+                                      batch["tokens"].shape[1])
+            scope = _kl_scope(dims, partial, mesh)
         with deterministic(device):
             if micro_batches == 1:
-                loss, aux, grads = grads_of(params, batch, key, step)
+                loss, aux, grads = grads_of(params, batch, key, step, scope)
             else:
                 acc, losses, auxs = None, [], []
                 for i in range(micro_batches):
                     mb = {k: v.reshape(micro_batches, -1, *v.shape[1:])[i]
                           for k, v in batch.items()}
                     l_i, a_i, g_i = grads_of(params, mb, K.fold_in(key, i),
-                                             step)
+                                             step, scope)
                     acc = [g.float() for g in g_i] if acc is None else \
                         [a + g.float() for a, g in zip(acc, g_i)]
                     losses.append(l_i)
@@ -190,10 +222,8 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
                        for k in auxs[0]}
             sharded = {}
             if mesh is not None:
-                partial = M.model_partial(cfg, dims, mesh,
-                                          batch["tokens"].shape[1])
                 grads = _sharded_grads(list(grads), dims, partial, mesh)
-                sharded = {"mesh": mesh, "owned": owned}
+                sharded = {"mesh": mesh, "owned": owned, "dims": dims}
             params, opt, om = adamw.apply_updates(
                 params, T.unflatten(params, list(grads)), opt, opt_cfg,
                 **sharded)

@@ -21,15 +21,20 @@
     ``make_mesh_for_args``: 2 x 2 with exactly four ranks or cards, else
     none.  Each rank draws the whole state from the seed, keeps its share
     and reads its rows of every global batch; checkpoints hold whole
-    leaves and restore under any mesh.  The dense and vlm families train
-    sharded; the others raise NotImplementedError under a mesh (ROADMAP.md
-    item 13b-2).
+    leaves and restore under any mesh.  Every LM family trains sharded
+    (the moe family Megatron over each expert's ff with one dispatch
+    group a data rank, the ssm and hybrid families' Mamba2 blocks
+    head-parallel, the encdec family Megatron in both stacks); a width
+    the mesh does not divide where the family's forward splits it raises
+    NotImplementedError (``registry.check_trains_sharded``).
 
 Every family trains (``registry.TRAIN_FAMILIES``).  ``--full`` trains
 at full width; where one card cannot hold a family's whole training
 state (bf16 weights and gradients, f32 moments, the f32 head), it is cut
 in depth to ``CARD_DEPTH``, and grok-1-314b,
-too large for one card at any depth, is refused.
+too large for one card at any depth, is refused (NotImplementedError:
+it waits for a machine of more cards than the 80 GB one the port is
+measured on).
 ``train_bnn`` is the paper BNN's SVI loop (the reference's quickstart
 and tests train it the same way).
 
@@ -103,14 +108,16 @@ TOO_LARGE = {"grok_1_314b": "its state does not fit one 80 GB card even at "
 
 def train_config(arch: str, reduced_cfg: bool = True):
     """The config ``arch`` trains at: reduced, or at full width, cut in
-    depth to ``CARD_DEPTH`` where it has an entry.  Raises ValueError for
-    a full-width arch that no depth fits on one card."""
+    depth to ``CARD_DEPTH`` where it has an entry.  Raises
+    NotImplementedError for a full-width arch that no depth fits on one
+    card: it waits for a machine with more cards."""
     cfg = get_config(arch)
     if reduced_cfg:
         return reduced(cfg)
     if arch in TOO_LARGE:
-        raise ValueError(f"{arch} does not train at full width: "
-                         f"{TOO_LARGE[arch]}")
+        raise NotImplementedError(
+            f"{arch} does not train at full width: {TOO_LARGE[arch]}; it "
+            "waits for a machine with more cards")
     if arch in CARD_DEPTH:
         cfg = dataclasses.replace(cfg, num_layers=CARD_DEPTH[arch])
     return cfg
@@ -309,8 +316,8 @@ def train_rank(tp, args) -> dict:
 def run(args) -> dict:
     """``train(args)``, on the train mesh the arguments name: spawned
     ranks (rank 0's result, without the state), or this process's share
-    when it already is a rank (``torchrun``).  A family that does not
-    train sharded raises before a rank starts."""
+    when it already is a rank (``torchrun``).  An arch that cannot train
+    at the arguments' width raises before a rank starts."""
     shape = mesh_shape(args)
     if shape is None:
         return train(args)

@@ -23,7 +23,17 @@ Training (``encode``, ``decode_train``, ``nll_loss``) runs the encoder
 over the batch's ``frames`` and the decoder over its tokens with each
 layer's cross K/V built from the encoder output inside the layer, as in
 the reference; under ``cfg.remat`` every layer of both stacks is
-recomputed in the backward pass.
+recomputed in the backward pass.  Under a train mesh (``mesh=, dims=``)
+the encoder and decoder blocks are Megatron over ``model`` as the dense
+blocks are (``layers.enter`` / ``leave``, weights FSDP-gathered where the
+config asks), with the stream whole on every model rank (the JAX encdec
+has no sequence-parallel constraint).  The encoder memory enters each
+decoder layer's cross-attention K / V through ``collectives.copy``: a
+rank builds only its heads' K / V from it, so its gradient of the memory
+is partial and the copy's backward sums it over ``model``.  The head of
+seamless-m4t-medium's 256206 ids is whole where the mesh's D·M does not
+divide it, and its embedding's vocabulary where M does not
+(``transformer.head_loss``, ``transformer.embed``).
 """
 
 from __future__ import annotations
@@ -100,38 +110,46 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device,
 # ---------------------------------------------------------------------------
 
 def encode(params, cfg: ArchConfig, frames: torch.Tensor,
-           tp=None) -> torch.Tensor:
+           tp=None, mesh=None, dims=None) -> torch.Tensor:
     """frames: (B, S_enc, d) stub frontend embeddings -> encoder memory
     (B, S_enc, d) in the parameter dtype: bidirectional self-attention
     with RoPE at positions [0, S_enc), then ``enc_norm``.  Under autograd
-    with ``cfg.remat`` each layer is recomputed in the backward pass."""
+    with ``cfg.remat`` each layer is recomputed in the backward pass;
+    under a train ``mesh`` each is Megatron over ``model``."""
     x = frames.to(L.dtype_of(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     remat = T.remats(cfg)
+    spec = None if mesh is None else T.layer_specs(dims["encoder"])
     for bp in T.unstacked(params["encoder"]):
-        def fwd(xx, bp=bp):
-            h, _ = L.apply_attention(bp["attn"], cfg,
-                                     L.rms_norm(xx, bp["ln1"]), rot=rot,
-                                     causal=False, tp=tp)
-            xx = xx + h
-            return xx + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(xx, bp["ln2"]),
-                                    tp)
+        def fwd(xx, bp=bp, tp=tp):
+            if mesh is not None:
+                bp, tp = L.gathered(bp, spec, mesh), mesh.model
+            h, _ = L.apply_attention(bp["attn"], cfg, L.enter(
+                L.rms_norm(xx, bp["ln1"]), mesh, False), rot=rot,
+                causal=False, tp=tp)
+            xx = xx + L.leave(h, mesh, False)
+            return xx + L.leave(L.apply_mlp(bp["mlp"], cfg, L.enter(
+                L.rms_norm(xx, bp["ln2"]), mesh, False), tp), mesh, False)
         x = T.rematted(fwd, x) if remat else fwd(x)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _dec_block(bp, cfg: ArchConfig, x, self_attend, cross_kv, tp=None):
+def _dec_block(bp, cfg: ArchConfig, x, self_attend, cross_kv, tp=None,
+               mesh=None):
     """One decoder layer: ``self_attend(attn_params, normed_x) -> (out,
     kv)`` (prefill, decode or a prompt chunk), cross-attention over
-    ``cross_kv``, the MLP.  Returns (x, kv)."""
-    h, kv = self_attend(bp["self_attn"], L.rms_norm(x, bp["ln1"]))
-    x = x + h
-    hc, _ = L.apply_attention(bp["cross_attn"], cfg,
-                              L.rms_norm(x, bp["ln_x"]), cross_kv=cross_kv,
-                              tp=tp)
-    x = x + hc
-    x = x + L.apply_mlp(bp["mlp"], cfg, L.rms_norm(x, bp["ln2"]), tp)
+    ``cross_kv``, the MLP.  Returns (x, kv).  Under a train ``mesh`` the
+    stream enters and leaves each product through the mesh's
+    collectives."""
+    h, kv = self_attend(bp["self_attn"], L.enter(L.rms_norm(x, bp["ln1"]),
+                                                 mesh, False))
+    x = x + L.leave(h, mesh, False)
+    hc, _ = L.apply_attention(bp["cross_attn"], cfg, L.enter(
+        L.rms_norm(x, bp["ln_x"]), mesh, False), cross_kv=cross_kv, tp=tp)
+    x = x + L.leave(hc, mesh, False)
+    x = x + L.leave(L.apply_mlp(bp["mlp"], cfg, L.enter(
+        L.rms_norm(x, bp["ln2"]), mesh, False), tp), mesh, False)
     return x, kv
 
 
@@ -140,34 +158,56 @@ def _dec_block(bp, cfg: ArchConfig, x, self_attend, cross_kv, tp=None):
 # ---------------------------------------------------------------------------
 
 def decode_train(params, cfg: ArchConfig, tokens: torch.Tensor,
-                 enc_out: torch.Tensor) -> torch.Tensor:
+                 enc_out: torch.Tensor, mesh=None,
+                 dims=None) -> torch.Tensor:
     """tokens: (B, S), enc_out: (B, S_enc, d) -> hidden (B, S, d): each
     decoder layer's causal self-attention over positions [0, S), then
     cross-attention over ``layers.make_cross_kv`` of ``enc_out`` (built
     inside the layer), then the MLP; layers from
     ``transformer.unstacked``, each recomputed in the backward pass under
-    ``cfg.remat``."""
-    x = L.apply_embed(params["embed"], tokens)
+    ``cfg.remat``.  Under a train ``mesh`` each layer is Megatron over
+    ``model`` and ``enc_out`` enters its cross K / V through
+    ``collectives.copy`` (``layers.enter``)."""
+    x = T.embed(params, tokens, mesh, dims)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     remat = T.remats(cfg)
+    spec = None if mesh is None else T.layer_specs(dims["decoder"])
     for bp in T.unstacked(params["decoder"]):
         def fwd(xx, mem, bp=bp):
+            tp = None
+            if mesh is not None:
+                bp, tp = L.gathered(bp, spec, mesh), mesh.model
+            ckv = L.make_cross_kv(bp["cross_attn"], cfg,
+                                  L.enter(mem, mesh, False), tp)
             return _dec_block(bp, cfg, xx, lambda p, u: L.apply_attention(
-                p, cfg, u, rot=rot), L.make_cross_kv(bp["cross_attn"], cfg,
-                                                     mem))[0]
+                p, cfg, u, rot=rot, tp=tp), ckv, tp, mesh)[0]
         x = T.rematted(fwd, x, enc_out) if remat else fwd(x, enc_out)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None):
+def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None,
+             mesh=None, dims=None):
     """batch: ``frames`` (B, S_enc, d), ``tokens`` (B, S), ``labels`` (B,
     S).  The mean next-token NLL of the decoder's output under one
     weight-space draw of the head (``transformer.head_loss``): ``(nll,
-    {"accuracy"})``, as ``repro.models.encdec.nll_loss``."""
-    enc_out = encode(params, cfg, batch["frames"])
-    hidden = decode_train(params, cfg, batch["tokens"], enc_out)
-    return T.head_loss(params, cfg, hidden, batch["labels"], key, noise)
+    {"accuracy"})``, as ``repro.models.encdec.nll_loss``; under a train
+    ``mesh`` the batch is the data rank's rows and the value its
+    share."""
+    enc_out = encode(params, cfg, batch["frames"], mesh=mesh, dims=dims)
+    hidden = decode_train(params, cfg, batch["tokens"], enc_out, mesh, dims)
+    return T.head_loss(params, cfg, hidden, batch["labels"], key, noise,
+                       mesh=mesh, dims=dims)
+
+
+# the dense rule, over both stacks
+check_sharded = T.check_sharded
+
+
+# nothing is model-partial: the stream is whole on every model rank (no
+# seq_parallel, ``registry.check_trains_sharded``), and the memory's
+# partial gradient is summed by its copy
+model_partial = T.model_partial
 
 
 # ---------------------------------------------------------------------------

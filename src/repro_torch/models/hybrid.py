@@ -22,7 +22,15 @@ the step replays it on the cache's fixed addresses.
 Training (``forward``, ``nll_loss``) walks the same groups with causal
 attention over the whole sequence and no cache; the shared block's
 gradient is the sum over its applications (autograd adds them, as the
-reference's scan does).
+reference's scan does); the shared block is ``transformer._block_fwd``,
+the dense block.  Under a train mesh (``mesh=, dims=``) the Mamba2
+blocks are ``ssm.apply_block``'s head-parallel blocks, and each
+application of the shared attention + MLP block is Megatron over
+``model`` (the mesh's model axis as the layers' ``tp``, the stream
+through ``layers.enter`` / ``leave``), its weights
+FSDP-gathered over ``data`` at each application, so the gradient of
+every application reduce-scatters into the rank's block and the sum over
+applications is autograd's.  The stream is replicated over ``model``.
 """
 
 from __future__ import annotations
@@ -93,34 +101,53 @@ def _shared_fwd(sp, cfg: ArchConfig, x: torch.Tensor, attend, tp=None):
 # training
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, mesh=None,
+            dims=None) -> torch.Tensor:
     """tokens: (B, S) -> hidden (B, S, d).  Layer i runs the shared block
     first where i opens a group (``i % attn_every == 0``, causal over
     positions [0, S)), then its Mamba block in the chunked form from a
     zero state: the reference's ``lax.cond`` inside its layer scan.  With
     ``cfg.remat`` under autograd each layer, the shared application with
-    it, is recomputed in the backward pass (``transformer.rematted``)."""
-    x = L.apply_embed(params["embed"], tokens)
+    it, is recomputed in the backward pass (``transformer.rematted``).
+    Under a train ``mesh`` the tokens are the data rank's rows and the
+    blocks run sharded (the module docstring)."""
+    x = T.embed(params, tokens, mesh, dims)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     sp = params["shared"]
+    spec = shared_spec = None
+    if mesh is not None:
+        spec, shared_spec = T.layer_specs(dims["blocks"]), dims["shared"]
     remat = T.remats(cfg)
     for i, bp in enumerate(T.unstacked(params["blocks"])):
         def fwd(xx, bp=bp, opens=i % cfg.attn_every == 0):
             if opens:
-                xx, _ = _shared_fwd(sp, cfg, xx, lambda p, u:
-                                    L.apply_attention(p, cfg, u, rot=rot))
-            return ssm.apply_block(bp, cfg, xx)[0]
+                xx, _ = T._block_fwd(sp, cfg, xx, rot, mesh=mesh,
+                                     spec=shared_spec)
+            return ssm.apply_block(bp, cfg, xx, mesh=mesh, spec=spec)[0]
         x = T.rematted(fwd, x) if remat else fwd(x)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None):
+def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None,
+             mesh=None, dims=None):
     """Mean next-token NLL with one weight-space draw of the head
     (``transformer.head_loss``): ``(nll, {"accuracy"})``, as
-    ``repro.models.hybrid.nll_loss``."""
-    hidden = forward(params, cfg, batch["tokens"])
-    return T.head_loss(params, cfg, hidden, batch["labels"], key, noise)
+    ``repro.models.hybrid.nll_loss``; under a train ``mesh`` this data
+    rank's share."""
+    hidden = forward(params, cfg, batch["tokens"], mesh, dims)
+    return T.head_loss(params, cfg, hidden, batch["labels"], key, noise,
+                       mesh=mesh, dims=dims)
+
+
+def check_sharded(cfg: ArchConfig, dims: dict, mesh) -> None:
+    """The shared block's Megatron leaves (``transformer.check_sharded``)
+    and the Mamba2 blocks' head-parallel ones (``ssm.check_sharded``)."""
+    T.check_sharded(cfg, dims, mesh)
+    ssm.check_sharded(cfg, dims, mesh)
+
+
+model_partial = ssm.model_partial
 
 
 # ---------------------------------------------------------------------------

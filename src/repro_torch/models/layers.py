@@ -27,8 +27,9 @@ package's train rules (``sharding.partition.train_dims``), the JAX
 ``sharding.collectives``.  ``wq wk wv w1 w3`` (and the biases) are
 column-parallel and ``wo w2`` row-parallel, so the products leave partial
 sums (``leave``); a weight FSDP-sharded over ``data`` is gathered a layer
-at a time first (``gathered``); the stream enters the column-parallel
-products through ``enter``.  Where the heads do not divide the model axis,
+at a time first (``gathered``), and one whose columns every model rank
+reads (the Mamba2 ``in_proj``) over ``model`` (``gathered_model``); the
+stream enters the column-parallel products through ``enter``.  Where the heads do not divide the model axis,
 q / k / v are gathered under autograd and each rank's columns of the
 output go into its rows of ``wo`` (the JAX package shards the query chunks
 there instead).
@@ -59,9 +60,17 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 # primitives
 # --------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+             axis=None):
+    """RMSNorm over x's last axis; with a train mesh's ``axis`` x is the
+    rank's slice of a wider vector, whose ranks' sums of squares are
+    all-reduced forward and backward."""
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if axis is None:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    else:
+        var = C.copy(C.reduce(torch.sum(x32 * x32, dim=-1, keepdim=True),
+                              axis), axis) / (x.shape[-1] * axis.size)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
@@ -644,17 +653,33 @@ def head_logits_sampled(p, x: torch.Tensor, cfg: ArchConfig,
 
 def gathered(tree: dict, spec: dict, mesh) -> dict:
     """``tree``'s leaves as their products use them: a leaf whose spec
-    gives ``data`` alone to an axis (FSDP) gathered over ``data`` along
-    it (its backward reduce-scatters the gradient); the rest as they
-    are."""
+    puts ``data`` on an axis (FSDP; alone, or first in ``("data",
+    "model")``) gathered over ``data`` along it (its backward
+    reduce-scatters the gradient); the rest as they are.  An axis on
+    ``("data", "model")`` (block d·M + m) gathered over ``data`` leaves
+    model rank m blocks m, M + m, ... of it, the same blocks in every
+    leaf of that layout."""
     def one(w, sp):
         for axis, entry in enumerate(sp):
-            if entry == "data":
+            if entry == "data" or (isinstance(entry, tuple)
+                                   and "data" in entry):
                 return C.gather(w, mesh.data, axis)
         return w
 
     return {k: gathered(v, spec[k], mesh) if isinstance(v, dict)
             else one(v, spec[k]) for k, v in tree.items()}
+
+
+def gathered_model(w: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """``w`` whole over ``model`` where its spec splits an axis on
+    ``model`` alone (a weight every model rank reads columns of, its own
+    and others'): all-gathered along that axis, the backward
+    reduce-scattering the ranks' partial gradients back to the rank's
+    block; ``w`` itself otherwise."""
+    for axis, entry in enumerate(spec):
+        if entry == "model":
+            return C.gather(w, mesh.model, axis, grad="sum")
+    return w
 
 
 def enter(x: torch.Tensor, mesh, sp: bool) -> torch.Tensor:

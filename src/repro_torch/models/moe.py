@@ -12,10 +12,14 @@ and the combine weights gather the results back (GShard semantics:
 capacity overflow drops the assignment).  The
 shared experts (DeepSeekMoE) see every token.
 
-The dispatch is one group (the JAX package's ``_dispatch_groups`` without
-a mesh).  Under a tensor-parallel serving mesh the experts, the router and
-the shared experts replicate (the serve rules), so every rank runs the
-whole dispatch; only the attention and the head take ``tp``.  Every step
+The dispatch runs in ``groups`` G (the JAX package's ``_dispatch_groups``,
+1 without a mesh: serving and the unsharded step): the B·S tokens split
+B-major into G groups of Tg, each routed against its own capacity C =
+max(⌊Tg·K / E · capacity_factor⌋, 8), and the aux loss is the mean over
+the groups.  Under a tensor-parallel serving mesh the experts, the router
+and the shared experts replicate (the serve rules), so every rank runs
+the whole dispatch; only the attention and the head take ``tp``.  Every
+step
 is a fixed-shape tensor op with integer indices — no boolean-mask
 indexing, no one-hot of unknown width, no host read — so a decode step
 captures in a CUDA graph.  Inactive
@@ -31,6 +35,29 @@ autograd: the gradient reaches the router through the renormalised
 top-k gates and the Switch aux loss only (the routing itself is
 discrete), and the capacity is computed per dispatch, so a micro-batch
 routes against its own capacity, as in the reference.
+
+Under a train mesh (``mesh=, dims=``; ``launch.mesh.TrainMesh``) the JAX
+rule table decides the layout.  Its first matching rule gives
+``experts_ep``'s and ``experts_tp``'s w1 / w3 / w2, and ``shared``'s, the
+dense MLP's spec (ff over ``model``, d FSDP over ``data``): the rules'
+expert lines (E over ``model`` for ``experts_ep``) come after the
+``(w1|w3)$`` and ``w2$`` lines and never match, in the JAX package too.
+So both layouts run Megatron over every expert's ff: each data rank is
+one dispatch group over its own rows; every model rank routes the data
+rank's whole token set (the stream enters through ``layers.enter``,
+gathered along S under grok's sequence-parallel stream), scatters it
+into its own buffer, runs all E experts on its ff columns and combines
+its partial outputs, the shared experts' too, into a partial y that
+``layers.leave`` sums over ``model``.  The router and the aux loss are
+computed identically on every model rank, while the combine's gradient
+reaches ``router/w`` and the stream as model-partial sums: the aux
+term's gradient is scaled by 1/M (``_grad_scaled``) so that the sums
+over ``model`` count it once, and ``model_partial`` marks ``router/w``.
+A data rank's share of the loss carries aux_weight · aux_d / D, so the
+data ranks' shares sum to the JAX value (the mean over the D groups);
+the reported ``aux_loss`` is that global mean.  The sharded step is held
+to the unsharded step with ``groups=D``: capacity per group is a
+different function from capacity over the whole batch.
 """
 
 from __future__ import annotations
@@ -45,6 +72,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import uncertain_head as U
+from repro_torch.sharding import collectives as C
 
 # ---------------------------------------------------------------------------
 # init
@@ -116,13 +144,15 @@ def _expert_ffn(ep, x: torch.Tensor) -> torch.Tensor:
 
 def route(bp, cfg: ArchConfig, xt: torch.Tensor, capacity: int,
           expert_offsets: Optional[torch.Tensor] = None) -> dict:
-    """The routing of tokens xt (T, d) against capacity C: renormalised
-    top-k gates ``topv`` and experts ``topi`` (T, K), each assignment's
-    queue position ``pos`` in its expert and whether it is kept
-    (``keep``), the (E,) assignment ``counts`` (dropped ones included)
-    and the aux loss.  With ``expert_offsets`` (E,) the global position
-    ``pos + expert_offsets[topi]`` decides ``keep``; ``pos`` stays local."""
-    T = xt.shape[0]
+    """The routing of tokens xt (..., T, d) against capacity C, each
+    leading index a dispatch group of its own: renormalised top-k gates
+    ``topv`` and experts ``topi`` (..., T, K), each assignment's queue
+    position ``pos`` in its expert within its group and whether it is
+    kept (``keep``), the (..., E) assignment ``counts`` (dropped ones
+    included) and the aux loss of each group (...,).  With
+    ``expert_offsets`` (E,) the global position ``pos +
+    expert_offsets[topi]`` decides ``keep``; ``pos`` stays local."""
+    lead, T = xt.shape[:-2], xt.shape[-2]
     E, K = cfg.num_experts, cfg.top_k
     gates = torch.softmax(xt.float() @ bp["router"]["w"], dim=-1)  # (T, E)
     topv, topi = torch.topk(gates, K, dim=-1)                  # (T, K)
@@ -132,15 +162,15 @@ def route(bp, cfg: ArchConfig, xt: torch.Tensor, capacity: int,
     # by comparison: F.one_hot reads the indices' range on the host
     experts = torch.arange(E, device=xt.device)
     onehot = (topi[..., None] == experts).float()              # (T, K, E)
-    aux = E * torch.sum(onehot.sum(1).mean(0) * gates.mean(0))
+    aux = E * torch.sum(onehot.sum(-2).mean(-2) * gates.mean(-2), dim=-1)
 
     # position of each (token, k) in its expert's queue: counts are small
     # integers, exact in f32; the cumsum runs in int32, which has a
     # deterministic CUDA form (the float one refuses the deterministic mode)
-    oh_flat = onehot.reshape(T * K, E)
+    oh_flat = onehot.reshape(*lead, T * K, E)
     oh_int = oh_flat.to(torch.int32)
-    pos = torch.sum((torch.cumsum(oh_int, dim=0, dtype=torch.int32) - 1)
-                    * oh_int, dim=-1).reshape(T, K).float()
+    pos = torch.sum((torch.cumsum(oh_int, dim=-2, dtype=torch.int32) - 1)
+                    * oh_int, dim=-1).reshape(*lead, T, K).float()
     if expert_offsets is None:
         keep = pos < capacity
     else:
@@ -148,15 +178,21 @@ def route(bp, cfg: ArchConfig, xt: torch.Tensor, capacity: int,
         # keep holds, as offsets are >= 0
         keep = (pos + expert_offsets[topi]) < capacity
     return {"topv": topv, "topi": topi, "pos": pos, "keep": keep,
-            "counts": oh_flat.sum(0), "aux": aux}
+            "counts": oh_flat.sum(-2), "aux": aux}
 
 
 def moe_ffn(bp, cfg: ArchConfig, x: torch.Tensor,
             expert_offsets: Optional[torch.Tensor] = None,
-            capacity: Optional[int] = None):
-    """x: (B, S, d) -> (y, aux_loss), top-k capacity dispatch.
+            capacity: Optional[int] = None, groups: int = 1):
+    """x: (B, S, d) -> (y, aux_loss), top-k capacity dispatch in
+    ``groups`` groups (the module docstring).
 
-    ``expert_offsets`` (E,) f32 and ``capacity`` serve chunked prefill:
+    The expert weights may be a model rank's ff columns (w1 / w3) and
+    rows (w2), as under a train mesh: y is then the rank's partial sum,
+    the combine being linear in the experts' outputs.
+
+    ``expert_offsets`` (E,) f32 and ``capacity`` serve chunked prefill
+    (one group):
     each expert's running assignment count, threaded across the prompt's
     chunks by the caller, is added to a token's local queue position, so
     its keep/drop decision is made against its place in the whole
@@ -165,22 +201,33 @@ def moe_ffn(bp, cfg: ArchConfig, x: torch.Tensor,
     assignments, as the batch cumsum does)."""
     B, S, d = x.shape
     Tn = B * S
-    E, K = cfg.num_experts, cfg.top_k
+    E, K, G = cfg.num_experts, cfg.top_k, groups
+    if Tn % G or (G > 1 and expert_offsets is not None):
+        raise ValueError(f"{Tn} tokens do not split into {G} dispatch "
+                         "groups (chunked prefill takes one)")
+    Tg = Tn // G
     C = capacity if capacity is not None else \
-        max(int(Tn * K / E * cfg.capacity_factor), 8)
+        max(int(Tg * K / E * cfg.capacity_factor), 8)
     xt = x.reshape(Tn, d)                                      # B-major
-    r = route(bp, cfg, xt, C, expert_offsets)
+    r = route(bp, cfg, xt if G == 1 else xt.reshape(G, Tg, d), C,
+              expert_offsets)
 
-    # flat bin e * (C + 1) + c; every dropped assignment lands in bin C,
-    # and kept (e, c) pairs are unique, so the add writes each kept bin once
+    # flat bin (g * E + e) * (C + 1) + c; every dropped assignment lands in
+    # its group's bin C of its expert, and kept (g, e, c) triples are
+    # unique, so the add writes each kept bin once
     cid = torch.where(r["keep"], r["pos"], float(C)).long()
-    flat = (r["topi"] * (C + 1) + cid).reshape(Tn * K)
+    flat = r["topi"] * (C + 1) + cid
+    if G > 1:
+        flat = flat + torch.arange(G, device=x.device)[:, None, None] \
+            * (E * (C + 1))
+    flat = flat.reshape(Tn * K)
     tok_rep = xt[:, None, :].expand(Tn, K, d).reshape(Tn * K, d)
-    buf = torch.zeros((E * (C + 1), d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((G * E * (C + 1), d), dtype=x.dtype, device=x.device)
     buf.index_add_(0, flat, tok_rep)
     ep = bp["experts_ep"] if "experts_ep" in bp else bp["experts_tp"]
-    out = _expert_ffn(ep, buf.reshape(E, C + 1, d)[:, :C])
-    out = F.pad(out, (0, 0, 0, 1)).reshape(E * (C + 1), d)    # bin C: 0
+    shape = (E, C + 1, d) if G == 1 else (G, E, C + 1, d)
+    out = _expert_ffn(ep, buf.reshape(shape)[..., :C, :])
+    out = F.pad(out, (0, 0, 0, 1)).reshape(G * E * (C + 1), d)  # bin C: 0
 
     w = (r["topv"] * r["keep"]).to(x.dtype).reshape(Tn * K, 1)
     y = (out.index_select(0, flat) * w).reshape(Tn, K, d).sum(1)
@@ -190,52 +237,101 @@ def moe_ffn(bp, cfg: ArchConfig, x: torch.Tensor,
             cfg.num_shared_experts, Tn, d))
         y = y + sh.sum(0)
     y = y.reshape(B, S, d)
+    aux = r["aux"] if G == 1 else r["aux"].mean()
     if expert_offsets is not None:
-        return y, r["aux"], expert_offsets + r["counts"]
-    return y, r["aux"]
+        return y, aux, expert_offsets + r["counts"]
+    return y, aux
 
 
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
 
-def _block_fwd(bp, cfg: ArchConfig, x, rot):
-    h, _ = L.apply_attention(bp["attn"], cfg, L.rms_norm(x, bp["ln1"]),
-                             rot=rot)
-    x = x + h
-    y, aux = moe_ffn(bp, cfg, L.rms_norm(x, bp["ln2"]))
-    return x + y, aux
+def _block_fwd(bp, cfg: ArchConfig, x, rot, mesh=None, spec=None,
+               sp: bool = False, groups: int = 1):
+    """A block; under a train ``mesh`` (``spec``: the layer's specs) the
+    weights FSDP-gathered, the attention Megatron as the dense block's,
+    and the MoE on the rank's ff columns of every expert, its partial y
+    leaving through ``layers.leave`` (``sp``: the S-sharded stream)."""
+    tp = None
+    if mesh is not None:
+        bp, tp = L.gathered(bp, spec, mesh), mesh.model
+    h, _ = L.apply_attention(bp["attn"], cfg,
+                             L.enter(L.rms_norm(x, bp["ln1"]), mesh, sp),
+                             rot=rot, tp=tp)
+    x = x + L.leave(h, mesh, sp)
+    y, aux = moe_ffn(bp, cfg, L.enter(L.rms_norm(x, bp["ln2"]), mesh, sp),
+                     groups=groups)
+    return x + L.leave(y, mesh, sp), aux
 
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, mesh=None,
+            dims=None, groups: int = 1):
     """tokens: (B, S) -> (hidden (B, S, d), aux): the mean over layers of
-    the Switch aux loss.  Layers come from ``transformer.unstacked``; with
-    ``cfg.remat`` under autograd each is recomputed in the backward pass
-    (``transformer.rematted``)."""
-    x = L.apply_embed(params["embed"], tokens)
+    the Switch aux loss, each layer's dispatched in ``groups`` groups.
+    Layers come from ``transformer.unstacked``; with ``cfg.remat`` under
+    autograd each is recomputed in the backward pass
+    (``transformer.rematted``).  Under a train ``mesh`` the tokens are
+    the data rank's rows, one dispatch group, and the hidden state is
+    (b, S / M, d) where ``transformer.seq_parallel``, else (b, S, d);
+    the aux is this data rank's group's."""
+    x = T.embed(params, tokens, mesh, dims)
+    sp = T.seq_parallel(cfg, mesh, tokens.shape[1])
+    spec = None
+    if mesh is not None:
+        spec = T.layer_specs(dims["blocks"])
+        if sp:
+            x = C.split(x, mesh.model, 1)
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     rot = L.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     remat = T.remats(cfg)
     auxes = []
     for bp in T.unstacked(params["blocks"]):
         def fwd(xx, bp=bp):
-            return _block_fwd(bp, cfg, xx, rot)
+            return _block_fwd(bp, cfg, xx, rot, mesh, spec, sp, groups)
         x, aux = T.rematted(fwd, x) if remat else fwd(x)
         auxes.append(aux)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, torch.stack(auxes).mean()
 
 
+def _grad_scaled(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x``'s value with its gradient scaled by ``s`` (the difference
+    ``x - x.detach()`` is exactly 0)."""
+    return x.detach() + (x - x.detach()) * s
+
+
 def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None,
-             aux_weight: float = 0.01):
+             aux_weight: float = 0.01, mesh=None, dims=None,
+             groups: int = 1):
     """The mean next-token NLL with one weight-space draw of the head
     (``transformer.head_loss``, soft-capped for grok) plus ``aux_weight``
     times the aux loss: ``(nll + aux_weight * aux, {"accuracy",
-    "aux_loss"})``, as ``repro.models.moe.nll_loss``."""
-    hidden, aux = forward(params, cfg, batch["tokens"])
+    "aux_loss"})``, as ``repro.models.moe.nll_loss`` (``groups``: its
+    dispatch groups).  Under a train ``mesh`` the value is this data
+    rank's share, aux_weight · aux_d / D with its gradient scaled by 1/M
+    (the module docstring), and ``aux_loss`` the global mean."""
+    hidden, aux = forward(params, cfg, batch["tokens"], mesh, dims, groups)
     nll, metrics = T.head_loss(params, cfg, hidden, batch["labels"], key,
-                               noise)
-    return nll + aux_weight * aux, {**metrics, "aux_loss": aux}
+                               noise, mesh=mesh, dims=dims)
+    if mesh is None:
+        return nll + aux_weight * aux, {**metrics, "aux_loss": aux}
+    d = mesh.data.size
+    share = _grad_scaled(aux / d, 1.0 / mesh.model.size)
+    return nll + aux_weight * share, {
+        **metrics, "aux_loss": C.all_reduce(aux.detach(), mesh.data) / d}
+
+
+# the dense rule: the attention's and every expert's w1 / w3 / w2 split
+# over ``model``
+check_sharded = T.check_sharded
+
+
+def model_partial(cfg: ArchConfig, dims: dict, mesh, S: int) -> dict:
+    """The dense rule, and ``router/w`` partial whatever the stream: the
+    combine's gradient reaches it through the rank's partial expert
+    outputs."""
+    return T.model_partial(cfg, dims, mesh, S, also=("router/w",))
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,10 @@ and, for training (every family):
     init_train_params(cfg, generator, device) -> params (head {mu, rho})
     train_params_from_numpy(tree, cfg, device) -> params
     serving_params(train_params) -> params the engine serves
-    nll_loss(params, cfg, batch, key, noise=None) -> (loss, aux)
+    nll_loss(params, cfg, batch, key, noise=None, mesh=None, dims=None)
+        -> (loss, aux)
+    check_trains_sharded(cfg, dims, mesh), model_partial(cfg, dims,
+        mesh, S)  (under a D x M train mesh: every family)
 
 Caches are slot-indexed and updated in place: every leaf carries the
 slot axis at position 1 ((L, B, ...) KV strips, SSM states, conv tails)
@@ -167,22 +170,23 @@ def serving_params(train_params: dict) -> dict:
             for k, v in train_params.items()}
 
 
-# the families whose train step runs sharded over a D x M train mesh
-SHARDED_TRAIN_FAMILIES = ("dense", "vlm")
+# the families whose sharded step keeps the stream whole over ``model``
+# (the JAX ssm, hybrid and encdec forwards have no ``constrain_seq``)
+NO_SEQ_PARALLEL = ("ssm", "hybrid", "encdec")
 
 
 def check_trains_sharded(cfg: ArchConfig, dims=None, mesh=None) -> None:
-    """Raise NotImplementedError for a family that does not train under a
-    train mesh yet (ROADMAP.md item 13b-2), or, given the parameters'
-    specs ``dims`` on ``mesh``, where they leave whole a leaf that the
-    family's sharded step splits."""
+    """Raise ValueError for an unknown family, NotImplementedError for
+    ``seq_parallel`` in a family without the S-sharded stream
+    (``NO_SEQ_PARALLEL``), and, given the parameters' specs ``dims`` on
+    ``mesh``, NotImplementedError where they leave whole a leaf that the
+    family's sharded step splits (a width the mesh does not divide: the
+    family's ``check_sharded``)."""
     _check_trains(cfg)
-    if cfg.family not in SHARDED_TRAIN_FAMILIES:
+    if cfg.seq_parallel and cfg.family in NO_SEQ_PARALLEL:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) does not train under a train mesh "
-            "yet: the moe, ssm, hybrid and encdec families are ROADMAP.md "
-            "item 13b-2; train it unsharded with --mesh none (without "
-            "--mesh, a job of exactly four ranks or cards trains at 2x2)")
+            f"{cfg.name}: the {cfg.family} family's sharded step has no "
+            "sequence-parallel stream; train it with seq_parallel=False")
     if dims is not None:
         module_for(cfg).check_sharded(cfg, dims, mesh)
 
@@ -201,15 +205,12 @@ def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None,
     family adds 0.01 x its Switch aux loss to the first value and
     reports it as ``"aux_loss"``.  The batch carries ``tokens`` and
     ``labels``, plus ``frames`` (encdec) or ``prefix_embeds`` (vlm).
-    Under a train ``mesh`` (with the parameters' specs ``dims``) the
-    dense and vlm families run on the rank's shards
-    (``transformer.nll_loss``); the others raise NotImplementedError."""
+    Under a train ``mesh`` (with the parameters' specs ``dims``) every
+    family runs on the rank's shards and returns this data rank's share
+    (``transformer.nll_loss``, ``moe.nll_loss``, ...)."""
     _check_trains(cfg)
-    if mesh is not None:
-        check_trains_sharded(cfg)
-        return module_for(cfg).nll_loss(params, cfg, batch, key, noise=noise,
-                                        mesh=mesh, dims=dims)
-    return module_for(cfg).nll_loss(params, cfg, batch, key, noise=noise)
+    return module_for(cfg).nll_loss(params, cfg, batch, key, noise=noise,
+                                    mesh=mesh, dims=dims)
 
 
 def supports_paged(cfg: ArchConfig) -> bool:

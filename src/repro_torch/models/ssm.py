@@ -20,6 +20,24 @@ place, so a CUDA graph captured over the step replays on the cache's
 fixed addresses.  Training (``forward``, ``nll_loss``) runs the chunked
 form with no state given, so none of those in-place writes lies on the
 autograd path.
+
+Under a train mesh (``mesh=, dims=``) the blocks are head-parallel: the
+JAX rules split ``A_log``, ``D``, ``dt_bias`` (H,) and ``out_proj``'s
+rows (d_in = H·P) over ``model``, which align with the heads, but also
+the columns of ``in_proj`` (2·d_in + 2N + H) and the channels of
+``conv_w`` / ``conv_b`` (d_in + 2N) in equal blocks that cut across the
+z | x | B | C | dt split (mamba2-370m at M 2: 4384 / 2 = 2192 columns a
+rank, while z ends at 2048).  So a rank cannot compute its heads from its
+own block: it gathers ``in_proj``, ``conv_w`` and ``conv_b`` over
+``model`` at use (``layers.gathered_model``, the backward
+reduce-scattering the gradient: the ranks use other ranks' columns, and
+all of them use B and C), takes its H/M heads' z, x and dt and the whole
+B and C, runs the SSD on its heads and leaves through ``out_proj``'s
+rows (``layers.leave``).  The stream is replicated over ``model`` (the
+JAX ssm has no sequence-parallel constraint).  The gate norm's RMS runs
+over the whole d_in: each rank's sum of squares is all-reduced over
+``model`` before it divides (forward and backward), and ``gate_ln``'s
+gradient, the rank's slice of it, is model-partial.
 """
 
 from __future__ import annotations
@@ -31,9 +49,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tree
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models import uncertain_head as U
+from repro_torch.sharding.partition import spec_axes
 
 
 def dims(cfg: ArchConfig):
@@ -179,12 +199,6 @@ def ssd_step(h, x, dt, A, Bm, Cm, D):
 # block
 # ---------------------------------------------------------------------------
 
-def _split_proj(cfg: ArchConfig, proj: torch.Tensor):
-    """(z, x, B, C, dt) views of in_proj's output."""
-    d_in, H, P, N = dims(cfg)
-    return torch.split(proj, [d_in, d_in, N, N, H], dim=-1)
-
-
 def _causal_conv(u, w, b):
     """u: (B, S, C); w: (W, C) depthwise causal; left-pad W - 1.  The W
     shifted products add in the reference's order, 0 + t0 + t1 + ..., in
@@ -196,10 +210,25 @@ def _causal_conv(u, w, b):
     return F.silu(out + b)
 
 
+def _own(w: torch.Tensor, parts: tuple, m: int, M: int) -> torch.Tensor:
+    """Model rank m's columns of ``w``'s last axis, laid out as ``parts``
+    (width, split): a part that is split gives the rank its m-th of M
+    blocks, the others come whole; ``w`` itself where M is 1."""
+    if M == 1:
+        return w
+    out, at = [], 0
+    for width, split in parts:
+        c = width // M if split else width
+        out.append(w[..., at + m * c:at + (m + 1) * c] if split
+                   else w[..., at:at + width])
+        at += width
+    return torch.cat(out, dim=-1)
+
+
 def apply_block(bp, cfg: ArchConfig, x: torch.Tensor,
                 ssm_state: Optional[torch.Tensor] = None,
                 conv_state: Optional[torch.Tensor] = None,
-                force_chunked: bool = False):
+                force_chunked: bool = False, mesh=None, spec=None):
     """x: (B, S, d) -> (x + out, h_last, new_conv_state).
 
     Three modes: prefill (no state); decode (states given, S == 1: the
@@ -208,28 +237,44 @@ def apply_block(bp, cfg: ArchConfig, x: torch.Tensor,
     input on ``ssd_chunked``: the two associate their f32 reductions
     differently, and a chunked prefill whose tail chunk is one token must
     match the batch prefill's decomposition).  Returns new tensors; the
-    caller writes the cache."""
+    caller writes the cache.
+
+    Under a train ``mesh`` (no state; ``spec``: the layer's specs) the
+    block is head-parallel over ``model`` (the module docstring): x is
+    whole on every model rank, the rank runs its H/M heads and returns
+    x + out summed over ``model``; h_last and the conv tail are its
+    heads' and channels'.  Without one every seam is the identity."""
     d_in, H, P, N = dims(cfg)
     W = cfg.ssm_conv_width
-    u = L.rms_norm(x, bp["ln"], cfg.norm_eps)
-    proj = L._mm(u, bp["in_proj"])
-    z, _, _, _, dtp = _split_proj(cfg, proj)
+    m, M = (0, 1) if mesh is None else (mesh.model.index, mesh.model.size)
+    h, c = H // M, d_in // M                  # heads and channels a rank
+    if mesh is not None:
+        bp = L.gathered(bp, spec, mesh)
+        bp = {**bp, **{k: L.gathered_model(bp[k], spec[k], mesh)
+                       for k in ("in_proj", "conv_w", "conv_b")}}
+    # the rank's columns: z and x of its heads, all of B and C, its dt
+    w_in = _own(bp["in_proj"], ((d_in, True), (d_in, True), (2 * N, False),
+                                (H, True)), m, M)
+    conv_w, conv_b = (_own(bp[k], ((d_in, True), (2 * N, False)), m, M)
+                      for k in ("conv_w", "conv_b"))
+    u = L.enter(L.rms_norm(x, bp["ln"], cfg.norm_eps), mesh, False)
+    proj = L._mm(u, w_in)
     # x, B and C lie side by side in proj: their concatenation is a view
-    conv_in = proj[..., d_in:2 * d_in + 2 * N]
+    z, conv_in, dtp = torch.split(proj, [c, c + 2 * N, h], dim=-1)
 
     if conv_state is None:
-        conv = _causal_conv(conv_in, bp["conv_w"], bp["conv_b"])
+        conv = _causal_conv(conv_in, conv_w, conv_b)
         new_conv_state = conv_in[:, -(W - 1):]
     else:
         # decode: prepend the cached inputs
         full = torch.cat([conv_state, conv_in], dim=1)
-        conv = _causal_conv(full, bp["conv_w"], bp["conv_b"])
+        conv = _causal_conv(full, conv_w, conv_b)
         conv = conv[:, conv_state.shape[1]:]
         new_conv_state = full[:, -(W - 1):]
 
-    xr, B_, C_ = torch.split(conv, [d_in, N, N], dim=-1)
+    xr, B_, C_ = torch.split(conv, [c, N, N], dim=-1)
     Bsz, S = x.shape[0], x.shape[1]
-    xh = xr.reshape(Bsz, S, H, P)
+    xh = xr.reshape(Bsz, S, h, P)
     # torch's softplus returns its input above threshold 20 where jax's
     # computes log1p(exp(x)); the two differ by < 1e-8 there, and dt_bias
     # -2 keeps the served values far below it
@@ -245,9 +290,12 @@ def apply_block(bp, cfg: ArchConfig, x: torch.Tensor,
     else:
         y, h_last = ssd_chunked(xh, dt, A, B_, C_, bp["D"], cfg.ssm_chunk,
                                 h0=ssm_state)
-    y = y.reshape(Bsz, S, d_in)
-    y = L.rms_norm(y * F.silu(z), bp["gate_ln"], cfg.norm_eps)
-    out = L._mm(y, bp["out_proj"])
+    y = y.reshape(Bsz, S, c)
+    # the gated RMSNorm over the whole d_in: under a mesh the ranks' sums
+    # of squares all-reduced forward and backward
+    y = L.rms_norm(y * F.silu(z), bp["gate_ln"][m * c:(m + 1) * c],
+                   cfg.norm_eps, None if mesh is None else mesh.model)
+    out = L.leave(L._mm(y, bp["out_proj"]), mesh, False)
     return x + out, h_last, new_conv_state
 
 
@@ -255,26 +303,58 @@ def apply_block(bp, cfg: ArchConfig, x: torch.Tensor,
 # training
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor, mesh=None,
+            dims=None) -> torch.Tensor:
     """tokens: (B, S) -> hidden (B, S, d): every block in its chunked
     form from a zero state (``apply_block`` with no state), layers from
     ``transformer.unstacked``, each recomputed in the backward pass under
-    ``cfg.remat`` (``transformer.rematted``)."""
-    x = L.apply_embed(params["embed"], tokens)
+    ``cfg.remat`` (``transformer.rematted``).  Under a train ``mesh`` the
+    tokens are the data rank's rows and each block head-parallel."""
+    x = T.embed(params, tokens, mesh, dims)
+    spec = None if mesh is None else T.layer_specs(dims["blocks"])
     remat = T.remats(cfg)
     for bp in T.unstacked(params["blocks"]):
         def fwd(xx, bp=bp):
-            return apply_block(bp, cfg, xx)[0]
+            return apply_block(bp, cfg, xx, mesh=mesh, spec=spec)[0]
         x = T.rematted(fwd, x) if remat else fwd(x)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
-def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None):
+def nll_loss(params, cfg: ArchConfig, batch: dict, key, noise=None,
+             mesh=None, dims=None):
     """Mean next-token NLL with one weight-space draw of the head
     (``transformer.head_loss``): ``(nll, {"accuracy"})``, as
-    ``repro.models.ssm.nll_loss``."""
-    hidden = forward(params, cfg, batch["tokens"])
-    return T.head_loss(params, cfg, hidden, batch["labels"], key, noise)
+    ``repro.models.ssm.nll_loss``; under a train ``mesh`` this data
+    rank's share."""
+    hidden = forward(params, cfg, batch["tokens"], mesh, dims)
+    return T.head_loss(params, cfg, hidden, batch["labels"], key, noise,
+                       mesh=mesh, dims=dims)
+
+
+# the leaves the head-parallel block needs split over ``model``
+SHARDED_NAMES = ("A_log", "D", "dt_bias", "out_proj")
+# the replicated leaves a model rank holds only a share of the gradient of
+# (in_proj / conv where the rules leave them whole: no gather's backward
+# sums them)
+_PARTIAL = ("gate_ln", "in_proj", "conv_w", "conv_b")
+
+
+def check_sharded(cfg: ArchConfig, dims: dict, mesh) -> None:
+    """Raise NotImplementedError where the model ranks do not divide the
+    SSM heads (``SHARDED_NAMES`` left whole by the rules)."""
+    T.check_sharded(cfg, dims, mesh, SHARDED_NAMES)
+
+
+def model_partial(cfg: ArchConfig, dims: dict, mesh, S: int) -> dict:
+    """``gate_ln`` (each rank's gate-norm slice), and ``in_proj`` /
+    ``conv_w`` / ``conv_b`` where their spec leaves them whole; nothing
+    else (the stream is whole on every model rank)."""
+    def one(path, spec):
+        name = path.rsplit("/", 1)[-1]
+        return name == "gate_ln" or (
+            name in _PARTIAL and "model" not in spec_axes(spec))
+
+    return tree.unflatten(dims, [one(p, s) for p, s in tree.items(dims)])
 
 
 # ---------------------------------------------------------------------------

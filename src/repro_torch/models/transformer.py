@@ -186,11 +186,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     where ``seq_parallel``, else (b, S, d) on every model rank; the
     prefix embeds are spliced into the whole rows before the stream is
     split."""
-    emb, axis, spec = params["embed"], None, None
-    if mesh is not None:
-        emb, axis = L.gathered(emb, dims["embed"], mesh), mesh.model
-        spec = layer_specs(dims["blocks"])
-    x = L.apply_embed(emb, tokens, axis)
+    spec = None if mesh is None else layer_specs(dims["blocks"])
+    x = embed(params, tokens, mesh, dims)
     if prefix_embeds is not None:
         x = splice_prefix(x, prefix_embeds)
     sp = seq_parallel(cfg, mesh, tokens.shape[1])
@@ -213,6 +210,20 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     if return_kv:
         return x, (torch.stack(ks), torch.stack(vs))
     return x, None
+
+
+def embed(params, tokens: torch.Tensor, mesh=None, dims=None):
+    """The tokens' rows of ``params["embed"]``.  Under a train ``mesh``
+    the table is FSDP-gathered over ``data`` and looked up
+    vocabulary-parallel over ``model`` where its spec splits the
+    vocabulary there; a vocabulary the rules leave whole (one that the
+    model ranks do not divide) is looked up whole on every model rank."""
+    emb, axis = params["embed"], None
+    if mesh is not None:
+        emb = L.gathered(emb, dims["embed"], mesh)
+        if "model" in P.spec_axes(dims["embed"]["table"]):
+            axis = mesh.model
+    return L.apply_embed(emb, tokens, axis)
 
 
 def nll_loss(params, cfg: ArchConfig, batch: dict, key: K.Key,
@@ -250,23 +261,33 @@ def head_loss(params, cfg: ArchConfig, hidden: torch.Tensor,
     every weight is the one the unsharded draw gives; w on the block is
     gathered over ``data``.  The head shards its vocabulary on ("data",
     "model"), so once gathered model rank m holds blocks m, M + m, ...
-    of V / (D·M) ids each (``_vocab_parallel``).  The value is this data
-    rank's NLL sum over the GLOBAL count of valid tokens (the data ranks'
-    values sum to the unsharded mean); the accuracy is the global one."""
+    of V / (D·M) ids each (``_vocab_parallel``).  A vocabulary that D·M
+    does not divide (seamless-m4t-medium's 256206 at D·M = 4) stays
+    whole, as the JAX rules replicate it: every model rank then computes
+    the whole logits of the data rank's rows (the S-sharded stream
+    gathered, each rank keeping its slice of the gradient), so the
+    head's gradient is whole on every model rank.  The value is this
+    data rank's NLL sum over the GLOBAL count of valid tokens (the data
+    ranks' values sum to the unsharded mean); the accuracy is the global
+    one."""
     mu, rho = params["head"]["mu"], params["head"]["rho"]
-    shape = tuple(mu.shape)
+    shape, split = tuple(mu.shape), False
     if mesh is not None:
         spec = dims["head"]["mu"]
         shape = P.full_shape(mu, spec, mesh)
+        split = "model" in P.spec_axes(spec)
     eps = (noise or K.normal)(key, shape, mu.device)
     if mesh is not None:
         eps = P.shard_leaf(eps, spec, mesh)
     w = mu + F.softplus(rho) * eps
     del eps
     if mesh is not None:
-        w = C.gather(w, mesh.data, 1)
-        hidden = L.enter(hidden, mesh,
-                         seq_parallel(cfg, mesh, labels.shape[1]))
+        w = L.gathered({"w": w}, {"w": spec}, mesh)["w"]
+        sp = seq_parallel(cfg, mesh, labels.shape[1])
+        if split:
+            hidden = L.enter(hidden, mesh, sp)
+        elif sp:
+            hidden = C.gather(hidden, mesh.model, 1, grad="split")
     # bf16 operands, float32 products and output: the reference's
     # preferred_element_type=f32 (a bf16 matmul would round its output)
     logits = hidden.float() @ w.to(hidden.dtype).float()
@@ -276,7 +297,7 @@ def head_loss(params, cfg: ArchConfig, hidden: torch.Tensor,
     labels = labels.long()
     valid = labels >= 0
     lab = torch.where(valid, labels, torch.zeros_like(labels))
-    if mesh is None or mesh.model.size == 1:
+    if not split or mesh.model.size == 1:
         logp = torch.log_softmax(logits.float(), dim=-1)
         # gather, not nll_loss: its backward has a deterministic CUDA form
         tok_nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
@@ -318,39 +339,49 @@ def _vocab_parallel(logits: torch.Tensor, lab: torch.Tensor, V: int, mesh):
 
 
 # the leaves whose products the model axis must split (Megatron's column-
-# and row-parallel weights, the vocabulary-parallel embedding and head)
-_MODEL_SPLIT = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "bq", "bk", "bv",
-                "table", "mu", "rho")
+# and row-parallel weights; the embedding and the head may stay whole)
+_MODEL_SPLIT = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "bq", "bk", "bv")
 
 
-def check_sharded(cfg: ArchConfig, dims: dict, mesh) -> None:
+def check_sharded(cfg: ArchConfig, dims: dict, mesh,
+                  names: tuple = _MODEL_SPLIT) -> None:
     """Raise NotImplementedError where ``dims`` (``train_dims``) leaves a
-    leaf whole that the sharded forward splits over ``model``, or the
-    head's vocabulary whole on an axis of the mesh: a width that does not
-    divide the mesh (the JAX package replicates such a leaf)."""
-    need = {"model"} if mesh.model.size > 1 else set()
+    leaf named in ``names`` whole over ``model`` while the sharded
+    forward splits its product there: a width that does not divide the
+    model ranks (the JAX package replicates such a leaf).  The embedding
+    and the head may stay whole (``embed``, ``head_loss``)."""
+    if mesh.model.size == 1:
+        return
     for path, spec in T.items(dims):
-        name = path.rsplit("/", 1)[-1]
-        used = P.spec_axes(spec)
-        want = need | ({a for a in ("data", "model")
-                        if mesh.axis(a).size > 1}
-                       if path.startswith("head/") else set())
-        if name in _MODEL_SPLIT and not want <= used:
+        if path.rsplit("/", 1)[-1] in names \
+                and "model" not in P.spec_axes(spec):
             raise NotImplementedError(
                 f"{cfg.name} at {mesh.describe()}: {path} does not shard "
-                f"over {sorted(want - used)} (its width does not divide "
-                "the mesh); the sharded train step needs it split")
+                "over model (its width does not divide the mesh); the "
+                "sharded train step needs it split")
 
 
-def model_partial(cfg: ArchConfig, dims: dict, mesh, S: int) -> dict:
+def model_partial(cfg: ArchConfig, dims: dict, mesh, S: int,
+                  also=()) -> dict:
     """For each leaf, whether a model rank's gradient of it is only its
     share: under the sequence-parallel stream every leaf the model axis
-    does not split (the norms) sees only the rank's positions.  (A leaf
-    split over ``model`` gets its whole gradient on its rank; without
-    the S-sharded stream every model rank sees every position.)"""
+    does not split (the norms) sees only the rank's positions, but for
+    the embedding and the head, which see every position on every model
+    rank whether split or whole.  (A leaf split over ``model`` gets its
+    whole gradient on its rank; without the S-sharded stream every model
+    rank sees every position.)  A path ending in one of ``also`` is
+    partial whatever the stream: a family's replicated leaf that each
+    model rank uses only a share of (the moe router, the Mamba2 gate
+    norm)."""
     sp = seq_parallel(cfg, mesh, S)
-    return T.map_tree(lambda spec: sp and "model" not in P.spec_axes(spec),
-                      dims)
+
+    def one(path, spec):
+        if path.endswith(also):
+            return True
+        return sp and "model" not in P.spec_axes(spec) \
+            and not path.startswith(("head/", "embed/"))
+
+    return T.unflatten(dims, [one(p, s) for p, s in T.items(dims)])
 
 
 def make_cache(cfg: ArchConfig, batch: int, max_len: int, *, device,

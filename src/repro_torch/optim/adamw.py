@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.core import tree as T
 from repro_torch.sharding import collectives as C
+from repro_torch.sharding import partition as P
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -150,17 +151,28 @@ def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     return v[lo_i] * w_lo.to(v.device) + v[hi_i] * w_hi.to(v.device)
 
 
-def compress_topk(grads: Any, error: Any, frac: float):
+def compress_topk(grads: Any, error: Any, frac: float, mesh=None,
+                  dims: Any = None):
     """Error-feedback top-k sparsification with a per-leaf threshold:
     entries of |g + e| below the leaf's (1 - frac) quantile are zeroed
-    and fed back into the error accumulator.  Returns (sent, new error)."""
-    def one(g, e):
+    and fed back into the error accumulator.  Returns (sent, new error).
+    Under a train ``mesh`` the trees are the rank's blocks (``dims``,
+    their parameters' specs; the error is sharded as the moments are):
+    the threshold is the quantile of the WHOLE leaf's |g + e|, gathered
+    over the mesh (``sharding.partition.gather_leaf``), as the unsharded
+    step computes it, and applies to the rank's block."""
+    specs = dims if mesh is not None else T.map_tree(lambda _: (), grads)
+
+    def one(g, e, spec):
         g = g.float() + e.float()
-        k = quantile(torch.abs(g.reshape(-1)), 1.0 - frac)
+        mag = torch.abs(g)
+        if mesh is not None:
+            mag = P.gather_leaf(mag, spec, mesh)
+        k = quantile(mag.reshape(-1), 1.0 - frac)
         sent = torch.where(torch.abs(g) >= k, g, torch.zeros_like(g))
         return sent, g - sent
 
-    pairs = T.map_tree(one, grads, error)
+    pairs = T.map_tree(one, grads, error, specs)
     sent = T.map_tree(lambda _, p: p[0], grads, pairs)
     new_err = T.map_tree(lambda _, p: p[1], grads, pairs)
     return sent, new_err
@@ -168,24 +180,21 @@ def compress_topk(grads: Any, error: Any, frac: float):
 
 @torch.no_grad()
 def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
-                  mesh=None, owned: Any = None) -> tuple[Any, dict, dict]:
+                  mesh=None, owned: Any = None,
+                  dims: Any = None) -> tuple[Any, dict, dict]:
     """One AdamW step, IN PLACE: every parameter, moment and the step
     tensor keep their addresses.  Returns ``(params, state, metrics)``
     (the same trees), metrics ``grad_norm`` (a 0-d device tensor), ``lr``
     (a float) and, when compressing, ``compressed``.  Under a train
     ``mesh`` the trees are the rank's blocks, whole gradients of them:
     the update is elementwise, so only the global norm crosses the ranks
-    (``global_norm``, with ``owned``).  Compression refuses a mesh: its
-    threshold is a quantile of the whole leaf (ROADMAP.md item 13b-2)."""
+    (``global_norm``, with ``owned``), and compression's threshold, a
+    quantile of the whole leaf (``compress_topk`` with ``dims``, the
+    parameters' specs)."""
     metrics = {}
-    if cfg.compress_topk > 0 and mesh is not None:
-        raise NotImplementedError(
-            "top-k gradient compression under a train mesh: its threshold "
-            "is the whole leaf's quantile, which no rank holds (ROADMAP.md "
-            "item 13b-2)")
     if cfg.compress_topk > 0:
         grads, new_error = compress_topk(grads, state["error"],
-                                         cfg.compress_topk)
+                                         cfg.compress_topk, mesh, dims)
         for e, n in zip(T.leaves(state["error"]), T.leaves(new_error)):
             e.copy_(n)
         metrics["compressed"] = 1.0

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config, reduced
@@ -26,30 +27,42 @@ from repro_torch.sharding import collectives as C
 from repro_torch.sharding import partition as P
 
 BATCH, SEQ = 4, 16
+# encoder frames a row of the encdec batches (random, so that the encoder's
+# output is not 0; fewer than the served ENC_LEN to keep the CPU runs short)
+FRAMES = 32
 OPT = adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=4)
 SVI = SVIConfig(num_train_examples=1000, kl_warmup_steps=2)
 
 
-def config(arch: str, fsdp=None):
-    """The reduced ``arch``, with ``fsdp_params`` set where given."""
+def config(arch: str, fsdp=None, **changes):
+    """The reduced ``arch``, with ``fsdp_params`` set where given and any
+    other field of ``changes`` (e.g. ``vocab_size``)."""
     cfg = reduced(get_config(arch))
-    return cfg if fsdp is None else dataclasses.replace(cfg,
-                                                        fsdp_params=fsdp)
+    if fsdp is not None:
+        changes["fsdp_params"] = fsdp
+    return dataclasses.replace(cfg, **changes) if changes else cfg
 
 
-def whole_state(cfg, seed: int = 3, device="cpu") -> dict:
+def whole_state(cfg, seed: int = 3, device="cpu", opt=OPT) -> dict:
     params = M.init_train_params(cfg, torch.Generator().manual_seed(seed),
                                  "cpu")
     params = T.map_tree(lambda t: t.to(device), params)
-    return {"params": params, "opt": adamw.init_state(params, OPT)}
+    return {"params": params, "opt": adamw.init_state(params, opt)}
 
 
 def batches(cfg, n: int) -> list[dict]:
     """``n`` global host batches of the token stream (vlm: its random
-    prefix embeds, ``make_batch``)."""
-    return [make_batch(cfg, TokenStreamState(seed=0, host=0, num_hosts=1,
+    prefix embeds, ``make_batch``; encdec: ``FRAMES`` N(0, 1) frames a
+    row, seeded by the step)."""
+    out = []
+    for i in range(n):
+        b = make_batch(cfg, TokenStreamState(seed=0, host=0, num_hosts=1,
                                              step=i), BATCH, SEQ)[0]
-            for i in range(n)]
+        if cfg.family == "encdec":
+            b["frames"] = np.random.default_rng(i).standard_normal(
+                (BATCH, FRAMES, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
 
 
 class Recorder:
@@ -73,6 +86,8 @@ class Recorder:
 
 
 METRICS = ("loss", "nll", "kl", "beta", "accuracy", "grad_norm")
+# moe's metric beside them
+AUX = "aux_loss"
 
 
 def run_steps(cfg, state, step_fn, global_batches, mesh=None,
@@ -86,7 +101,8 @@ def run_steps(cfg, state, step_fn, global_batches, mesh=None,
             if mesh is not None:
                 b = shard_batch(b, mesh, micro_batches)
             state, m = step_fn(state, to_device(b, device))
-            out.append({k: float(m[k]) for k in METRICS})
+            out.append({k: float(m[k]) for k in METRICS + (AUX,)
+                        if k in m})
     return out, rec.grads
 
 
@@ -98,20 +114,20 @@ def gathered(tree_leaves: list, dims: dict, mesh) -> list:
 
 
 def sharded_steps(tp, arch: str, shape: tuple, micro_batches: int = 1,
-                  fsdp=None, steps: int = 2):
-    """``steps`` sharded train steps of the reduced ``arch`` at ``shape``
-    (D, M) from ``whole_state``'s draw: rank 0 returns (metrics a step,
-    the first step's gradients gathered whole, the final parameters
-    gathered whole); the other ranks of the mesh None, ranks past it
-    too."""
+                  fsdp=None, steps: int = 2, changes=None, opt=OPT):
+    """``steps`` sharded train steps of the reduced ``arch`` (``changes``
+    to its config, ``opt`` its AdamW) at ``shape`` (D, M) from
+    ``whole_state``'s draw: rank 0 returns (metrics a step, the first
+    step's gradients gathered whole, the final parameters gathered
+    whole); the other ranks of the mesh None, ranks past it too."""
     mesh = meshlib.train_mesh(tp, *shape)
     if mesh is None:
         return None
-    cfg = config(arch, fsdp)
-    state = whole_state(cfg, device=tp.device)
+    cfg = config(arch, fsdp, **(changes or {}))
+    state = whole_state(cfg, device=tp.device, opt=opt)
     dims = P.train_dims(cfg, state["params"], shape)
     state = P.shard_state(state, dims, mesh)
-    fn = S.build_train_step(cfg, OPT, SVI, micro_batches=micro_batches,
+    fn = S.build_train_step(cfg, opt, SVI, micro_batches=micro_batches,
                             seed=0, mesh=mesh, dims=dims)
     metrics, grads = run_steps(cfg, state, fn, batches(cfg, steps), mesh,
                                micro_batches)

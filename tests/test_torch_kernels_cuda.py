@@ -2102,6 +2102,53 @@ def test_cuda_train_mesh_collectives_equal_the_cpu_ones(cuda_device):
             assert torch.equal(gx, gx0), (rank, name)
 
 
+def test_cuda_moe_layer_sharded_forward_equals_the_cpu_one(cuda_device):
+    """One layer's MoE of the reduced deepseek-moe-16b (8 experts, top 2,
+    a shared expert) as the two model ranks of a 1x2 train mesh compute
+    it: each rank's ff block of every expert (the rules' layout), its
+    partial y and the aux loss, on the card against the same on the CPU
+    (1e-5 of the largest |y|); the partials' sum against the whole
+    layer's y on the CPU (1e-5 of it)."""
+    import types
+
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.core import tree as T
+    from repro_torch.launch.mesh import Axis
+    from repro_torch.models import moe
+    from repro_torch.models import registry as M
+    from repro_torch.models import transformer as TR
+    from repro_torch.sharding import partition as P
+
+    cfg = reduced(get_config("deepseek_moe_16b"))
+    params = M.init_train_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+    spec = TR.layer_specs(P.train_dims(cfg, params, (1, 2))["blocks"])
+    assert spec["experts_ep"]["w1"] == (None, "data", "model")
+    bp = TR.layer(params["blocks"], 0)
+    x = torch.randn((2, 16, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+
+    def partials(dev):
+        out = []
+        for m in range(2):
+            axes = {"data": Axis("data", 1, 0), "model": Axis("model", 2, m)}
+            mesh = types.SimpleNamespace(axis=axes.__getitem__)
+            blk = T.map_tree(lambda t: t.to(dev),
+                             P.shard_tree(bp, spec, mesh))
+            y, aux = moe.moe_ffn(blk, cfg, x.to(dev))
+            out.append((y.cpu(), aux.cpu()))
+        return out
+
+    got, want = partials(cuda_device), partials(torch.device("cpu"))
+    whole, _ = moe.moe_ffn(bp, cfg, x)
+    scale = float(whole.abs().max())
+    for (y, aux), (y0, aux0) in zip(got, want):
+        assert float((y - y0).abs().max()) <= 1e-5 * scale
+        assert float(aux) == pytest.approx(float(aux0), rel=1e-6)
+    total = want[0][0] + want[1][0]
+    assert float((total - whole).abs().max()) <= 1e-5 * scale
+
+
 if __name__ == "__main__":
     sys.exit(pytest.main([__file__, "-q", "--noconftest", "-p",
                           "no:cacheprovider"]))

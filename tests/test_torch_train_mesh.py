@@ -9,8 +9,10 @@ FSDP on and off; the sharded train step of the reduced qwen2 (FSDP off,
 and on) and phi-3-vision on four spawned gloo ranks against the port's
 unsharded step (which ``tests/test_torch_train.py`` holds to JAX) on the
 same draws and batches, every listed mesh, one and two micro-batches;
-checkpoints across meshes; the CLI and the families that refuse a mesh.
-The ranks' functions live in ``tests/_train_mesh_ranks.py``.
+checkpoints across meshes; the CLI; the other families at 2x2 (held to
+their unsharded steps in ``tests/test_torch_train_mesh_families.py``) and
+the mesh a four-rank job picks for them; top-k compression at 2x2.  The
+ranks' functions live in ``tests/_train_mesh_ranks.py``.
 """
 
 import argparse
@@ -39,7 +41,6 @@ from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import steps as S
 from repro_torch.launch import train as TT
 from repro_torch.models import registry as M
-from repro_torch.optim import adamw
 from repro_torch.sharding import partition as P
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -397,24 +398,36 @@ def test_cli_trains_at_2x2_on_four_cpu_ranks(tmp_path):
 
 @pytest.mark.parametrize("arch", ["deepseek_moe_16b", "mamba2_370m",
                                   "zamba2_7b", "seamless_m4t_medium"])
-def test_other_families_refuse_the_train_mesh(arch):
-    with pytest.raises(NotImplementedError, match="13b-2"):
-        TT.run(_args(arch=arch))
-    cfg = R.config(arch)
-    mesh = argparse.Namespace(shape=(2, 2))
-    with pytest.raises(NotImplementedError, match="13b-2"):
-        S.build_train_step(cfg, R.OPT, R.SVI, mesh=mesh, dims={})
+def test_other_families_refuse_the_train_mesh(ranks, arch):
+    """The moe, ssm, hybrid and encdec families train at 2x2 (no longer
+    refused): two steps of ``launch.train.train`` on every rank, finite
+    losses equal on every rank.  (The name is the case's from when the
+    families were refused, kept so that each case's record carries
+    over.)"""
+    out = ranks.run(R.train_rank_state, _args(arch=arch, steps=2))
+    hist = out[0]["history"]
+    assert len(hist) == 2 and all(np.isfinite(hist))
+    assert all(o["history"] == hist for o in out)
 
 
 @pytest.mark.parametrize("arch", ["deepseek_moe_16b", "mamba2_370m",
                                   "zamba2_7b", "seamless_m4t_medium"])
 def test_the_default_mesh_refusal_names_mesh_none(monkeypatch, arch):
-    """A job of four ranks trains at 2x2 without --mesh: a family that
-    does not train sharded says how to train it unsharded."""
+    """A job of four ranks without --mesh trains that family at 2x2 (the
+    JAX launcher's default; ``--mesh none`` still trains it unsharded):
+    ``run`` spawns four ranks of ``train_rank`` (recorded here, not
+    started).  (The name is the case's from when the families were
+    refused, kept so that each case's record carries over.)"""
     monkeypatch.setenv("WORLD_SIZE", "4")
-    with pytest.raises(NotImplementedError, match="--mesh none") as err:
-        TT.run(_args(arch=arch, mesh=None))
-    assert "13b-2" in str(err.value)
+    seen = []
+
+    def spawned(n, device, fn, args):
+        seen.append((n, device, fn, TT.mesh_shape(args)))
+        return [{"final_loss": 0.0, "history": [], "straggler_flags": 0}]
+
+    monkeypatch.setattr(TT.meshlib, "spawn", spawned)
+    TT.run(_args(arch=arch, mesh=None))
+    assert seen == [(4, "cpu", TT.train_rank, (2, 2))]
 
 
 def test_mesh_none_trains_unsharded_in_a_four_rank_job(monkeypatch):
@@ -423,22 +436,30 @@ def test_mesh_none_trains_unsharded_in_a_four_rank_job(monkeypatch):
     assert len(out["history"]) == 1 and np.isfinite(out["final_loss"])
 
 
-def test_compression_refuses_the_train_mesh():
-    """A sharded step with top-k compression raises at its update (on a
-    stand-in mesh of one rank, where every collective is the
-    identity)."""
-    cfg = R.config("qwen2_1_5b")
+def test_compression_refuses_the_train_mesh(ranks):
+    """Top-k compression (10%) under the train mesh: two compressed steps
+    at 2x2 against two unsharded compressed steps of the reduced qwen2,
+    each leaf's threshold the quantile of the whole leaf's |g + e|: the
+    metrics within 1e-5 relative (the grad norm, of the sent entries,
+    1e-4 at the second step, as ``test_torch_train_mesh_families``
+    says), the parameters after both steps, gathered whole, within 1e-4
+    of each leaf's largest entry.  (The name is the test's from when
+    compression refused a mesh, kept so that its record carries
+    over.)"""
     opt = dataclasses.replace(R.OPT, compress_topk=0.1)
-    params = M.init_train_params(cfg, torch.Generator(), "cpu")
-    dims = P.train_dims(cfg, params, (1, 1))
-    one = meshlib.Axis("data", 1, 0)
-    mesh = argparse.Namespace(shape=(1, 1), data=one, model=one, world=one,
-                              axis=lambda a: one, describe=lambda: "1x1")
-    fn = S.build_train_step(cfg, opt, R.SVI, mesh=mesh, dims=dims)
-    state = {"params": params, "opt": adamw.init_state(params, opt)}
-    batch = {k: torch.from_numpy(v) for k, v in R.batches(cfg, 1)[0].items()}
-    with pytest.raises(NotImplementedError, match="13b-2"):
-        fn(state, batch)
+    cfg = R.config("qwen2_1_5b")
+    state = R.whole_state(cfg, opt=opt)
+    fn = S.build_train_step(cfg, opt, R.SVI, seed=0)
+    want_m, _ = R.run_steps(cfg, state, fn, R.batches(cfg, 2))
+    got_m, _, final = ranks.run(R.sharded_steps, "qwen2_1_5b", (2, 2),
+                                opt=opt)[0]
+    for i, (a, b) in enumerate(zip(want_m, got_m)):
+        for k in ("loss", "nll", "kl", "grad_norm"):
+            rel = 1e-4 if (i, k) == (1, "grad_norm") else 1e-5
+            assert b[k] == pytest.approx(a[k], rel=rel), (i, k, a, b)
+    for (path, a), b in zip(T.items(state["params"]), final):
+        scale = float(a.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale, path
 
 
 def test_train_mesh_ranks_load_no_jax(ranks):

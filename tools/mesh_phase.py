@@ -5,8 +5,8 @@
 runs the phase alone in a fresh process (it builds the kernels first).
 qwen2-1.5B at full width (28 layers, d 1536, H 12, Hkv 2, hd 128, ff
 8960, V 151936) serves the first wave of ``chip_smoke.SERVE_FLAGS``'
-trace (4 requests, ``DEPTH``: cut in depth from 8 to make room for
-phase 18 within the script's time) on the kernel path (paged KV, the paged decode and prefill kernels, chunked prefill)
+trace (4 requests of 16 generated tokens, ``DEPTH``: cut in depth from
+8 of 32 to make room for phases 18-19 within the script's time) on the kernel path (paged KV, the paged decode and prefill kernels, chunked prefill)
 unsharded in this process (the decode chunk a CUDA graph) and at
 ``--mesh 1x2`` in two spawned ranks, in operand and in kernel entropy.
 The card machine has one card, so the two ranks form a gloo group, both
@@ -48,9 +48,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as C  # noqa: E402
 
 MESH = 2
-# the trace's first wave only: phase 4 serves all 8 requests, and phase
-# 18 needs the time the second wave took here
-DEPTH = ["--num-requests", "4"]
+# the trace's first wave only, 16 tokens a request: phase 4 serves all 8
+# requests at 32, and phases 18-19 need the time this saves
+DEPTH = ["--num-requests", "4", "--gen-len", "16"]
 FLAGS = C.SERVE_FLAGS + C.KERNEL_PATH + DEPTH
 # the profiled serve of (c): 4 prompts of 64 tokens (one prefill chunk
 # each), 4 tokens each (one decode chunk)
@@ -258,8 +258,8 @@ def mesh_phase(smi: str) -> dict:
             for o in outs:
                 print(f"mesh: {entropy} entropy rank {o['rank']} "
                       f"({o['mesh']}): streams vs unsharded bit for bit; "
-                      f"{o['gen_tokens']} tokens (4 requests, the trace "
-                      f"cut to its first wave) in {o['seconds']:.2f}s "
+                      f"{o['gen_tokens']} tokens (4 requests of 16, the "
+                      f"trace cut to its first wave) in {o['seconds']:.2f}s "
                       f"(eager, host-staged gathers: not a TP speed); "
                       f"params {o['param_gb']:.3f} GB (predicted {want}), "
                       f"KV pool {o['kv_gb'] * 1e3:.1f} MB, peak "
