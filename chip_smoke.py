@@ -43,7 +43,10 @@ Phases (any failure exits non-zero before the result line):
      operand entropy.
   5. profile: a shorter serve of the same path under torch.profiler,
      in a fresh process (``--trace serve``; late in a long process the
-     profiler can drop kernels), the engine built before the window:
+     profiler can drop kernels; the traces of phases 5-13 take processes
+     started a phase ahead, which import the port, load the kernels and
+     open their CUDA context before they wait for their trace's kind),
+     the engine built before the window:
      device busy and idle time,
      kernels by kind and a decode step, host syncs by cause and a decode
      step (reported); the served bf16 prefill and decode must run their
@@ -64,8 +67,9 @@ Phases (any failure exits non-zero before the result line):
      qwen2-1.5B's widths, each call's launches counted around it alone
      (its own kernel, no other), checked against plain f32 GEMMs, the
      fused head and the models' attention, and timed.
-  9. moe: deepseek-moe-16b at full width (28 layers, d 2048, 64 routed
-     experts top-6 + 2 shared) on phase 4's trace through the kernel path,
+  9. moe: deepseek-moe-16b at full width (d 2048, 64 routed experts
+     top-6 + 2 shared), cut in depth to ``MOE_DEPTH`` = 6 of its 28
+     layers for the script's time, on phase 4's trace through the kernel path,
      served three times by one graphed engine (init and capture time,
      peak memory, decode ms a step and tok/s as median and range, the
      launch counts checked per run), every chunk of a fourth run against
@@ -73,8 +77,9 @@ Phases (any failure exits non-zero before the result line):
      path against the gather / batch-prefill path (whose chunks are held
      against the eager chunk too), on the same parameters; then phase
      5's profile of a short moe serve in a fresh process.
- 10. ssm: mamba2-370m at full width (48 SSD blocks, d 1024, N 128,
-     V 50280) on phase 4's trace and flags, which fall back to the dense
+ 10. ssm: mamba2-370m at full width (d 1024, N 128, V 50280), cut in
+     depth to ``SSM_DEPTH`` = 12 of its 48 SSD blocks for the script's
+     time, on phase 4's trace and flags, which fall back to the dense
      layout, gather read and batch prefill (asserted): the fused head at
      K 1024, V 50280 (a ragged last tile) against its plain version and
      its bound; one graphed engine serving the trace three times (decode
@@ -84,15 +89,15 @@ Phases (any failure exits non-zero before the result line):
      entropy; one request of 8192 prompt tokens and its decode step;
      phase 5's profile of a short ssm serve in a fresh process.
  11. hybrid: zamba2-7b at full width, cut in depth to ``HYBRID_DEPTH``
-     = 25 of its 81 Mamba2 blocks for the script's time (d 3584, one
-     shared attention + MLP block applied 5 times, 32 MHA heads of
+     = 13 of its 81 Mamba2 blocks for the script's time (d 3584, one
+     shared attention + MLP block applied 3 times, 32 MHA heads of
      D 112, V 32000) on phase 4's trace through the kernel path (paged,
      one pool plane an application; chunked prefill rounded up to
      ssm_chunk 256, asserted): the three serving kernels at its shapes
      (``check_hybrid_shapes``: decode at the served depths and at depth
      8192, prefill of 256-token chunks and a ragged 37-token tail, the
      head at K 3584, V 32000); one graphed engine serving the trace three
-     times (5 decode launches and one head a step; decode ms a step
+     times (3 decode launches and one head a step; decode ms a step
      against the step's bytes floor, tok/s, e2e, p99, capture time, peak
      memory); every chunk against the eager chunk bit for bit, state and
      pools included, in kernel and operand entropy; one request of 8192
@@ -100,13 +105,13 @@ Phases (any failure exits non-zero before the result line):
      a short hybrid serve at the same depth in a fresh process, which
      must name paged_decode_mma<112>, paged_prefill_mma<112> and the
      fused head.
- 12. encdec: seamless-m4t-medium at full width (12 encoder and 12 decoder
-     layers, d 1024, 16 MHA heads of D 64, ff 4096, V 256206) on phase
-     4's trace through the kernel path: the three serving kernels at its
+ 12. encdec: seamless-m4t-medium at full width (d 1024, 16 MHA heads
+     of D 64, ff 4096, V 256206), cut in depth to ``ENCDEC_DEPTH`` = 4
+     encoder and 4 decoder layers of its 12 and 12, on phase 4's trace through the kernel path: the three serving kernels at its
      shapes (``check_encdec_shapes``: decode at the served depths, prefill
      S 64 at offsets 0 and 192 of span 256, the head at K 1024, V 256206,
      whose last tile is ragged); one graphed engine serving the trace
-     three times (12 decode launches and one head a step; decode ms a step
+     three times (4 decode launches and one head a step; decode ms a step
      against the step's bytes floor, tok/s, e2e, p99, capture time, peak
      memory); every chunk against the eager chunk bit for bit, the cross
      strips ``ck`` / ``cv`` and the pools included, in kernel entropy on
@@ -116,14 +121,15 @@ Phases (any failure exits non-zero before the result line):
      the same frames; phase 5's profile of a short encdec serve in a
      fresh process, which must name paged_decode_mma<64>,
      paged_prefill_mma<64> and the fused head.
- 13. vlm: phi-3-vision-4.2b at full width (32 layers, d 3072, 32 MHA
-     heads of D 96, ff 8192, V 32064, 576 prefix embeds) on phase 4's
+ 13. vlm: phi-3-vision-4.2b at full width (d 3072, 32 MHA heads of
+     D 96, ff 8192, V 32064, 576 prefix embeds), cut in depth to
+     ``VLM_DEPTH`` = 8 of its 32 layers, on phase 4's
      trace at prompt 640 through the kernel path's flags, where the engine
      takes batch prefill (the family has no chunked prefill; asserted):
      the decode kernel and the head at its shapes (``check_vlm_shapes``:
      decode at the served depths, the head at K 3072, V 32064 with an
      argmax planted in the ragged last tile; no prefill kernel on this
-     path); one graphed engine serving the trace three times (32 decode
+     path); one graphed engine serving the trace three times (8 decode
      launches and one head a step, no prefill launch; decode ms a step
      against the step's bytes floor, tok/s, e2e, p99, prefill ms a
      request, init and capture time, peak memory); every chunk against
@@ -135,8 +141,9 @@ Phases (any failure exits non-zero before the result line):
      the kernel read against the gather read; phase 5's profile of a
      short vlm serve in a fresh process, which must name
      paged_decode_mma<96> and the fused head.
- 14. prefix cache and speculative decoding: qwen2-1.5B at full width on
-     phase 4's trace with a 200-token shared prefix through the kernel
+ 14. prefix cache and speculative decoding: qwen2-1.5B at full width,
+     cut in depth to ``SPEC_LAYERS`` = 8 of its 28 layers, on phase 4's
+     trace with a 200-token shared prefix through the kernel
      path, six engines on one copy of the parameters (``spec_phase``):
      the prefix cache in kernel entropy (4 hits, 4 misses, 800 of 2,048
      prompt tokens saved, 4 copy-on-write copies, the pool balanced, the
@@ -166,8 +173,9 @@ Phases (any failure exits non-zero before the result line):
      the kernel path with its launches counted; two phi-3-vision-4.2b
      steps; card against CPU at the reduced configs; the train CLI's
      crash and resume; the blood-cell BNN's paper bars.
- 17. mesh (``tools/mesh_phase.py``): qwen2-1.5B at full width on phase
-     4's trace through the kernel path, unsharded (graphed) against
+ 17. mesh (``tools/mesh_phase.py``): qwen2-1.5B at full width, cut in
+     depth to 4 of its 28 layers for the script's time, on the first wave
+     of phase 4's trace through the kernel path, unsharded (graphed) against
      ``--mesh 1x2``: two spawned ranks, a gloo group on the one card
      (collectives staged through host memory, the chunk eager), in
      operand and kernel entropy; cuBLAS column halves of the served
@@ -175,9 +183,23 @@ Phases (any failure exits non-zero before the result line):
      p_max and flag counts bit for bit on both ranks; each rank's
      ``paged_decode_mma`` / ``paged_prefill_mma`` launches of a short
      serve under torch.profiler on one kv head; each rank's parameter,
-     KV and peak bytes against the prediction.
+     KV and peak bytes against the prediction.  Then, on the same two
+     ranks: speculative decoding at ``--mesh 1x2`` (operand entropy, k 4,
+     the first wave), both ranks bit for bit against the unsharded
+     spec-on engine (graphed) in streams and schedule and against spec
+     off in streams, rounds, acceptance, rollbacks and full-model calls
+     printed, each rank's first spec round under torch.profiler
+     (``paged_decode_mma`` 4 x k launches on one kv head); and phase
+     15's priority burst at ``--mesh 1x2`` under priority with the lane
+     at S 40 (kernel entropy, phase 15's threshold rule) against the
+     unsharded engine: admission order, preemptions, escalations, the
+     lane's requests and every stream bit for bit on both ranks, each
+     rank's fused head launched at S 40, the lane's runner on the main
+     runner's parameter storage, each rank's peak against the
+     prediction.
  18. train mesh (``tools/train_mesh_phase.py``): qwen2-1.5B at full
-     width at ``--mesh 2x2`` (data parallel 2 x tensor parallel 2 with
+     width, cut in depth to 4 of its 28 layers for the script's time, at
+     ``--mesh 2x2`` (data parallel 2 x tensor parallel 2 with
      the sequence-parallel stream; four spawned gloo ranks on the one
      card, collectives staged through host memory), two steps of 8 x 256
      against the unsharded step on the same batches and keys, step 1's
@@ -204,9 +226,10 @@ Phases (any failure exits non-zero before the result line):
      0 (launches counted).
  20. one JSON line of per-kernel numbers (eleven kernels; the serving
      kernels' launches are phase 4's first run plus phases 9's, 11's,
-     12's, 13's, 14's, 15's, 16's, 17's (both ranks), 18's and 19's, and
-     phase 10's for the head), the card's nvidia-smi line, then the
-     result line.
+     12's, 13's, 14's, 15's, 16's, 17's (both ranks: the trace in both
+     entropy modes, the spec serve and the priority burst), 18's and
+     19's, and phase 10's for the head), the card's nvidia-smi line,
+     then the result line.
 
 Imports nothing of the JAX package.
 """
@@ -2176,17 +2199,52 @@ PROFILE_SERVE = KERNEL_PATH + ["--entropy", "kernel", "--num-requests", "4",
 PROFILE_PROMPT = {"vlm_serve": ["--prompt-len", str(VLM_PROMPT)]}
 
 
+# fresh processes started ahead of their traces (``start_tracers``)
+TRACERS: list = []
+TRACERS_AHEAD = 2
+
+
+def start_tracers() -> None:
+    """Keep ``TRACERS_AHEAD`` fresh processes (``python3 chip_smoke.py
+    --trace -``) ready: each imports the port, loads the kernels and opens
+    its CUDA context, then waits for the kind of its one trace on its
+    standard input, so that a trace does not wait for a process to reach
+    the card.  ``stop_tracers`` ends them (also at exit)."""
+    if not TRACERS:
+        import atexit
+        atexit.register(stop_tracers)
+    while len(TRACERS) < TRACERS_AHEAD:
+        TRACERS.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--trace", "-"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+
+
+def stop_tracers() -> None:
+    while TRACERS:
+        proc = TRACERS.pop()
+        proc.kill()
+        proc.communicate()
+
+
 def traced(kind: str) -> dict:
     """``trace_main(kind)`` run in a fresh process (``python3
-    chip_smoke.py --trace KIND``): late in a long process torch.profiler
-    can drop a window's kernels, in part or all of them."""
+    chip_smoke.py --trace KIND``, or one that ``start_tracers`` started):
+    late in a long process torch.profiler can drop a window's kernels, in
+    part or all of them."""
     torch.cuda.empty_cache()
-    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--trace", kind], capture_output=True, text=True)
-    if out.returncode != 0:
-        fail(f"trace {kind} in a fresh process failed:\n"
-             f"{out.stderr[-3000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    if TRACERS:
+        proc = TRACERS.pop(0)
+        stdout, stderr = proc.communicate(kind + "\n")
+        start_tracers()
+    else:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--trace", kind], capture_output=True,
+                              text=True)
+        stdout, stderr = proc.stdout, proc.stderr
+    if proc.returncode != 0:
+        fail(f"trace {kind} in a fresh process failed:\n{stderr[-3000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
 
 
 def trace_main(kind: str) -> dict:
@@ -2201,8 +2259,9 @@ def trace_main(kind: str) -> dict:
     if kind in SERVED:
         flags = SERVED[kind][0]
         extra = PROFILE_SERVE + PROFILE_PROMPT.get(kind, [])
-        _, built = build_serve(extra, flags, hybrid_config()
-                               if kind == "hybrid_serve" else None)
+        args = serve_args(extra, flags)
+        _, built = build_serve(extra, flags, served_config(args)
+                               if args.arch in CUTS else None)
         t = device_trace(lambda: serve_full(extra, built, flags), kind)
         r = t.pop("out")
         return t | {"steps": r["spec_decode"]["full_model_calls"],
@@ -2226,13 +2285,13 @@ def trace_main(kind: str) -> dict:
 def profile_serve(kind: str = "serve") -> str:
     """A short kernel-path serve under torch.profiler (1 prefill chunk per
     request, 2 decode chunks each; the engine and its graph built before
-    the window) of qwen2-1.5b (``serve``) or deepseek-moe-16b
-    (``moe_serve``), both 28 layers, mamba2-370m (``ssm_serve``, 48
-    layers, batch prefill, no attention kernel) or zamba2-7b
+    the window) of qwen2-1.5b (``serve``, 28 layers) or deepseek-moe-16b
+    (``moe_serve``, ``MOE_DEPTH`` layers), mamba2-370m (``ssm_serve``,
+    ``SSM_DEPTH`` layers, batch prefill, no attention kernel) or zamba2-7b
     (``hybrid_serve``, ``HYBRID_DEPTH`` blocks, 3 applications of the
-    shared attention, D 112) or
-    seamless-m4t-medium (``encdec_serve``, 12 decoder layers, D 64) or
-    phi-3-vision-4.2b (``vlm_serve``, 32 layers, D 96, batch prefill on
+    shared attention, D 112) or seamless-m4t-medium (``encdec_serve``,
+    ``ENCDEC_DEPTH`` decoder layers, D 64) or phi-3-vision-4.2b
+    (``vlm_serve``, ``VLM_DEPTH`` layers, D 96, batch prefill on
     the plain attention: no prefill kernel): device time by kind of
     kernel, how much of the traced window the device sits idle, and the
     host syncs by cause."""
@@ -2315,6 +2374,29 @@ def compare_plain(kernel_run: dict, ref_run: dict) -> str:
 # --------------------------------------------------------------------------
 
 MOE_FLAGS = ["--arch", "deepseek_moe_16b", *SERVE_FLAGS[2:]]
+# the layers phases 9-13 serve and profile, cut for the script's time
+# (the widths stay whole): deepseek-moe-16b 6 of 28, mamba2-370m 12 of
+# 48, zamba2-7b 13 of 81 Mamba2 blocks (three applications of the shared
+# block), seamless-m4t-medium 4 + 4 of 12 + 12, phi-3-vision-4.2b 8 of 32
+MOE_DEPTH, SSM_DEPTH, HYBRID_DEPTH, ENCDEC_DEPTH, VLM_DEPTH = 6, 12, 13, 4, 8
+CUTS = {"deepseek_moe_16b": {"num_layers": MOE_DEPTH},
+        "mamba2_370m": {"num_layers": SSM_DEPTH},
+        "zamba2_7b": {"num_layers": HYBRID_DEPTH},
+        "seamless_m4t_medium": {"num_layers": ENCDEC_DEPTH,
+                                "encoder_layers": ENCDEC_DEPTH,
+                                "decoder_layers": ENCDEC_DEPTH},
+        "phi_3_vision_4_2b": {"num_layers": VLM_DEPTH}}
+
+
+def served_config(args, **cut):
+    """``args.arch`` at full width, cut in depth as ``cut`` or else
+    ``CUTS`` says (its reduced config where ``args.reduced``)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config, reduced
+    cfg = get_config(args.arch)
+    return reduced(cfg) if args.reduced \
+        else dataclasses.replace(cfg, **(cut or CUTS[args.arch]))
 
 
 def tree_bytes(tree) -> int:
@@ -2324,13 +2406,15 @@ def tree_bytes(tree) -> int:
 
 
 def moe_phase() -> dict:
-    """deepseek-moe-16b at full width (28 layers, d 2048, 16 MHA heads,
-    64 routed experts top-6 + 2 shared, expert ff 1408, V 102400; bf16
-    body, f32 head, random weights from the seed) on the serve trace of
+    """deepseek-moe-16b at full width (d 2048, 16 MHA heads, 64 routed
+    experts top-6 + 2 shared, expert ff 1408, V 102400; bf16 body, f32
+    head, random weights from the seed), cut in depth to ``MOE_DEPTH`` of
+    its 28 layers, on the serve trace of
     phase 4, kernel path and kernel entropy: one engine, its decode chunk
     one CUDA graph replay, serves the trace SERVE_RUNS times (launch
-    counts zeroed before each run and checked after it: 28 decode-attention
-    launches and one head a step, 28 prefill launches a chunk), then once
+    counts zeroed before each run and checked after it: a decode-attention
+    launch a layer and one head a step, a prefill launch a layer a
+    chunk), then once
     more with every chunk held bit for bit against the eager chunk.  Then,
     on the same parameters, operand entropy through the kernel path and
     through the gather / batch-prefill path, the latter chunk by chunk
@@ -2341,7 +2425,6 @@ def moe_phase() -> dict:
     from repro_torch.launch.serve import build_engine, serve
 
     from repro_torch import resolve_device
-    from repro_torch.configs.registry import get_config, reduced
     from repro_torch.models import registry as M
 
     gc.collect()
@@ -2351,13 +2434,12 @@ def moe_phase() -> dict:
     # the weights build_engine would draw, drawn here to time the init
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
-    cfg = reduced(get_config(args.arch)) if args.reduced \
-        else get_config(args.arch)
-    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+    base = served_config(args)
+    params = M.init_params(base, torch.Generator(device=dev).manual_seed(
         args.seed), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    built = build_engine(args, params)
+    built = build_engine(args, params, cfg=base)
     engine, cfg = built
     runner = engine.runner
     nbytes = tree_bytes(params)
@@ -2391,11 +2473,12 @@ def moe_phase() -> dict:
 
     a_args = serve_args(KERNEL_PATH + ["--entropy", "operand"], MOE_FLAGS)
     with prefill_routing() as routed_a:
-        a = serve(a_args, build_engine(a_args, params))
+        a = serve(a_args, build_engine(a_args, params, cfg=base))
     gc.collect()
     b_args = serve_args(GATHER_PATH + ["--entropy", "operand"], MOE_FLAGS)
     with prefill_routing() as routed_b:
-        b, report = graph_vs_eager(b_args, build_engine(b_args, params),
+        b, report = graph_vs_eager(b_args, build_engine(b_args, params,
+                                                        cfg=base),
                                    "moe, gather path, operand entropy")
     print(report, flush=True)
     print(routing_flips(routed_a, routed_b, cfg.num_layers,
@@ -2474,9 +2557,10 @@ SSM_K, SSM_V = 1024, 50280
 
 
 def ssm_phase(launches) -> dict:
-    """mamba2-370m at full width and depth (48 SSD blocks, d 1024, d_inner
-    2048, 32 heads of P 64, N 128, conv width 4, chunk 256, V 50280; bf16
-    body, f32 head, random weights from the seed) on the serve trace of
+    """mamba2-370m at full width (d 1024, d_inner 2048, 32 heads of P 64,
+    N 128, conv width 4, chunk 256, V 50280; bf16 body, f32 head, random
+    weights from the seed), cut in depth to ``SSM_DEPTH`` of its 48 SSD
+    blocks, on the serve trace of
     phase 4 with the kernel path's flags and kernel entropy, which fall
     back to the dense layout, the gather read and batch prefill (no KV:
     the cache is each layer's SSM state and conv tail).  One engine, its
@@ -2490,7 +2574,6 @@ def ssm_phase(launches) -> dict:
     import gc
 
     from repro_torch import resolve_device
-    from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import build_engine, serve
     from repro_torch.models import registry as M
 
@@ -2500,11 +2583,12 @@ def ssm_phase(launches) -> dict:
     args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], SSM_FLAGS)
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
-    params = M.init_params(get_config(args.arch), torch.Generator(
+    base = served_config(args)
+    params = M.init_params(base, torch.Generator(
         device=dev).manual_seed(args.seed), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    built = build_engine(args, params)
+    built = build_engine(args, params, cfg=base)
     engine, cfg = built
     runner = engine.runner
     served = (engine.kv_layout, engine.decode_attn, engine.prefill_mode)
@@ -2542,7 +2626,7 @@ def ssm_phase(launches) -> dict:
     gc.collect()
 
     o_args = serve_args(KERNEL_PATH + ["--entropy", "operand"], SSM_FLAGS)
-    print(graph_vs_eager(o_args, build_engine(o_args, params),
+    print(graph_vs_eager(o_args, build_engine(o_args, params, cfg=base),
                          "ssm, operand entropy")[1], flush=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2551,7 +2635,7 @@ def ssm_phase(launches) -> dict:
     l_args = serve_args(KERNEL_PATH + [
         "--entropy", "kernel", "--num-requests", "1", "--prompt-len",
         str(SSM_LONG), "--long-prompt", str(SSM_LONG)], SSM_FLAGS)
-    long_built = build_engine(l_args, params)
+    long_built = build_engine(l_args, params, cfg=base)
     for i in range(2):            # run 1 holds the new graph's first replay
         launches.reset()
         torch.cuda.synchronize()
@@ -2620,29 +2704,17 @@ def check_ssm_head(dev) -> dict:
 
 HYBRID_FLAGS = ["--arch", "zamba2_7b", *SERVE_FLAGS[2:]]
 HYBRID_LONG = 8192
-# Mamba2 blocks phase 11 serves and profiles (of 81): cut for the script's
-# time, which phases 17-19 share (the widths stay whole; 13 keeps three
-# applications of the shared block)
-HYBRID_DEPTH = 13
-
-
-def hybrid_config():
-    """zamba2-7b at full width, cut to ``HYBRID_DEPTH`` blocks."""
-    import dataclasses
-
-    from repro_torch.configs.registry import get_config
-    return dataclasses.replace(get_config("zamba2_7b"),
-                               num_layers=HYBRID_DEPTH)
 # the profiled serves: their flags, the served attention's head dim and
 # its launches a decode step
 ENCDEC_FLAGS = ["--arch", "seamless_m4t_medium", *SERVE_FLAGS[2:]]
 VLM_FLAGS = ["--arch", "phi_3_vision_4_2b", *SERVE_FLAGS[2:], "--prompt-len",
              str(VLM_PROMPT)]
-SERVED = {"serve": (SERVE_FLAGS, 128, 28), "moe_serve": (MOE_FLAGS, 128, 28),
+SERVED = {"serve": (SERVE_FLAGS, 128, 28),
+          "moe_serve": (MOE_FLAGS, 128, MOE_DEPTH),
           "ssm_serve": (SSM_FLAGS, 0, 0),
           "hybrid_serve": (HYBRID_FLAGS, ZB_D, -(-HYBRID_DEPTH // 6)),
-          "encdec_serve": (ENCDEC_FLAGS, SM_D, 12),
-          "vlm_serve": (VLM_FLAGS, PV_D, 32)}
+          "encdec_serve": (ENCDEC_FLAGS, SM_D, ENCDEC_DEPTH),
+          "vlm_serve": (VLM_FLAGS, PV_D, VLM_DEPTH)}
 
 
 def hybrid_phase(launches) -> dict:
@@ -2674,7 +2746,7 @@ def hybrid_phase(launches) -> dict:
     torch.cuda.reset_peak_memory_stats()
     args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], HYBRID_FLAGS)
     dev = resolve_device(args.device)
-    cfg = hybrid_config()
+    cfg = served_config(args)
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
         args.seed), dev)
@@ -2777,15 +2849,16 @@ def hybrid_phase(launches) -> dict:
 # --------------------------------------------------------------------------
 
 def encdec_phase(launches) -> dict:
-    """seamless-m4t-medium at full width and depth (12 encoder and 12
-    decoder layers, d 1024, 16 MHA heads of D 64, ff 4096, gelu, V 256206;
-    bf16 body, f32 head, random weights from the seed) on the serve trace
+    """seamless-m4t-medium at full width (d 1024, 16 MHA heads of D 64, ff
+    4096, gelu, V 256206; bf16 body, f32 head, random weights from the
+    seed), cut in depth to ``ENCDEC_DEPTH`` encoder and decoder layers of
+    its 12 and 12, on the serve trace
     of phase 4 with the kernel path's flags and kernel entropy: paged
     self-attention KV, the decode kernel, chunked prefill of 64 tokens
     whose first chunk runs the encoder on the engine's zero frames and
     writes the slot's cross strips ``ck`` / ``cv``.  One engine, its
-    decode chunk one CUDA graph replay (12 decode launches and the head a
-    step), serves the trace SERVE_RUNS times, then once more with every
+    decode chunk one CUDA graph replay (a decode launch a decoder layer
+    and the head a step), serves the trace SERVE_RUNS times, then once more with every
     chunk held bit for bit against the eager chunk, the cross strips and
     pools included; then operand entropy on the gather / batch path the
     same way on a second engine; then ``encdec_frames_walk``.  Returns
@@ -2793,7 +2866,6 @@ def encdec_phase(launches) -> dict:
     import gc
 
     from repro_torch import resolve_device
-    from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import build_engine
     from repro_torch.models import registry as M
     from repro_torch.models.encdec import n_dec
@@ -2804,12 +2876,13 @@ def encdec_phase(launches) -> dict:
     args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], ENCDEC_FLAGS)
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
-    params = M.init_params(get_config(args.arch), torch.Generator(
+    base = served_config(args)
+    params = M.init_params(base, torch.Generator(
         device=dev).manual_seed(args.seed), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
-    built = build_engine(args, params)
+    built = build_engine(args, params, cfg=base)
     engine, cfg = built
     runner = engine.runner
     layers = n_dec(cfg)
@@ -2864,7 +2937,7 @@ def encdec_phase(launches) -> dict:
     gc.collect()
 
     o_args = serve_args(GATHER_PATH + ["--entropy", "operand"], ENCDEC_FLAGS)
-    print(graph_vs_eager(o_args, build_engine(o_args, params),
+    print(graph_vs_eager(o_args, build_engine(o_args, params, cfg=base),
                          "encdec, gather path, operand entropy")[1],
           flush=True)
     gc.collect()
@@ -3001,14 +3074,16 @@ def encdec_frames_walk(params, cfg) -> str:
 # --------------------------------------------------------------------------
 
 def vlm_phase(launches) -> dict:
-    """phi-3-vision-4.2b at full width and depth (32 layers, d 3072, 32 MHA
-    heads of D 96, ff 8192 gated silu, V 32064; bf16 body, f32 head,
-    random weights from the seed) on the serve trace of phase 4 at prompt
+    """phi-3-vision-4.2b at full width (d 3072, 32 MHA heads of D 96, ff
+    8192 gated silu, V 32064; bf16 body, f32 head, random weights from the
+    seed), cut in depth to ``VLM_DEPTH`` of its 32 layers, on the serve
+    trace of phase 4 at prompt
     640 with the kernel path's flags and kernel entropy: paged KV, the
     decode kernel, and batch prefill (the family has no chunked prefill:
     the engine falls back, asserted) of each prompt whose first 576
     positions are the engine's zero prefix embeds.  One engine, its decode
-    chunk one CUDA graph replay (32 decode launches and the head a step),
+    chunk one CUDA graph replay (a decode launch a layer and the head a
+    step),
     serves the trace SERVE_RUNS times, then once more with every chunk
     held bit for bit against the eager chunk, pools included; then
     operand entropy on the gather / batch path the same way on a second
@@ -3017,7 +3092,6 @@ def vlm_phase(launches) -> dict:
     import gc
 
     from repro_torch import resolve_device
-    from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import build_engine
     from repro_torch.models import registry as M
 
@@ -3027,12 +3101,13 @@ def vlm_phase(launches) -> dict:
     args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], VLM_FLAGS)
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
-    params = M.init_params(get_config(args.arch), torch.Generator(
+    base = served_config(args)
+    params = M.init_params(base, torch.Generator(
         device=dev).manual_seed(args.seed), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
-    built = build_engine(args, params)
+    built = build_engine(args, params, cfg=base)
     engine, cfg = built
     runner = engine.runner
     served = (engine.kv_layout, engine.decode_attn, engine.prefill_mode)
@@ -3078,7 +3153,7 @@ def vlm_phase(launches) -> dict:
     gc.collect()
 
     o_args = serve_args(GATHER_PATH + ["--entropy", "operand"], VLM_FLAGS)
-    print(graph_vs_eager(o_args, build_engine(o_args, params),
+    print(graph_vs_eager(o_args, build_engine(o_args, params, cfg=base),
                          "vlm, gather path, operand entropy")[1],
           flush=True)
     gc.collect()
@@ -3101,7 +3176,7 @@ def vlm_prefix_check(engine) -> str:
     the fused head's outputs finite.  The two whole decode paths are
     also run side by side and their hidden states' distance reported:
     two bf16 paths part by an ulp here and there and the parts grow
-    through the 32 layers (``tools/decode_drift.py`` measures it against
+    through the layers (``tools/decode_drift.py`` measures it against
     reads each within a bf16 rounding of an f64 read), so that distance
     is no check of the kernel."""
     import dataclasses
@@ -3222,6 +3297,9 @@ def vlm_prefix_check(engine) -> str:
 # --------------------------------------------------------------------------
 
 SHARED = ["--shared-prefix", "200"]
+# the layers phase 14 serves (of qwen2-1.5B's 28): cut for the script's
+# time (the widths stay whole)
+SPEC_LAYERS = 8
 PREFIX_ON = ["--prefix-cache", "on"]
 SPEC_FORCED = ["--spec-decode", "on", "--spec-k", "4", "--spec-draft-s", "1",
                "--spec-mi-threshold", "inf"]
@@ -3351,9 +3429,10 @@ def spec_graph_vs_eager(args, built) -> str:
 
 
 def spec_phase(launches, smi: str) -> dict:
-    """Phase 14: qwen2-1.5B at full width on phase 4's trace with a
-    200-token shared prefix, the kernel path, every engine on one copy of
-    the parameters.  (1) Kernel entropy, the prefix cache on: 4 hits, 4
+    """Phase 14: qwen2-1.5B at full width, cut in depth to
+    ``SPEC_LAYERS`` of its 28 layers, on phase 4's trace with a 200-token
+    shared prefix, the kernel path, every engine on one copy of the
+    parameters.  (1) Kernel entropy, the prefix cache on: 4 hits, 4
     misses, 800 of 2,048 prompt tokens saved, 4 copy-on-write copies, the
     pool balanced, and the prefill kernel launched at the hits' offset
     200; beside the cache off.  (2) Operand entropy: the streams with the
@@ -3370,7 +3449,8 @@ def spec_phase(launches, smi: str) -> dict:
     operand = KERNEL_PATH + SHARED + ["--entropy", "operand"]
     t0 = time.perf_counter()
     args_on = serve_args(kernel + PREFIX_ON)
-    built_on = build_engine(args_on)
+    cfg = served_config(args_on, num_layers=SPEC_LAYERS)
+    built_on = build_engine(args_on, cfg=cfg)
     params = built_on[0].params
     engines = {"on": (args_on, built_on)}
     for key, extra in (("off", kernel), ("op_on", operand + PREFIX_ON),
@@ -3378,7 +3458,7 @@ def spec_phase(launches, smi: str) -> dict:
                        ("forced", operand + PREFIX_ON + SPEC_FORCED),
                        ("adaptive", operand + PREFIX_ON + SPEC_ADAPTIVE)):
         a = serve_args(extra)
-        engines[key] = (a, build_engine(a, params))
+        engines[key] = (a, build_engine(a, params, cfg=cfg))
     print(f"prefix/spec: 6 engines on one copy of the parameters built in "
           f"{time.perf_counter() - t0:.1f}s ({smi})", flush=True)
 
@@ -3611,6 +3691,7 @@ def risk_phase(launches, smi: str) -> dict:
     class-0 stream bit for bit against their solo runs on the same engine,
     the pool at identity.  (d) The fused head at S 40 (M 1 and 4).
     Returns the measured priority run's launches."""
+    from repro_torch.launch.engine.mesh_check import lane_threshold
     from repro_torch.launch.serve import build_engine
 
     dev = torch.device("cuda")
@@ -3626,11 +3707,7 @@ def risk_phase(launches, smi: str) -> dict:
     torch.cuda.synchronize()
     r_fifo = fifo[0].run(burst_requests(vocab))
     check_risk_run("fifo burst", fifo[0], r_fifo)
-    # the escalation threshold: the upper quartile of the MI the fifo run
-    # carried at its chunk ends (each request's unfinished chunks)
-    ends = [m for q in r_fifo["requests"]
-            for m in q.MI[args.chunk - 1:len(q.MI) - 1:args.chunk]]
-    thr = float(np.quantile(ends, 0.75))
+    thr, ends = lane_threshold(r_fifo, args.chunk)
     print(f"risk: escalate-mi {thr:.6g}, the upper quartile of {len(ends)} "
           f"chunk-end carried MIs of the fifo run (range "
           f"{min(ends):.6g}-{max(ends):.6g})", flush=True)
@@ -4055,7 +4132,19 @@ def main():
     from repro_torch.kernels import build, launches
 
     if sys.argv[1:2] == ["--trace"]:
-        print(json.dumps(trace_main(sys.argv[2])), flush=True)
+        kind = sys.argv[2]
+        if kind == "-":
+            # started ahead (``start_tracers``): ready the process, then
+            # wait for the kind of the trace (none: the script ended)
+            import repro_torch.launch.serve  # noqa: F401
+            for name in build.SOURCES:
+                build.load(name)
+            torch.zeros(1, device=dev)
+            torch.cuda.synchronize()
+            kind = sys.stdin.readline().strip()
+            if not kind:
+                return
+        print(json.dumps(trace_main(kind)), flush=True)
         return
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4082,21 +4171,34 @@ def main():
 
     t0 = time.perf_counter()
     print("kernels vs plain versions:", flush=True)
-    rows = {"uncertainty_head": check_head(dev),
-            "paged_decode_attention": check_decode(dev),
-            "paged_prefill_attention": check_prefill(dev)}
+    seconds = {}
+
+    def timed(check):
+        t = time.perf_counter()
+        out = check(dev)
+        seconds[check.__name__] = round(time.perf_counter() - t, 1)
+        return out
+
+    rows = {"uncertainty_head": timed(check_head),
+            "paged_decode_attention": timed(check_decode),
+            "paged_prefill_attention": timed(check_prefill)}
     rows["photonic_conv"], rows["photonic_conv_sampled"] = \
-        check_photonic(dev)
-    rows["bayes_matmul"], rows["bayes_matmul_sampled"] = check_bayes(dev)
-    rows["lrt_matmul"], rows["lrt_matmul_sampled"] = check_lrt(dev)
-    rows["uncertainty_head_two_pass"] = check_two_pass(dev)
-    rows["flash_attention"] = check_flash(dev)
-    check_moe_shapes(dev)
+        timed(check_photonic)
+    rows["bayes_matmul"], rows["bayes_matmul_sampled"] = timed(check_bayes)
+    rows["lrt_matmul"], rows["lrt_matmul_sampled"] = timed(check_lrt)
+    rows["uncertainty_head_two_pass"] = timed(check_two_pass)
+    rows["flash_attention"] = timed(check_flash)
+    timed(check_moe_shapes)
+    print(f"kernels: seconds by check {seconds}", flush=True)
     print(f"phase kernels: {time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
     counts = serve_phase(launches)
     print(f"phase serve: {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # the traces' fresh processes start here, after phases 3 and 4 took
+    # their times, and each reaches the card while an earlier phase runs
+    start_tracers()
 
     t0 = time.perf_counter()
     print(check_graph_chunks(KERNEL_PATH + ["--entropy", "kernel"],
@@ -4182,6 +4284,7 @@ def main():
         counts[name] += vlm_counts[name]
     print(f"vlm launches {vlm_counts}", flush=True)
     print(profile_serve("vlm_serve"), flush=True)
+    stop_tracers()                      # no trace after phase 13
     print(f"phase vlm: {time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()

@@ -25,7 +25,9 @@ whose decode chunk is a CUDA graph of its own.  With ``mesh`` (a
 ``launch.mesh.TP``) the engine is one rank of a tensor-parallel group:
 every rank runs this same host-side loop on the same requests over its
 own ``ModelRunner`` share, and reads the same (gathered) outputs, so the
-ranks take the same schedule.
+ranks take the same schedule: speculative rounds and the escalation lane
+included, and the priority policy's SLO deadlines, which read rank 0's
+submission stamps on every rank.
 """
 
 from __future__ import annotations
@@ -95,10 +97,15 @@ class ServeEngine:
     and the KV cache on its kv-head axis where the ranks divide the
     heads, and each rank's paged decode and prefill kernels read its own
     heads (no gather read in their place, unlike the JAX engine, whose
-    GSPMD cannot partition a Pallas body).  Speculative decoding, the
-    escalation lane and the priority policy's SLO deadlines are not
-    ported to a mesh (ROADMAP.md item 13c) and raise
-    ``NotImplementedError``.
+    GSPMD cannot partition a Pallas body).  Every feature serves under
+    it: a speculative round's draft and verify gather as a chunk's step
+    does; the escalation lane's runner takes the rank's share of the
+    same parameter tensors (in kernel entropy its head whole, as the
+    main head; in operand entropy the head's columns, gathered) and
+    attends every head (``escalation_runner``); and
+    ``run`` broadcasts rank 0's ``t_submit`` stamps of every arrival wave
+    (one float64 broadcast), so every rank ranks SLO deadlines by one
+    clock.
 
     ``device`` defaults to CUDA and raises when no GPU is present; the
     parameters must already live there (under a mesh, on the rank's
@@ -145,10 +152,6 @@ class ServeEngine:
                              f"{prefill_chunk}")
         if trace_every < 1:
             raise ValueError(f"trace_every must be >= 1, got {trace_every}")
-        if mesh is not None and (spec_decode or escalate_mi is not None):
-            raise NotImplementedError(
-                "speculative decoding and the escalation lane are not "
-                "ported to a tensor-parallel mesh; see ROADMAP.md item 13c")
         self.mesh = mesh
         if spec_decode:
             if spec_k < 1:
@@ -254,7 +257,15 @@ class ServeEngine:
         for, then kept: a one-slot dense ``ModelRunner`` on the engine's
         own parameter tensors, the gather read, batch prefill, and the
         engine's entropy, thresholds and operand-noise provider.  S
-        changes the head's draws only, so the cheap layout serves."""
+        changes the head's draws only, so the cheap layout serves.  Under
+        a mesh it is the rank's lane runner on the rank's share, taken as
+        it is (``sharded``: no second copy), its chunk eager under gloo
+        as the main chunk is, and its attention over every head
+        (``TP.local_heads`` off: q, k and v gathered, the one-slot cache
+        whole): its dense read and batch prefill are plain einsums
+        batched over the heads, whose GEMMs a rank's share of the heads
+        would change (the paged kernels take their split from the
+        model's head count instead)."""
         if s not in self._esc_runners:
             main = self.runner
             cfg = dataclasses.replace(self.cfg, mc_samples=s,
@@ -265,7 +276,9 @@ class ServeEngine:
                 mi_threshold=main._mi_threshold,
                 se_threshold=main._se_threshold, kv_layout="dense",
                 kv_block=self.kv_block, kv_blocks=self.table_width,
-                device=self.device, head_noise=main._head_noise)
+                device=self.device, head_noise=main._head_noise,
+                tp=None if self.mesh is None else dataclasses.replace(
+                    self.mesh, local_heads=False), sharded=True)
         return self._esc_runners[s]
 
     def _modality(self, batch: int) -> Optional[torch.Tensor]:
@@ -462,13 +475,6 @@ class ServeEngine:
 
     def _run(self, requests: list[Request]) -> dict:
         paged = self.kv_layout == "paged"
-        if self.mesh is not None and self.policy.name == "priority" \
-                and any(r.slo_s is not None for r in requests):
-            # a deadline reads the rank's own clock, so ranks could rank
-            # the queue differently and leave the one schedule
-            raise NotImplementedError(
-                "SLO deadlines of the priority policy are not ported to a "
-                "tensor-parallel mesh; see ROADMAP.md item 13c")
         for r in requests:
             if len(r.prompt) == 0:
                 raise ValueError(f"request {r.rid}: empty prompt")
@@ -500,9 +506,21 @@ class ServeEngine:
         pending = collections.deque(
             sorted((r for r in requests if r.arrival_step > 0),
                    key=lambda r: r.arrival_step))
-        for r in requests:
-            if r.arrival_step <= 0:
+
+        def submit(wave: list) -> int:
+            """Queue an arrival wave; under a mesh every rank then takes
+            rank 0's submission stamps (one broadcast a wave), which the
+            priority policy's deadlines read."""
+            for r in wave:
                 sched.submit(r)
+            if self.mesh is not None and wave:
+                stamps = self.mesh.broadcast_floats([r.t_submit
+                                                     for r in wave])
+                for r, t in zip(wave, stamps):
+                    r.t_submit = t
+            return len(wave)
+
+        submit([r for r in requests if r.arrival_step <= 0])
 
         runner = self.runner
         # the MI escalation lane (None keeps every escalation branch dead)
@@ -567,17 +585,16 @@ class ServeEngine:
 
         try:
             while sched.has_work() or pending or lane_busy():
-                fired = 0
+                wave = []
                 while pending \
                         and pending[0].arrival_step <= stats.steps_run:
-                    sched.submit(pending.popleft())
-                    fired += 1
-                if not fired and pending and not sched.has_work() \
+                    wave.append(pending.popleft())
+                if not wave and pending and not sched.has_work() \
                         and not lane_busy():
                     nxt = pending[0].arrival_step
                     while pending and pending[0].arrival_step == nxt:
-                        sched.submit(pending.popleft())
-                        fired += 1
+                        wave.append(pending.popleft())
+                fired = submit(wave)
                 admitted = sched.admit()
                 # the priority policy's victims are requeued already: take
                 # their slots out of the decode set and the carry before

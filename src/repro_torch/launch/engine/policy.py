@@ -63,7 +63,9 @@ class PriorityPolicy(SchedPolicy):
     FIFO order.  ``victim`` takes the decoding slot of the numerically
     LARGEST priority, strictly worse than the candidate's (never a peer),
     with the fewest emitted tokens (the cheapest replay), then the
-    youngest submission."""
+    youngest submission.  Under a tensor-parallel mesh ``t_submit`` is
+    rank 0's stamp on every rank (``ServeEngine._run`` broadcasts it), so
+    the ranks rank the queue alike."""
 
     name = "priority"
 

@@ -40,7 +40,12 @@ are whole on every rank, so every rank's scheduler takes the same
 decisions.  Under NCCL the chunk's graph captures its collectives; gloo
 collectives (host-staged) cannot be captured, so a gloo group on a card
 runs the chunk eagerly (``TP.graphs``; the result's ``mesh`` field says
-so).
+so).  A speculative round follows the chunk: its draft and verify pass
+``tp`` to the model, its buffers keep their whole shapes (the hiddens,
+the proposals and outputs, the recurrent leaves are whole on every
+rank), and it is eager under gloo and one graph a depth, its collectives
+captured, under NCCL (written, not yet run with a card a rank).  The escalation lane's runner takes the main runner's share as it
+is (``sharded``), so a rank holds one copy of its parameters.
 """
 
 from __future__ import annotations
@@ -80,16 +85,18 @@ class ModelRunner:
     round's buffers for the deepest draft; ``spec_draft_s`` is the draft
     head's sample count.  ``tp``: the rank's mesh handle (see the module
     docstring); ``params`` are then the whole model's, and the runner
-    keeps the rank's share."""
+    keeps the rank's share, or with ``sharded`` already the rank's share
+    (another runner's of the same ``head_entropy``), kept as they are:
+    the same tensors, no second copy."""
 
     def __init__(self, params, cfg, *, num_slots: int, max_len: int,
                  chunk: int, entropy: Optional[KernelEntropy],
                  mi_threshold: float, se_threshold: float, kv_layout: str,
                  kv_block: int, kv_blocks: int, device: torch.device,
                  head_noise=None, spec_k_max: int = 0,
-                 spec_draft_s: int = 1, tp=None):
+                 spec_draft_s: int = 1, tp=None, sharded: bool = False):
         self.tp = tp
-        if tp is not None:
+        if tp is not None and not sharded:
             dims = serve_dims(params, tp.size)
             if cfg.head_entropy == "kernel":       # the fused head: whole
                 dims["head"] = dict.fromkeys(dims["head"])
@@ -400,11 +407,11 @@ class ModelRunner:
             self._spec_k_fns[k] = (
                 S.build_spec_draft(self.cfg, entropy=self._entropy, k=k,
                                    draft_samples=self.spec_draft_s,
-                                   head_noise=self._head_noise),
+                                   head_noise=self._head_noise, tp=self.tp),
                 S.build_spec_verify(self.cfg, entropy=self._entropy, k=k,
                                     mi_threshold=self._mi_threshold,
                                     se_threshold=self._se_threshold,
-                                    head_noise=self._head_noise))
+                                    head_noise=self._head_noise, tp=self.tp))
         return self._spec_k_fns[k]
 
     def _spec_body(self, k: int) -> None:
@@ -420,7 +427,8 @@ class ModelRunner:
         a replay of depth k's graph; the first round of a depth runs
         eagerly on a side stream (its result is the round's) and then
         captures the graph, whose launches each replay adds to
-        ``launches.COUNTS``."""
+        ``launches.COUNTS``; a gloo mesh runs every round eagerly
+        (``graphed``)."""
         self.spec_lens0.copy_(self._staged(np.asarray(lens0, np.int32)),
                               non_blocking=True)
         if not self.graphed:

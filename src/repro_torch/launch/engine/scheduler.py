@@ -28,6 +28,12 @@ import numpy as np
 from repro_torch.launch.engine.block_pool import BlockAllocator
 from repro_torch.launch.engine.policy import FifoPolicy, SchedPolicy
 
+# the one clock every lifecycle stamp reads (``Request.transition``): a
+# seam, so that a test can skew one rank's clock.  Under a mesh the
+# engine replaces each new request's ``t_submit`` with rank 0's
+# (``ServeEngine._run``), so every rank ranks SLO deadlines alike.
+clock = time.perf_counter
+
 # every legal edge of the request lifecycle; an illegal move raises
 LIFECYCLE = {
     "new": ("queued",),
@@ -93,7 +99,7 @@ class Request:
                 f"request {self.rid}: illegal lifecycle transition "
                 f"{self.state!r} -> {to!r} (legal: "
                 f"{LIFECYCLE[self.state]})")
-        now = time.perf_counter()
+        now = clock()
         if to == "queued":
             if self.state == "new":
                 self.t_submit = now

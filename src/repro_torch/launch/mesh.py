@@ -53,17 +53,34 @@ TIMEOUT_S = 600
 class TP:
     """One rank's handle on the tensor-parallel group (the process's
     default group): what the runner holds and the model layers receive
-    (``layers.apply_attention(..., tp=)``)."""
+    (``layers.apply_attention(..., tp=)``).  ``local_heads``: whether
+    attention runs on the rank's own heads where the ranks divide them
+    (``layers.heads_local``); False gathers q, k and v and attends every
+    head on every rank (the escalation lane's runner)."""
     rank: int
     size: int
     backend: str                 # "nccl" | "gloo"
     device: torch.device
+    local_heads: bool = True
 
     @property
     def graphs(self) -> bool:
         """Whether the decode chunk can be a CUDA graph: NCCL collectives
         capture, gloo's (host-staged) cannot."""
         return self.device.type == "cuda" and self.backend == "nccl"
+
+    def broadcast_floats(self, values) -> list[float]:
+        """Rank 0's ``values`` on every rank: ONE float64 broadcast, on the
+        host for gloo (on a card too: gloo moves host buffers) and on the
+        rank's card for NCCL, outside any graph.  Every rank passes as
+        many values.  A no-op on one rank (no group)."""
+        values = [float(v) for v in values]
+        if self.size == 1 or not values:
+            return values
+        dev = self.device if self.backend == "nccl" else torch.device("cpu")
+        t = torch.tensor(values, dtype=torch.float64, device=dev)
+        dist.broadcast(t, src=0)
+        return t.tolist()
 
     def describe(self) -> str:
         """``result["mesh"]``: ranks, backend, devices (and, on a card,
@@ -289,15 +306,16 @@ def _rank_main(rank: int, m: int, device: str, init: str, timeout_s: int,
 class Ranks:
     """M spawned rank processes, kept up between calls.
 
-        with Ranks(2, "cpu") as ranks:
+        with Ranks(2, "cuda") as ranks:   # or "cpu"
             out = ranks.run(fn, a, b=2)   # fn(tp, a, b=2) on every rank
 
-    ``run`` returns the ranks' results in rank order (rank 0's first) and
-    raises ``RuntimeError`` with the tracebacks if any rank raised or
-    died.  ``fn`` and its arguments and results cross processes by
+    ``device`` is what the ranks are asked on (``backend_for``); it has
+    no default.  ``run`` returns the ranks' results in rank order (rank
+    0's first) and raises ``RuntimeError`` with the tracebacks if any
+    rank raised or died.  ``fn`` and its arguments and results cross processes by
     pickle: ``fn`` must be importable by name."""
 
-    def __init__(self, m: int, device="cpu", timeout_s: int = TIMEOUT_S):
+    def __init__(self, m: int, device, timeout_s: int = TIMEOUT_S):
         import torch.multiprocessing as mp
 
         self.m = m

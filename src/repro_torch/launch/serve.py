@@ -18,9 +18,13 @@ with one card a rank where the machine has M cards, else gloo with every
 rank on ``--device`` (the CPU, or one shared card with the decode chunk
 run eagerly); every rank serves the same trace on its share of the
 parameters and KV heads, and rank 0's result is reported, with
-``result["mesh"]`` naming ranks, backend and devices.  Speculative
-decoding, the escalation lane and ``--slo-ms`` under ``--policy
-priority`` refuse a mesh (``NotImplementedError``, ROADMAP.md item 13c).  Every ``--arch`` is served.
+``result["mesh"]`` naming ranks, backend and devices.  Every flag of
+the unsharded engine serves under ``--mesh``: ``--spec-decode on``
+(each rank drafts and verifies on its share, gathering as a decode step
+does), ``--escalate-mi`` (each rank's lane runs on the same parameter
+tensors as its main runner) and ``--policy priority`` with ``--slo-ms``
+(every rank ranks deadlines by rank 0's submission stamps, broadcast
+once an arrival wave).  Every ``--arch`` is served.
 The ssm family (``mamba2_370m``) keeps no KV: ``--kv-layout paged``,
 ``--decode-attn kernel`` and ``--prefill chunked`` fall back silently to
 the dense layout, the gather read and batch prefill at the exact prompt
@@ -65,6 +69,12 @@ Usage:
       --decode-attn kernel --prefill chunked
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --mesh 1x2 --kv-layout paged --decode-attn kernel --prefill chunked
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --mesh 1x2 --kv-layout paged --entropy operand --spec-decode on
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --mesh 1x2 --kv-layout paged --num-requests 4 --policy priority \
+      --priorities 2,2,2,0 --slo-ms 0,0,0,500 --arrivals 0,0,0,4 \
+      --escalate-mi 0.5
 """
 
 from __future__ import annotations

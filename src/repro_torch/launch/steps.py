@@ -298,7 +298,7 @@ def build_scan_decode(cfg: ArchConfig, entropy=None, chunk: int = 8,
 # ---------------------------------------------------------------------------
 
 def build_spec_draft(cfg: ArchConfig, entropy=None, k: int = 4,
-                     draft_samples: int = 1, head_noise=None):
+                     draft_samples: int = 1, head_noise=None, tp=None):
     """``k``-step draft of a speculative round.
 
     Returns ``spec_draft(params, token, cache, hiddens, ys, states) ->
@@ -312,20 +312,23 @@ def build_spec_draft(cfg: ArchConfig, entropy=None, k: int = 4,
     post-step recurrent leaves (hybrid, ssm) for rollback, and ``token``
     the last proposal.  No separate draft cache exists: a rejected tail
     leaves junk KV above the kept depth, which decode masks and later
-    steps overwrite.
+    steps overwrite.  ``tp``: a tensor-parallel rank's mesh handle, with
+    the rank's parameters and cache (as ``build_decode_step``): the
+    hidden, the proposals and the recurrent leaves come out whole on
+    every rank.
     """
     seed = decode_seed(entropy)
 
     def spec_draft(params, token, cache, hiddens, ys, states):
         for j in range(k):
             depth = cache["len"].clone()     # the body advances len in place
-            hidden, cache = M.decode_hidden(params, cfg, token, cache)
+            hidden, cache = M.decode_hidden(params, cfg, token, cache, tp=tp)
             if hidden.dtype != hiddens.dtype:
                 raise TypeError(f"draft hidden is {hidden.dtype}, the "
                                 f"buffer {hiddens.dtype}")
             out = M.head_outputs(params, cfg, hidden, depth, (seed, 0),
                                  num_samples=draft_samples,
-                                 head_noise=head_noise)
+                                 head_noise=head_noise, tp=tp)
             hiddens[j].copy_(hidden)
             ys[j, 0].copy_(out["next_token"])
             token.copy_(out["next_token"])
@@ -338,7 +341,7 @@ def build_spec_draft(cfg: ArchConfig, entropy=None, k: int = 4,
 
 def build_spec_verify(cfg: ArchConfig, entropy=None, k: int = 4,
                       mi_threshold: float = 0.05, se_threshold: float = 1.0,
-                      head_noise=None):
+                      head_noise=None, tp=None):
     """The full-S verify of a speculative round over the k draft hiddens.
 
     Returns ``spec_verify(params, hiddens, lens0, ys) -> ys``: position j
@@ -348,14 +351,15 @@ def build_spec_verify(cfg: ArchConfig, entropy=None, k: int = 4,
     ones plain decode emits there: a (k * B)-row product need not equal k
     B-row products, and the operand noise keys column b by row b, the
     slot.  Writes ``ys[j, 1:]`` = OUTPUTS (with the epistemic / aleatoric
-    flags) in place.
+    flags) in place.  ``tp``: as ``build_spec_draft``'s (a head sharded
+    on its vocabulary columns is gathered along V).
     """
     seed = decode_seed(entropy)
 
     def spec_verify(params, hiddens, lens0, ys):
         for j in range(k):
             out = M.head_outputs(params, cfg, hiddens[j], lens0 + j,
-                                 (seed, 0), head_noise=head_noise)
+                                 (seed, 0), head_noise=head_noise, tp=tp)
             is_epi = out["MI"] > mi_threshold
             is_alea = (out["SE"] > se_threshold) & ~is_epi
             torch.stack([out["next_token"].float(), out["H"], out["SE"],
@@ -378,7 +382,8 @@ def build_spec_commit(cfg: ArchConfig):
     Other slots keep their junk-advanced carry, as inactive slots do
     under a chunk.  Every write lands in the tensors given
     (``torch.where`` then ``copy_``), so graphs captured over them stay
-    valid.
+    valid.  It runs no collective: under a mesh the depths, the tokens
+    and the recurrent leaves are whole on every rank.
     """
     del cfg
 

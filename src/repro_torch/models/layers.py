@@ -109,8 +109,11 @@ def heads_local(cfg: ArchConfig, tp) -> bool:
     ranks that divides the kv heads, so that the column slices of wq / wk
     / wv are whole heads (query heads r·H/M.. use kv heads r·Hkv/M.., a
     GQA group never straddles ranks) and the KV cache shards on its
-    kv-head axis (``registry.make_cache(kv_shards=)``)."""
+    kv-head axis (``registry.make_cache(kv_shards=)``).  A serving handle
+    may ask for every head instead (``TP.local_heads``; a train mesh's
+    ``Axis`` never does)."""
     return tp is not None and tp.size > 1 \
+        and getattr(tp, "local_heads", True) \
         and shardable(cfg.num_kv_heads, tp.size)
 
 

@@ -9,11 +9,15 @@ torch and the port only: a rank loads no JAX.
 from __future__ import annotations
 
 import sys
+import time
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.launch.engine import Request, ServeEngine
 from repro_torch.launch.engine import mesh_check as MC
+from repro_torch.launch.engine import scheduler
 from repro_torch.models import layers as L
 from repro_torch.models import registry as M
 from repro_torch.sharding.partition import gather_rep, serve_dims, shard_params
@@ -23,14 +27,21 @@ class TableNoise:
     """An operand-noise provider from a (slots, depths, S, V) table of
     another implementation's xi: column b of a step's (S, B, V) xi is
     ``table[b, cache_len[b]]``, which is what a (slot, depth)-keyed
-    provider gives.  Picklable, so that a rank can draw it."""
+    provider gives.  ``samples``: {sample count: table} of the draws
+    taken at other sample counts (a speculative draft head's, the
+    escalation lane's): another implementation's stream of one S need
+    not be the first rows of another's.  Picklable, so that a rank can
+    draw it."""
 
-    def __init__(self, table):
+    def __init__(self, table, samples=None):
         self.table = torch.as_tensor(table)
+        self.samples = {s: torch.as_tensor(t)
+                        for s, t in (samples or {}).items()}
 
     def __call__(self, seed, cache_len, num_samples, vocab):
+        table = self.samples.get(num_samples, self.table)
         slots = torch.arange(cache_len.shape[0])
-        xi = self.table[slots, cache_len.long().cpu()]           # (B, S, V)
+        xi = table[slots, cache_len.long().cpu()]                # (B, S, V)
         return xi[:, :num_samples, :vocab].transpose(0, 1).contiguous() \
             .to(cache_len.device)
 
@@ -119,3 +130,79 @@ def loaded(tp, prefixes=("jax", "repro")) -> list[str]:
     has imported."""
     return sorted(m for m in sys.modules
                   if any(m == p or m.startswith(p + ".") for p in prefixes))
+
+
+def engine_features(tp) -> dict:
+    """Under a rank's mesh handle: the engine builds with speculative
+    decoding and with the escalation lane; the lane's runner holds the
+    main runner's parameter tensors (the same storage, no second share);
+    the priority policy serves requests with SLO deadlines; an empty
+    prompt still raises ``ValueError`` before anything is served."""
+    cfg = MC.family_config("dense")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), tp.device)
+    kw = dict(num_slots=2, max_len=16, device=tp.device, mesh=tp)
+    spec = ServeEngine(params, cfg, spec_decode=True, **kw)
+    lane = ServeEngine(params, cfg, escalate_mi=0.5, **kw)
+    shares = MC.shares_storage(lane.escalation_runner(lane.escalate_s).params,
+                               lane.runner.params)
+    eng = ServeEngine(params, cfg, policy="priority", **kw)
+    prompt = np.arange(4, dtype=np.int32)
+    r = eng.run([Request(rid=0, prompt=prompt, max_new_tokens=2),
+                 Request(rid=1, prompt=prompt, max_new_tokens=2,
+                         slo_s=0.1)])
+    try:
+        eng.run([Request(rid=0, prompt=prompt[:0], max_new_tokens=2)])
+        empty = "served"
+    except ValueError as e:
+        empty = str(e)
+    return {"spec": spec.spec_decode and spec.runner.spec_k_max,
+            "lane_shares": shares, "slo_tokens": r["gen_tokens"],
+            "empty": empty}
+
+
+def reversed_clock() -> float:
+    """A clock that runs backwards: a later submission stamps earlier."""
+    return -time.perf_counter()
+
+
+# one class, every request with the same SLO: the deadlines order the
+# queue exactly as the submission stamps do.  Two long requests hold both
+# slots while requests 2 and 3 arrive in two waves and queue
+CLOCK_GENS = (12, 12, 4, 4)
+CLOCK_ARRIVALS = (0, 0, 4, 8)
+
+
+def clock_run(tp, skewed=()) -> dict:
+    """The dense engine under the priority policy on ``CLOCK_*``'s traffic
+    (``tp`` None: unsharded); the ranks in ``skewed`` (rank 0 where
+    unsharded) stamp by ``reversed_clock``.  Returns the admission order
+    (as ``SlotScheduler.admit`` placed the requests: a skewed clock's
+    stamps do not sort), each request's slot and its streams."""
+    cfg = MC.family_config("dense")
+    dev = torch.device("cpu") if tp is None else tp.device
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    reqs = [Request(rid=r.rid, prompt=r.prompt, max_new_tokens=g,
+                    priority=0, slo_s=1.0, arrival_step=a)
+            for r, g, a in zip(MC.make_traffic(cfg, "dense"), CLOCK_GENS,
+                               CLOCK_ARRIVALS)]
+    eng = ServeEngine(params, cfg, **MC.ENGINE, decode_attn="kernel",
+                      device=dev, mesh=tp, policy="priority")
+    own, admit, placed = scheduler.clock, scheduler.SlotScheduler.admit, []
+
+    def logged(sched):
+        out = admit(sched)
+        placed.extend(r.rid for _, r in out)
+        return out
+
+    if (0 if tp is None else tp.rank) in skewed:
+        scheduler.clock = reversed_clock
+    scheduler.SlotScheduler.admit = logged
+    try:
+        out = eng.run(reqs)
+    finally:
+        scheduler.clock = own
+        scheduler.SlotScheduler.admit = admit
+    return {"admissions": placed,
+            "slots": [r.slot for r in out["requests"]],
+            "streams": [(r.tokens, r.H, r.SE, r.MI, r.p_max)
+                        for r in out["requests"]]}

@@ -189,36 +189,45 @@ def test_parse_mesh_refuses(spec):
 
 
 def test_engine_refuses_what_13c_leaves_out():
+    """Item 13c is ported, so nothing is refused any more: under a rank's
+    ``TP`` the engine builds with speculative decoding (the round's
+    buffers at the whole widths: the rank's parameters are sharded, its
+    hiddens are not) and with the escalation lane, whose runner holds the
+    main runner's share itself (the same tensors, ``data_ptr`` for
+    ``data_ptr``: no second copy, no second sharding) and attends every
+    head (its one-slot cache whole).  Building runs no collective, so no
+    group is needed.  The name is the case's from before the port."""
     cfg = dataclasses.replace(reduced(get_config("qwen2_1_5b")),
-                              head_entropy="operand")
+                              head_entropy="operand", num_kv_heads=2)
     params = M.init_params(cfg, torch.Generator(), "cpu")
     tp = meshlib.TP(rank=0, size=2, backend="gloo",
                     device=torch.device("cpu"))
-    for kw in ({"spec_decode": True}, {"escalate_mi": 0.5}):
-        with pytest.raises(NotImplementedError, match="13c"):
-            ServeEngine(params, cfg, num_slots=2, max_len=16, device="cpu",
-                        mesh=tp, **kw)
+    kw = dict(num_slots=2, max_len=16, device="cpu", mesh=tp)
+    spec = ServeEngine(params, cfg, spec_decode=True, spec_k=3, **kw)
+    r = spec.runner
+    assert r.params["head"]["mu"].shape[-1] == cfg.vocab_size // 2
+    assert r.spec_hid.shape == (3, 2, cfg.d_model)
+    assert r.spec_ys.shape[0] == 3
+    lane = ServeEngine(params, cfg, escalate_mi=0.5, **kw)
+    esc = lane.escalation_runner(lane.escalate_s)
+    assert esc.tp == dataclasses.replace(tp, local_heads=False)
+    assert esc.params is lane.runner.params
+    assert MC.shares_storage(esc.params, lane.runner.params)
+    assert esc.cfg.mc_samples == lane.escalate_s and esc.num_slots == 1
+    assert lane.runner.cache["k"].shape[-2] == 1   # the rank's kv head
+    assert esc.cache["k"].shape[-2] == 2           # every kv head
 
 
-def test_engine_refuses_slo_deadlines_under_a_mesh():
-    """A deadline reads the rank's own clock, so two ranks could rank the
-    queue differently: the priority policy with an SLO refuses a mesh
-    before anything is served (no collective runs, so no group is
-    needed); without an SLO it only checks the requests."""
-    cfg = dataclasses.replace(reduced(get_config("qwen2_1_5b")),
-                              head_entropy="operand")
-    params = M.init_params(cfg, torch.Generator(), "cpu")
-    tp = meshlib.TP(rank=0, size=2, backend="gloo",
-                    device=torch.device("cpu"))
-    eng = ServeEngine(params, cfg, num_slots=2, max_len=16, device="cpu",
-                      mesh=tp, policy="priority")
-    prompt = np.arange(4, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="13c"):
-        eng.run([Request(rid=0, prompt=prompt, max_new_tokens=2),
-                 Request(rid=1, prompt=prompt, max_new_tokens=2,
-                         slo_s=0.1)])
-    with pytest.raises(ValueError, match="empty prompt"):
-        eng.run([Request(rid=0, prompt=prompt[:0], max_new_tokens=2)])
+def test_engine_refuses_slo_deadlines_under_a_mesh(ranks):
+    """SLO deadlines serve under a mesh now (rank 0's submission stamps
+    are broadcast, so the ranks rank the queue alike): on two ranks the
+    priority policy serves a request with an SLO without raising, and an
+    empty prompt still raises ``ValueError`` before anything is served.
+    The name is the case's from before the port."""
+    for got in ranks.run(R.engine_features):
+        assert got["slo_tokens"] == 4
+        assert "empty prompt" in got["empty"]
+        assert got["spec"] and got["lane_shares"] is True
 
 
 # (route, dtype, H, Hkv, D, BS, MB): the served decode walk (bf16, D 128,

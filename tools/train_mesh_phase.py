@@ -11,13 +11,14 @@ sharded layout, its parity with the unsharded step and the memory a rank
 holds, and says nothing of the speed of a sharded step.
 
   (a) qwen2-1.5B at full width, its own config (``fsdp_params`` False,
-      ``seq_parallel`` True; 28 layers, d 1536, H 12, Hkv 2, ff 8960,
-      V 151936, bf16 body, f32 head and moments, per-layer remat) at
+      ``seq_parallel`` True; d 1536, H 12, Hkv 2, ff 8960, V 151936,
+      bf16 body, f32 head and moments, per-layer remat), cut in depth to
+      ``DENSE_LAYERS`` = 4 of its 28 layers for the script's time, at
       ``--mesh 2x2``: data parallel 2 x tensor parallel 2 with the
       sequence-parallel stream, two steps at phase 16's batch 8 x seq 256
       against the unsharded port step on the same batches and keys (run
-      here first, and freed before the ranks start: four ranks hold about
-      twice the unsharded state).  Each step's loss, nll, kl and grad norm
+      here first, while the ranks start, and freed before they take
+      their state: four ranks hold about twice the unsharded state).  Each step's loss, nll, kl and grad norm
       within ``TOL_A`` relative (step 2 follows a sharded update) and its
       accuracy within ``TOL_ACC``; every rank's block of step 1's
       gradients of ``GRAD_LEAVES`` (the vocabulary-parallel head and
@@ -88,6 +89,9 @@ import train_phase as TP  # noqa: E402
 
 MESH = (2, 2)
 ARCH, BATCH, SEQ, STEPS = "qwen2_1_5b", 8, 256, 2
+# (a)'s layers (of 28), cut for the script's time: a step on gloo through
+# host memory costs in proportion to the depth; the widths stay whole
+DENSE_LAYERS = 4
 SMALL, SMALL_BATCH, SMALL_SEQ = "qwen2_7b", 8, 32
 # against the unsharded step, relative, a step (PERF.md §6, PR 33: set
 # from the readings of step 1, 3.9e-5 and 1.2e-4, and step 2, nll 2.1e-4
@@ -103,16 +107,20 @@ GRAD_LEAVES = ("head/mu", "embed/table", "blocks/attn/wq",
 TOL_GRAD = {"head/mu": 1e-2, "embed/table": 5e-2, "blocks/attn/wq": 5e-2,
             "blocks/attn/wo": 5e-2, "blocks/ln1": 5e-2, "final_norm": 5e-2}
 TOL_B = 1e-5
-# GB a rank holds at 2 x 2 (from the shapes): parameters (the body's
-# columns or rows and the embedding's vocabulary halved, the f32 head's
-# vocabulary quartered), gradients alike, f32 moments; the peak band
-PREDICTED = {"params": 2.011, "grads": 2.011, "moments": 7.109,
-             "peak": (13.0, 15.0)}
+# GB a rank holds at 2 x 2 and ``DENSE_LAYERS`` (from the shapes):
+# parameters (the body's columns or rows, 46.8 MB a layer, and the
+# embedding's vocabulary halved, 0.233 GB; the f32 head's vocabulary
+# quartered, 0.467 GB), gradients alike, f32 moments; the peak band (the
+# 28-layer step held 2.61 GB above its state, which the depth barely
+# moves)
+PREDICTED = {"params": 0.887, "grads": 0.887, "moments": 2.616,
+             "peak": (5.5, 8.0)}
 # bytes a rank puts into each axis' collectives a step (GB): model, the
-# stream's gathers and f32 reduce-scatters (forward, remat, backward);
-# data, the head's gather, its reduce-scatter and the f32 all-reduce of
-# every data-replicated gradient
-PREDICTED_TRAFFIC = {"model": 1.337, "data": 3.788}
+# stream's gathers and f32 reduce-scatters (forward, remat, backward),
+# about 47 MB a layer; data, the head's gather, its reduce-scatter
+# (1.167 GB) and the f32 all-reduce of every data-replicated gradient
+# (93.6 MB a layer); the 28-layer step put in 1.337 and 3.788 GB
+PREDICTED_TRAFFIC = {"model": 0.20, "data": 1.541}
 SERVING = TP.SERVING
 
 # phase 19: arch -> (depth it is cut to, or None for the whole model;
@@ -189,10 +197,13 @@ def _host_batch(cfg, i: int, batch: int, seq: int) -> dict:
 
 
 def _config(name: str):
+    import dataclasses
+
     from repro_torch.configs.registry import get_config, reduced
     from repro_torch.launch.train import train_config
     if name == ARCH:
-        return train_config(ARCH, reduced_cfg=False)
+        return dataclasses.replace(train_config(ARCH, reduced_cfg=False),
+                                   num_layers=DENSE_LAYERS)
     return reduced(get_config(name))
 
 
@@ -465,7 +476,8 @@ def check_full(ref: list, outs: list, smi: str) -> None:
                f"({bad})")
     for i in range(STEPS):
         a, b = ref[i], r0[i]
-        print(f"train mesh: {ARCH} full width step {i + 1}, unsharded / "
+        print(f"train mesh: {ARCH} full width, {DENSE_LAYERS} of 28 layers, "
+              f"step {i + 1}, unsharded / "
               f"2x2: loss {a['loss']:.6f} / {b['loss']:.6f}, nll "
               f"{a['nll']:.6f} / {b['nll']:.6f}, kl {a['kl']:.6g} / "
               f"{b['kl']:.6g}, grad_norm {a['grad_norm']:.6f} / "
@@ -535,21 +547,21 @@ def train_mesh_phase(launches, smi: str, dense: bool = True) -> dict:
     ckpt = tempfile.mkdtemp(prefix="train_mesh_ckpt_")
     grads = os.path.join(ckpt, "unsharded_grads.pt")
     counts = dict.fromkeys(SERVING, 0)
+    # the ranks' allocators map memory in growing segments: four
+    # processes share the card, and phase 19's seamless ranks hold their
+    # whole 256206-id head each
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     try:
-        if dense:
-            ref = unsharded(ARCH, BATCH, SEQ, STEPS, keep=grads)
-            ref_small = unsharded(SMALL, SMALL_BATCH, SMALL_SEQ, 3)
-        refs = family_refs(ckpt)
-        print(f"train mesh: unsharded references "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
-        t0 = time.perf_counter()
-        # the ranks' allocators map memory in growing segments: four
-        # processes share the card, and phase 19's seamless ranks hold
-        # their whole 256206-id head each
-        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
-                              "expandable_segments:True")
+        # the ranks start first: they reach the card and join their
+        # groups while this process runs the unsharded references (the
+        # ranks hold no state until their first task)
         with meshlib.Ranks(MESH[0] * MESH[1], "cuda", timeout_s=600) as ranks:
-            print(f"train mesh: 4 ranks spawned in "
+            if dense:
+                ref = unsharded(ARCH, BATCH, SEQ, STEPS, keep=grads)
+                ref_small = unsharded(SMALL, SMALL_BATCH, SMALL_SEQ, 3)
+            refs = family_refs(ckpt)
+            print(f"train mesh: unsharded references "
                   f"{time.perf_counter() - t0:.1f}s", flush=True)
             if dense:
                 t0 = time.perf_counter()
