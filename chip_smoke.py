@@ -224,7 +224,15 @@ Phases (any failure exits non-zero before the result line):
      bytes, peak and collective bytes against the prediction; the
      deepseek state gathered whole and served on the kernel path in rank
      0 (launches counted).
- 20. one JSON line of per-kernel numbers (eleven kernels; the serving
+ 20. dry run (``tools/dryrun_phase.py``): phase 18 (a)'s cell reckoned
+     by ``repro_torch.launch.dryrun`` in the main process (rank 0 of a
+     fake group of four, fake tensors on cuda, nothing allocated): its
+     parameter, gradient and moment bytes and the bytes a rank puts into
+     each axis' collectives equal to every rank's measured ones, its
+     MemTracker peak within the predicted band of each rank's allocator
+     peak, no process group left; its FLOPs printed beside the measured
+     step's time.
+ 21. one JSON line of per-kernel numbers (eleven kernels; the serving
      kernels' launches are phase 4's first run plus phases 9's, 11's,
      12's, 13's, 14's, 15's, 16's, 17's (both ranks: the trace in both
      entropy modes, the spec serve and the priority burst), 18's and
@@ -4327,7 +4335,8 @@ def main():
     t0 = time.perf_counter()
     import train_mesh_phase
     torch.cuda.empty_cache()
-    train_mesh_counts = train_mesh_phase.train_mesh_phase(launches, smi)
+    train_mesh_counts, dense_ranks = train_mesh_phase.train_mesh_phase(
+        launches, smi)
     for name in ("paged_decode_attention", "paged_prefill_attention",
                  "uncertainty_head"):
         counts[name] += train_mesh_counts[name]
@@ -4335,6 +4344,11 @@ def main():
           f"phases 18 and 19) {train_mesh_counts}", flush=True)
     print(f"phase train mesh (18 and 19): {time.perf_counter() - t0:.1f}s",
           flush=True)
+
+    t0 = time.perf_counter()
+    import dryrun_phase
+    dryrun_phase.dryrun_phase(dense_ranks, smi)
+    print(f"phase dry run (20): {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

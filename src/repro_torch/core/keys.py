@@ -42,8 +42,11 @@ def key_seed(key: Key) -> int:
 
 def normal(key: Key, shape: tuple, device) -> torch.Tensor:
     """Standard normals of ``shape`` (float32) on ``device``, a pure
-    function of ``key``."""
+    function of ``key``; on the meta device (``launch.dryrun``) a tensor
+    of the shape that holds nothing."""
     device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.float32, device=device)
     gen = torch.Generator(device=device).manual_seed(key_seed(key))
     return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                        device=device)

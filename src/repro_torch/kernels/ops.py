@@ -6,12 +6,16 @@ order but no ``impl`` argument and no tile sizes.  The device of the
 operands is the whole policy: the plain versions exist for the CPU tests
 and as the references ``chip_smoke.py`` holds the kernels against.
 Ragged shapes are masked in the kernels, so nothing is padded here.
+A tensor that holds no memory (on the meta device, or a fake tensor:
+``launch.dryrun`` reckons a step on them) takes the plain version too:
+there is nothing for a kernel to read.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import bayes_matmul as BM
 from repro_torch.kernels import flash_attention as FA
@@ -22,6 +26,8 @@ from repro_torch.kernels import uncertainty_head as UH
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
+    if isinstance(t, FakeTensor) or t.device.type == "meta":
+        return False
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":

@@ -232,10 +232,19 @@ def default_train_mesh(device) -> Optional[tuple[int, int]]:
     return None
 
 
-# (D, M) -> the process's (world, data, model) groups: a group lives as
-# long as the process's default group, and creating one is collective, so
-# each shape's groups are created once and kept
+# (default group, D, M) -> the process's (world, data, model) groups: a
+# group lives as long as the process's default group, and creating one is
+# collective, so each shape's groups are created once per default group
+# and kept (a dry run's fake group drops its own, ``drop_train_meshes``)
 _TRAIN_MESHES: dict = {}
+
+
+def drop_train_meshes() -> None:
+    """Forget the train meshes of the current default group (before it is
+    destroyed)."""
+    world = dist.group.WORLD
+    for key in [k for k in _TRAIN_MESHES if k[0] is world]:
+        del _TRAIN_MESHES[key]
 
 
 def train_mesh(tp: TP, d: int, m: int) -> Optional[TrainMesh]:
@@ -248,7 +257,8 @@ def train_mesh(tp: TP, d: int, m: int) -> Optional[TrainMesh]:
     if n > tp.size:
         raise ValueError(f"a {d}x{m} mesh needs {n} ranks, the group has "
                          f"{tp.size}")
-    if (d, m) not in _TRAIN_MESHES:
+    key = (dist.group.WORLD, d, m)
+    if key not in _TRAIN_MESHES:
         def group(ranks):
             # every rank takes part in every group's creation
             g = dist.new_group(ranks) if len(ranks) > 1 else None
@@ -257,10 +267,10 @@ def train_mesh(tp: TP, d: int, m: int) -> Optional[TrainMesh]:
         world = group(list(range(n)))
         data = [group([i * m + j for i in range(d)]) for j in range(m)]
         model = [group([i * m + j for j in range(m)]) for i in range(d)]
-        _TRAIN_MESHES[(d, m)] = (world, data, model)
+        _TRAIN_MESHES[key] = (world, data, model)
     if tp.rank >= n:
         return None
-    world, data, model = _TRAIN_MESHES[(d, m)]
+    world, data, model = _TRAIN_MESHES[key]
     i, j = divmod(tp.rank, m)
     staged = tp.backend == "gloo" and tp.device.type == "cuda"
     traffic = dict.fromkeys(("data", "model", "world"), 0)

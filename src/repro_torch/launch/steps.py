@@ -138,7 +138,7 @@ def _sharded_grads(grads: list, dims: dict, partial: dict, mesh) -> list:
 def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
                      svi_cfg: SVIConfig | None = None,
                      micro_batches: int = 1, seed: int = 0, noise=None,
-                     nll_fn=None, mesh=None, dims=None):
+                     nll_fn=None, mesh=None, dims=None, on_grads=None):
     """``(state, batch) -> (state, metrics)`` with ``state = {"params",
     "opt"}``: the negative ELBO (``core.svi.elbo_loss`` of ``nll_fn``,
     default the family's ``registry.nll_loss``), its gradients by
@@ -164,7 +164,10 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
     (``_sharded_grads``), AdamW runs on its blocks, and every metric is
     the global one, equal on every rank.  Every LM family trains
     sharded; a width that the family's sharded forward cannot split
-    raises NotImplementedError (``registry.check_trains_sharded``)."""
+    raises NotImplementedError (``registry.check_trains_sharded``).
+
+    ``on_grads``: called with the list of gradients the step hands AdamW
+    (``launch.dryrun`` counts their bytes)."""
     svi = svi_cfg or SVIConfig()
     owned = None
     if mesh is not None:
@@ -193,7 +196,7 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
 
     def train_step(state, batch):
         params, opt = state["params"], state["opt"]
-        step = int(opt["step"])
+        step = adamw.step_count(opt)
         key = K.fold_in(K.root(seed), step)
         device = T.leaves(params)[0].device
         partial = scope = None
@@ -224,6 +227,8 @@ def build_train_step(cfg, opt_cfg: adamw.AdamWConfig,
             if mesh is not None:
                 grads = _sharded_grads(list(grads), dims, partial, mesh)
                 sharded = {"mesh": mesh, "owned": owned, "dims": dims}
+            if on_grads is not None:
+                on_grads(list(grads))
             params, opt, om = adamw.apply_updates(
                 params, T.unflatten(params, list(grads)), opt, opt_cfg,
                 **sharded)

@@ -28,6 +28,8 @@ import math
 from typing import Any
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core import tree as T
 from repro_torch.sharding import collectives as C
@@ -36,6 +38,29 @@ from repro_torch.sharding import partition as P
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 SLICE = 1 << 26         # elements a pass of the update takes at a time
+
+# the count each state's step tensor holds, kept on the host beside it:
+# tensor -> (the tensor's version counter when written, the count).  A
+# step reads it without a device-to-host copy, and a dry run's fake step
+# tensor (``launch.dryrun``), which holds no value, still has its count;
+# a tensor written by anything else (a restored checkpoint) has another
+# version and is read again
+_HOST_STEP = WeakIdKeyDictionary()
+
+
+def step_count(state: dict) -> int:
+    """The optimizer state's step as a Python int."""
+    t = state["step"]
+    version, n = _HOST_STEP.get(t, (None, 0))
+    if version != t._version:
+        n = int(t)
+        _HOST_STEP[t] = (t._version, n)
+    return n
+
+
+def _set_step(t: torch.Tensor, n: int) -> None:
+    t.fill_(n)
+    _HOST_STEP[t] = (t._version, n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +109,10 @@ def init_state(params: Any, cfg: AdamWConfig) -> dict:
     scalar tensor on the parameters' device)."""
     mdt = _DTYPES[cfg.moment_dtype]
     first = T.leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    _HOST_STEP[step] = (step._version, 0)
     state = {"mu": T.zeros_like(params, mdt), "nu": T.zeros_like(params, mdt),
-             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
+             "step": step}
     if cfg.compress_topk > 0:
         # float32, the dtype the reference's accumulator holds after its
         # first step
@@ -202,13 +229,16 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     # scaled copy of the whole gradient tree)
     scale, metrics["grad_norm"] = _clip_scale(grads, cfg.clip_norm, mesh,
                                               owned)
-    step = int(state["step"]) + 1
-    lr = schedule_lr(cfg, step)
-    metrics["lr"] = lr
+    step = step_count(state) + 1
     b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1 - _f32(b1) ** torch.tensor(float(step))
-    bc2 = 1 - _f32(b2) ** torch.tensor(float(step))
-    bc1, bc2 = float(bc1), float(bc2)
+    # host scalars, computed with any tensor mode set aside (a dry run's
+    # fake tensors), so they are a real step's numbers
+    with _disable_current_modes():
+        lr = schedule_lr(cfg, step)
+        bc1 = 1 - _f32(b1) ** torch.tensor(float(step))
+        bc2 = 1 - _f32(b2) ** torch.tensor(float(step))
+        bc1, bc2 = float(bc1), float(bc2)
+    metrics["lr"] = lr
     # the reference's expressions term by term, in place where a buffer
     # is free (float32 moments update in their own storage)
     for leaf in zip(T.leaves(params), T.leaves(grads),
@@ -226,5 +256,5 @@ def apply_updates(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
                 m.copy_(m2)
             if v2 is not v:
                 v.copy_(v2)
-    state["step"].fill_(step)
+    _set_step(state["step"], step)
     return params, state, metrics

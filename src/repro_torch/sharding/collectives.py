@@ -30,6 +30,10 @@ the FSDP parameter gather):
 A reduce-scatter is an all-reduce and the rank's slice (gloo has no
 reduce-scatter in every PyTorch the port meets), so it moves an
 all-reduce's bytes.  Sums of bf16 tensors run in float32.
+
+Every collective tells the ``OBSERVERS`` (a dry run's
+``launch.op_cost.OpCost``) its kind and its bytes in and out
+(``observe``); with none, that costs a test of an empty list.
 """
 
 from __future__ import annotations
@@ -37,20 +41,37 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+# objects with a ``collective(kind, operand_bytes, result_bytes)`` method,
+# told of every collective the port issues
+OBSERVERS: list = []
 
-def _staged(axis, x: torch.Tensor, fn, in_place: bool = True):
+
+def observe(kind: str, operand: int, result: int) -> None:
+    """Tell the ``OBSERVERS`` of one collective: its kind (an HLO name:
+    "all-reduce", "all-gather", ...) and its bytes in and out on this
+    rank."""
+    for o in OBSERVERS:
+        o.collective(kind, operand, result)
+
+
+def _staged(axis, x: torch.Tensor, fn, kind: str, in_place: bool = True):
     """``fn(buffer)`` on a contiguous copy of ``x`` (in host memory where
     ``axis.staged`` and ``x`` is on a card); returns the buffer on
-    ``x``'s device.  ``fn`` runs the collective in place (``in_place``:
-    the buffer is then never ``x`` itself) or returns a new tensor."""
+    ``x``'s device.  ``fn`` runs the collective ``kind`` in place
+    (``in_place``: the buffer is then never ``x`` itself) or returns a
+    new tensor."""
+    nbytes = x.numel() * x.element_size()
     if axis.traffic is not None:
-        axis.traffic[axis.name] += x.numel() * x.element_size()
+        axis.traffic[axis.name] += nbytes
+    if OBSERVERS:
+        observe(kind, nbytes,
+                nbytes * axis.size if kind == "all-gather" else nbytes)
     staged = axis.staged and x.device.type == "cuda"
     if staged:
         buf = x.detach().to("cpu", copy=True)
     else:
         buf = x.detach().contiguous()
-        if in_place and buf.data_ptr() == x.data_ptr():
+        if in_place and x.is_contiguous():      # buf is x's memory
             buf = buf.clone()
     out = fn(buf)
     out = buf if out is None else out
@@ -67,7 +88,8 @@ def all_reduce(x: torch.Tensor, axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
         return x
     low = x.dtype in (torch.bfloat16, torch.float16)
     out = _staged(axis, x.float() if low else x,
-                  lambda b: dist.all_reduce(b, op=op, group=axis.group))
+                  lambda b: dist.all_reduce(b, op=op, group=axis.group),
+                  "all-reduce")
     return out.to(x.dtype) if low else out
 
 
@@ -81,7 +103,7 @@ def all_gather(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
         dist.all_gather(parts, b, group=axis.group)
         return torch.cat(parts, dim=dim)
 
-    return _staged(axis, x, run, in_place=False)
+    return _staged(axis, x, run, "all-gather", in_place=False)
 
 
 def chunk(x: torch.Tensor, axis, dim: int) -> torch.Tensor:

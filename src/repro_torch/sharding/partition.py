@@ -127,6 +127,9 @@ def gather_rep(x: torch.Tensor, tp, dim: int = -1) -> torch.Tensor:
         return x
     staged = tp.backend == "gloo" and x.device.type == "cuda"
     src = x.contiguous()
+    if C.OBSERVERS:
+        n = src.numel() * src.element_size()
+        C.observe("all-gather", n, n * tp.size)
     if staged:
         src = src.cpu()
     buf = src.new_empty((tp.size, *src.shape))

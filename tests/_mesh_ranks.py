@@ -206,3 +206,18 @@ def clock_run(tp, skewed=()) -> dict:
             "slots": [r.slot for r in out["requests"]],
             "streams": [(r.tokens, r.H, r.SE, r.MI, r.p_max)
                         for r in out["requests"]]}
+
+
+def lane_heads(tp) -> dict:
+    """The heads the escalation lane attends under a rank's mesh handle,
+    beside the main runner's: whether each runs on the rank's own kv
+    heads (``layers.heads_local``) and the kv heads its cache holds."""
+    cfg = MC.family_config("dense")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), tp.device)
+    eng = ServeEngine(params, cfg, escalate_mi=0.5, num_slots=2, max_len=16,
+                      device=tp.device, mesh=tp)
+    lane = eng.escalation_runner(eng.escalate_s)
+    return {"main_local": L.heads_local(cfg, eng.runner.tp),
+            "lane_local": L.heads_local(cfg, lane.tp),
+            "main_kv_heads": eng.runner.cache["k"].shape[-2],
+            "lane_kv_heads": lane.cache["k"].shape[-2]}

@@ -42,9 +42,12 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) > 20
-    # the tensor-parallel serving modules are among those checked
+    # the tensor-parallel serving modules and the dry run's are among
+    # those checked
     assert {"repro_torch.launch.mesh", "repro_torch.sharding.partition",
-            "repro_torch.launch.engine.mesh_check"} <= set(mods)
+            "repro_torch.launch.engine.mesh_check",
+            "repro_torch.launch.dryrun", "repro_torch.launch.op_cost",
+            "repro_torch.launch.profile_cell"} <= set(mods)
 
 
 def test_spawned_ranks_load_no_jax_and_no_repro():

@@ -136,6 +136,16 @@ def test_kernel_entropy_features_at_mesh(ranks, features):
         assert row["schedule"]["preemptions"] >= 1
 
 
+def test_the_lane_attends_every_head_at_mesh(ranks):
+    """The mode the escalation lane runs in under ``--mesh 1x2``: the main
+    runner attends the rank's own kv head (its pool holds one of the two),
+    the lane every head (``TP.local_heads`` off: q, k and v gathered, its
+    one-slot cache whole), on both ranks."""
+    for row in ranks.run(R.lane_heads):
+        assert row == {"main_local": True, "lane_local": False,
+                       "main_kv_heads": 1, "lane_kv_heads": 2}
+
+
 # ---------------------------------------------------------------------------
 # the JAX engine on the same weights and xi
 # ---------------------------------------------------------------------------

@@ -372,13 +372,17 @@ def rank_full(tp, smi: str, ref: str) -> dict:
     out = {"rank": mesh.rank, "mesh": mesh.describe(), "rows": rows,
            "grad_errors": errors,
            "init_s": init_s, "init_peak": init_peak,
-           "peak": torch.cuda.max_memory_allocated() / 1e9,
-           "params": C.tree_bytes(state["params"]) / 1e9,
-           "grads": grad_bytes[0] / 1e9,
-           "moments": (C.tree_bytes(state["opt"]["mu"])
-                       + C.tree_bytes(state["opt"]["nu"])) / 1e9,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": C.tree_bytes(state["params"]),
+           "grad_bytes": grad_bytes[0],
+           "moment_bytes": (C.tree_bytes(state["opt"]["mu"])
+                            + C.tree_bytes(state["opt"]["nu"])),
            "shards": {p: tuple(t.shape) for p, t in
                       T.items(state["params"])}}
+    out.update(peak=out["peak_bytes"] / 1e9,
+               params=out["param_bytes"] / 1e9,
+               grads=out["grad_bytes"] / 1e9,
+               moments=out["moment_bytes"] / 1e9)
     # (c): the parameters whole into rank 0; every other rank frees its
     # state before rank 0 serves
     whole = _gathered(state["params"], dims, mesh)
@@ -536,9 +540,11 @@ def check_small(ref: list, outs: list) -> None:
           flush=True)
 
 
-def train_mesh_phase(launches, smi: str, dense: bool = True) -> dict:
+def train_mesh_phase(launches, smi: str, dense: bool = True) -> tuple:
     """Phase 18 (unless not ``dense``) and phase 19 on one set of four
-    ranks; returns the serving kernels' launches of (c) and (g), summed."""
+    ranks; returns the serving kernels' launches of (c) and (g), summed,
+    and (a)'s readings (each rank's output, or None without ``dense``),
+    which phase 20 (``tools/dryrun_phase.py``) holds the dry run to."""
     from repro_torch.launch import mesh as meshlib
 
     del launches            # (c) and (g) count in rank 0's process
@@ -547,6 +553,7 @@ def train_mesh_phase(launches, smi: str, dense: bool = True) -> dict:
     ckpt = tempfile.mkdtemp(prefix="train_mesh_ckpt_")
     grads = os.path.join(ckpt, "unsharded_grads.pt")
     counts = dict.fromkeys(SERVING, 0)
+    outs = None
     # the ranks' allocators map memory in growing segments: four
     # processes share the card, and phase 19's seamless ranks hold their
     # whole 256206-id head each
@@ -589,7 +596,7 @@ def train_mesh_phase(launches, smi: str, dense: bool = True) -> dict:
                   flush=True)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    return counts
+    return counts, outs
 
 
 # --------------------------------------------------------------------------
@@ -917,7 +924,7 @@ def main():
     t0 = time.perf_counter()
     only = "--families-only" in sys.argv[1:]
     print(f"train mesh launches "
-          f"{train_mesh_phase(launches, smi, dense=not only)}", flush=True)
+          f"{train_mesh_phase(launches, smi, dense=not only)[0]}", flush=True)
     print(f"phase train mesh: {time.perf_counter() - t0:.1f}s", flush=True)
 
 
