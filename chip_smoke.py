@@ -27,7 +27,8 @@ Phases (any failure exits non-zero before the result line):
      three serving kernels are also held and timed at deepseek-moe-16b's
      shapes (MHA at H = Hkv = 16; the head at K 2048, V 102400);
      zamba2-7b's come with phase 11, seamless-m4t-medium's with 12,
-     phi-3-vision-4.2b's with 13.
+     phi-3-vision-4.2b's with 13, nemotron-4-15b's, codeqwen1.5-7b's and
+     qwen2-7b's with 21.
   4. serve: qwen2-1.5B at full width (28 layers, d 1536, bf16 body, f32
      Bayesian head over V = 151936, S = 10 draws), random weights from a
      seed, paged KV + kernel decode attention + chunked prefill + kernel
@@ -68,10 +69,12 @@ Phases (any failure exits non-zero before the result line):
      (its own kernel, no other), checked against plain f32 GEMMs, the
      fused head and the models' attention, and timed.
   9. moe: deepseek-moe-16b at full width (d 2048, 64 routed experts
-     top-6 + 2 shared), cut in depth to ``MOE_DEPTH`` = 6 of its 28
+     top-6 + 2 shared), cut in depth to ``MOE_DEPTH`` = 4 of its 28
      layers for the script's time, on phase 4's trace through the kernel path,
-     served three times by one graphed engine (init and capture time,
-     peak memory, decode ms a step and tok/s as median and range, the
+     served three times by one graphed engine (``serve_arch``, as phase
+     21's archs: parameter bytes and the draw's peak against the
+     meta-device reckoning, init and capture time, peak memory, decode
+     ms a step against its bytes floor and tok/s as median and range, the
      launch counts checked per run), every chunk of a fourth run against
      the eager chunk bit for bit, then operand entropy through the kernel
      path against the gather / batch-prefill path (whose chunks are held
@@ -142,7 +145,7 @@ Phases (any failure exits non-zero before the result line):
      short vlm serve in a fresh process, which must name
      paged_decode_mma<96> and the fused head.
  14. prefix cache and speculative decoding: qwen2-1.5B at full width,
-     cut in depth to ``SPEC_LAYERS`` = 8 of its 28 layers, on phase 4's
+     cut in depth to ``SPEC_LAYERS`` = 4 of its 28 layers, on phase 4's
      trace with a 200-token shared prefix through the kernel
      path, six engines on one copy of the parameters (``spec_phase``):
      the prefix cache in kernel entropy (4 hits, 4 misses, 800 of 2,048
@@ -232,11 +235,26 @@ Phases (any failure exits non-zero before the result line):
      MemTracker peak within the predicted band of each rank's allocator
      peak, no process group left; its FLOPs printed beside the measured
      step's time.
- 21. one JSON line of per-kernel numbers (eleven kernels; the serving
+ 21. archs (``tools/arch_phase.py``), with the card's memory freed
+     first: the four configs no other phase serves, at full width, cut
+     in depth (``chip_smoke.CUTS``): nemotron-4-15b (4 of 32 layers),
+     codeqwen1.5-7b (4 of 32), qwen2-7b (4 of 28) and grok-1-314b (2 of
+     64).  The three dense archs' serving kernels at their shapes
+     (``check_shapes``: decode at 48 over 8, 32 over 32 and 28 over 4
+     kv heads of D 128, prefill S 64 at offsets 0 and 192, the head at
+     K 6144 x V 256000, 4096 x 92416 and 3584 x 152064 with argmaxes
+     planted in the last tile); then each arch served on phase 4's trace
+     by one graphed engine (parameter bytes and the draw's peak against
+     the meta-device reckoning, launches a replay asserted: grok's
+     soft-capped head takes the plain path, no fused head), every chunk
+     of a second serve against the eager chunk bit for bit, and operand
+     entropy through the kernel path against the gather / batch path
+     (its chunks against the eager chunk too; grok's routing flips).
+ 22. one JSON line of per-kernel numbers (eleven kernels; the serving
      kernels' launches are phase 4's first run plus phases 9's, 11's,
      12's, 13's, 14's, 15's, 16's, 17's (both ranks: the trace in both
-     entropy modes, the spec serve and the priority burst), 18's and
-     19's, and phase 10's for the head), the card's nvidia-smi line,
+     entropy modes, the spec serve and the priority burst), 18's, 19's
+     and 21's, and phase 10's for the head), the card's nvidia-smi line,
      then the result line.
 
 Imports nothing of the JAX package.
@@ -245,6 +263,7 @@ Imports nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import json
 import math
@@ -895,12 +914,12 @@ def check_shapes(dev, model: str, H: int, Hkv: int, D: int, K: int, V: int,
                 or not all(torch.isnan(got[b]).all() for b in empty) \
                 or torch.isnan(got[[b for b in range(len(lens_l))
                                     if b not in empty]]).any():
-            fail(f"decode attention at {model}'s MHA ({label}): max |err| "
+            fail(f"decode attention at {model}'s heads ({label}): max |err| "
                  f"{e:.3g} > {tol}, not the mma route, or NaN not exactly "
                  "on the empty slot")
         lib, live = sdpa_call(q, k_pool, v_pool, table, lens)
         if not max_err(got[live], lib().transpose(1, 2)) <= tol:
-            fail(f"decode attention at {model}'s MHA ({label}): SDPA "
+            fail(f"decode attention at {model}'s heads ({label}): SDPA "
                  "differs")
         run = lambda: PA.paged_decode_attention_cuda(  # noqa: E731
             q, k_pool, v_pool, table, lens)
@@ -932,10 +951,13 @@ def check_shapes(dev, model: str, H: int, Hkv: int, D: int, K: int, V: int,
         e = max(max_err(got, want), max_err(got, ref))
         if PA.prefill_route(q.dtype, D) != "mma" or not e <= tol \
                 or torch.isnan(got).any():
-            fail(f"prefill attention at {model}'s MHA, S {S} offset "
+            fail(f"prefill attention at {model}'s heads, S {S} offset "
                  f"{offset}: max |err| {e:.3g} > {tol}, not the mma route, "
                  "or NaN")
-        kx, vx = (L.paged_gather(p, row)[:, :span].transpose(1, 2)
+        # the kv heads expanded to the query heads beforehand, as in
+        # ``sdpa_call`` (that copy is not timed)
+        kx, vx = (L.paged_gather(p, row)[:, :span]
+                  .repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
                   .contiguous() for p in (k_pool, v_pool))
         qx = q.transpose(1, 2).contiguous()
         mask = (torch.arange(span, device=dev)[None, :]
@@ -943,7 +965,7 @@ def check_shapes(dev, model: str, H: int, Hkv: int, D: int, K: int, V: int,
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qx, kx, vx, attn_mask=mask)
         if not max_err(got, lib().transpose(1, 2)) <= tol:
-            fail(f"prefill attention at {model}'s MHA: SDPA differs at S "
+            fail(f"prefill attention at {model}'s heads: SDPA differs at S "
                  f"{S} offset {offset}")
         keys = min(offset + S, span)
         pairs = sum(min(offset + i + 1, span) for i in range(S))
@@ -1916,24 +1938,27 @@ def serve_phase(launches) -> dict:
     return counts
 
 
-def serve_runs(args, built, label: str, launches,
-               attention: bool = True) -> dict:
-    """``args``' trace served SERVE_RUNS times by the engine ``built``,
+def serve_runs(args, built, label: str, launches, attention: bool = True,
+               runs: int = SERVE_RUNS, head: bool = True,
+               floor_ms: float | None = None) -> dict:
+    """``args``' trace served ``runs`` times by the engine ``built``,
     the launch counts zeroed just before each run and checked just after
-    it (``check_serve``); every run must give run 1's tokens and MI (one
+    it (``check_serve``; ``head``: whether the fused head serves the
+    model); every run must give run 1's tokens and MI (one
     engine, its carry reset in place between runs; the head stream is
-    keyed by seed and step).  Prints each run and decode ms a step and
-    tok/s as median and range; returns the first run's counts."""
+    keyed by seed and step).  Prints each run and decode ms a step
+    (beside ``floor_ms``, the step's bytes floor, where given) and tok/s
+    as median and range; returns the first run's counts."""
     from repro_torch.launch.serve import serve
 
     engine, cfg = built
     counts, ms, tps, e2e, p99, first = None, [], [], [], [], None
-    for i in range(SERVE_RUNS):
+    for i in range(runs):
         launches.reset()
         torch.cuda.synchronize()
         r = serve(args, built)
         got = launches.snapshot()
-        check_serve(r, got, attention_layers(cfg), attention)
+        check_serve(r, got, attention_layers(cfg), attention, head)
         counts = counts or got
         seen = [(q.tokens, q.MI) for q in r["requests"]]
         if first is not None and seen != first:
@@ -1954,8 +1979,10 @@ def serve_runs(args, built, label: str, launches,
               f"first shape {r['prefill_compile_s'] * 1e3:.1f} ms, steady "
               f"{r['prefill_steady_s'] * 1e3:.1f} ms a call, launches {got}",
               flush=True)
-    print(f"{label} {cfg.name} full width, {SERVE_RUNS} runs of one graphed "
-          f"engine: decode ms a step {spread(ms)}, decode tok/s "
+    above = "" if floor_ms is None else \
+        f" ({sorted(ms)[len(ms) // 2] / floor_ms:.2f}x its bytes floor)"
+    print(f"{label} {cfg.name} full width, {runs} run(s) of one graphed "
+          f"engine: decode ms a step {spread(ms)}{above}, decode tok/s "
           f"{spread(tps, '.1f')}, e2e tok/s {spread(e2e, '.1f')}, p99 s "
           f"{spread(p99)}", flush=True)
     return counts
@@ -2099,19 +2126,20 @@ def attention_layers(cfg) -> int:
 
 
 def check_serve(r: dict, counts: dict, layers: int = 28,
-                attention: bool = True) -> None:
+                attention: bool = True, head: bool = True) -> None:
     """The run's launch counts (one attention launch a layer, or a
     hybrid application, a decode step and a prefill chunk, one head a
-    step; an attention-free family launches the head alone, batch
-    prefill no prefill kernel) and its requests (finished, 32 tokens,
-    finite H/SE/MI, MI >= 0)."""
+    step, none where the head is soft-capped (``head`` False: the plain
+    explicit-logits head, as in the reference); an attention-free family
+    launches the head alone, batch prefill no prefill kernel) and its
+    requests (finished, 32 tokens, finite H/SE/MI, MI >= 0)."""
     steps, chunks = r["spec_decode"]["full_model_calls"], r["prefill_chunks"]
     want = {"paged_decode_attention": layers * steps * attention,
             "paged_prefill_attention": layers * chunks * attention,
-            "uncertainty_head": steps}
+            "uncertainty_head": steps * head}
     none = {"paged_decode_attention": not attention,
             "paged_prefill_attention": not attention
-            or r["prefill_mode"] == "batch", "uncertainty_head": False}
+            or r["prefill_mode"] == "batch", "uncertainty_head": not head}
     for name, n in want.items():
         if counts[name] != n or (n == 0 and not none[name]) or steps == 0:
             fail(f"serve: {name} launched {counts[name]} times, expected "
@@ -2259,8 +2287,9 @@ def trace_main(kind: str) -> dict:
     """A ``device_trace`` summary, without its output: ``serve`` (or
     ``moe_serve``, deepseek-moe-16b; ``ssm_serve``, mamba2-370m;
     ``hybrid_serve``, zamba2-7b; ``encdec_serve``, seamless-m4t-medium;
-    ``vlm_serve``, phi-3-vision-4.2b at prompt 640),
-    the short kernel-path serve (the engine and its graph built before the
+    ``vlm_serve``, phi-3-vision-4.2b at prompt 640; ``nemotron_serve``,
+    ``codeqwen_serve``, ``qwen2_7b_serve``, ``grok_serve``, phase 21's
+    archs), the short kernel-path serve (the engine and its graph built before the
     window), or ``bnn_machine`` / ``bnn_mean``, the BNN's MC prediction
     on 800 images after one untraced call."""
     dev = torch.device("cuda")
@@ -2300,7 +2329,11 @@ def profile_serve(kind: str = "serve") -> str:
     shared attention, D 112) or seamless-m4t-medium (``encdec_serve``,
     ``ENCDEC_DEPTH`` decoder layers, D 64) or phi-3-vision-4.2b
     (``vlm_serve``, ``VLM_DEPTH`` layers, D 96, batch prefill on
-    the plain attention: no prefill kernel): device time by kind of
+    the plain attention: no prefill kernel) or phase 21's nemotron-4-15b,
+    codeqwen1.5-7b, qwen2-7b (``nemotron_serve``, ``codeqwen_serve``,
+    ``qwen2_7b_serve``, ``DENSE_ARCH_DEPTH`` layers) or grok-1-314b
+    (``grok_serve``, ``GROK_DEPTH`` layers, its soft-capped head plain:
+    no head kernel): device time by kind of
     kernel, how much of the traced window the device sits idle, and the
     host syncs by cause."""
     t = traced(kind)
@@ -2325,8 +2358,13 @@ def profile_serve(kind: str = "serve") -> str:
     elif not any(f"paged_prefill_mma<{D}>" in k for k in prefill):
         fail(f"profile {kind}: the served prefill did not run "
              f"paged_prefill_mma<{D}> ({top(prefill, 4) or 'no prefill'})")
-    if kind in ("hybrid_serve", "encdec_serve", "vlm_serve") and not head:
+    if kind in ("hybrid_serve", "encdec_serve", "vlm_serve",
+                "nemotron_serve", "codeqwen_serve", "qwen2_7b_serve") \
+            and not head:
         fail(f"profile {kind}: the fused head did not run")
+    if kind == "grok_serve" and heads:
+        fail(f"profile {kind}: a head kernel ran ({top(heads, 5)}) where "
+             "the soft-capped head takes the plain path")
     if any("paged_prefill_simt<__nv_bfloat16>" in k for k in prefill):
         fail("profile: the served bf16 prefill ran the SIMT kernel")
     # the served decode: the tensor-core kernel alone, one launch a call
@@ -2383,11 +2421,18 @@ def compare_plain(kernel_run: dict, ref_run: dict) -> str:
 
 MOE_FLAGS = ["--arch", "deepseek_moe_16b", *SERVE_FLAGS[2:]]
 # the layers phases 9-13 serve and profile, cut for the script's time
-# (the widths stay whole): deepseek-moe-16b 6 of 28, mamba2-370m 12 of
+# (the widths stay whole): deepseek-moe-16b 4 of 28, mamba2-370m 12 of
 # 48, zamba2-7b 13 of 81 Mamba2 blocks (three applications of the shared
 # block), seamless-m4t-medium 4 + 4 of 12 + 12, phi-3-vision-4.2b 8 of 32
-MOE_DEPTH, SSM_DEPTH, HYBRID_DEPTH, ENCDEC_DEPTH, VLM_DEPTH = 6, 12, 13, 4, 8
-CUTS = {"deepseek_moe_16b": {"num_layers": MOE_DEPTH},
+MOE_DEPTH, SSM_DEPTH, HYBRID_DEPTH, ENCDEC_DEPTH, VLM_DEPTH = 4, 12, 13, 4, 8
+# and phase 21's (``tools/arch_phase.py``): nemotron-4-15b 4 of 32,
+# codeqwen1.5-7b 4 of 32, qwen2-7b 4 of 28, grok-1-314b 2 of 64
+DENSE_ARCH_DEPTH, GROK_DEPTH = 4, 2
+CUTS = {"nemotron_4_15b": {"num_layers": DENSE_ARCH_DEPTH},
+        "codeqwen1_5_7b": {"num_layers": DENSE_ARCH_DEPTH},
+        "qwen2_7b": {"num_layers": DENSE_ARCH_DEPTH},
+        "grok_1_314b": {"num_layers": GROK_DEPTH},
+        "deepseek_moe_16b": {"num_layers": MOE_DEPTH},
         "mamba2_370m": {"num_layers": SSM_DEPTH},
         "zamba2_7b": {"num_layers": HYBRID_DEPTH},
         "seamless_m4t_medium": {"num_layers": ENCDEC_DEPTH,
@@ -2413,94 +2458,196 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def moe_phase() -> dict:
-    """deepseek-moe-16b at full width (d 2048, 16 MHA heads, 64 routed
-    experts top-6 + 2 shared, expert ff 1408, V 102400; bf16 body, f32
-    head, random weights from the seed), cut in depth to ``MOE_DEPTH`` of
-    its 28 layers, on the serve trace of
-    phase 4, kernel path and kernel entropy: one engine, its decode chunk
-    one CUDA graph replay, serves the trace SERVE_RUNS times (launch
-    counts zeroed before each run and checked after it: a decode-attention
-    launch a layer and one head a step, a prefill launch a layer a
-    chunk), then once
-    more with every chunk held bit for bit against the eager chunk.  Then,
-    on the same parameters, operand entropy through the kernel path and
-    through the gather / batch-prefill path, the latter chunk by chunk
-    against the eager chunk too.  Returns the first run's counts."""
-    import gc
+def reckon(cfg) -> tuple[int, int]:
+    """(parameter bytes, the draw's peak bytes) of ``registry.init_params``
+    at ``cfg``, run on the meta device under ``MemTracker``: nothing is
+    allocated, every tensor the draw makes is counted while it lives."""
+    from torch.distributed._tools.mem_tracker import MemTracker
 
-    from repro_torch.kernels import launches
-    from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.models import registry as M
 
+    tracker, out = MemTracker(), []
+    with tracker:
+        out.append(M.init_params(cfg, torch.Generator(), "meta"))
+    peak = sum(by_kind["Total"] for by_kind in
+               tracker.get_tracker_snapshot("peak").values())
+    return tree_bytes(out[0]), peak
+
+
+@contextlib.contextmanager
+def softcap_heads():
+    """Count the plain head's soft-capped logits while the block runs
+    (``layers.head_logits_sampled`` / ``head_logits_mean``, which
+    ``uncertain_head`` looks up in its module at each call): a list of
+    (function, whether the config soft-caps) a call."""
+    from repro_torch.models import layers as L
+
+    calls, inner = [], (L.head_logits_sampled, L.head_logits_mean)
+
+    def sampled(p, x, cfg, xi, tp=None):
+        calls.append(("sampled", bool(cfg.logits_softcap)))
+        return inner[0](p, x, cfg, xi, tp)
+
+    def mean(p, x, cfg, tp=None):
+        calls.append(("mean", bool(cfg.logits_softcap)))
+        return inner[1](p, x, cfg, tp)
+
+    L.head_logits_sampled, L.head_logits_mean = sampled, mean
+    try:
+        yield calls
+    finally:
+        L.head_logits_sampled, L.head_logits_mean = inner
+
+
+def arch_flags(arch: str) -> list[str]:
+    return ["--arch", arch, *SERVE_FLAGS[2:]]
+
+
+def serve_arch(arch: str, launches, runs: int = 1) -> dict:
+    """One arch of the dense or moe family at full width, cut in depth as
+    ``CUTS`` says (bf16 body, f32 head, random weights from the seed),
+    on phase 4's trace: phase 9 serves deepseek-moe-16b with it, phase 21
+    the four archs of ``tools/arch_phase.py``.
+
+    1. The parameters drawn here, their bytes equal to ``reckon``'s and
+       the draw's peak beside its reckoning; one engine, its decode chunk
+       one CUDA graph, serves the trace ``runs`` times on the kernel path
+       in kernel entropy (``serve_runs``: the counts zeroed before each
+       run and checked after it); a replay's launches asserted (a decode
+       launch a layer a step and the fused head a step; a soft-capped
+       head none, and its plain head must have run, as the reference
+       routes it); init and capture seconds, peak memory, ms a decode
+       step against the bytes floor, tok/s.
+    2. One more serve with every chunk held bit for bit against the eager
+       chunk (``graph_vs_eager``).
+    3. Operand entropy through the kernel path and through the gather /
+       batch path (every chunk of the latter against the eager chunk
+       too), ``compare_plain`` reported and, for the moe family, the
+       prefill routing flips; every request finished with finite H / SE
+       / MI and MI >= 0.
+
+    Returns the first measured serve's counts."""
     from repro_torch import resolve_device
+    from repro_torch.launch.serve import build_engine, serve
     from repro_torch.models import registry as M
 
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], MOE_FLAGS)
-    # the weights build_engine would draw, drawn here to time the init
+    before = torch.cuda.memory_allocated()
+    args = serve_args(KERNEL_PATH + ["--entropy", "kernel"], arch_flags(arch))
     dev = resolve_device(args.device)
-    t0 = time.perf_counter()
     base = served_config(args)
+    want_bytes, want_peak = reckon(base)
+    t0 = time.perf_counter()
     params = M.init_params(base, torch.Generator(device=dev).manual_seed(
         args.seed), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    built = build_engine(args, params, cfg=base)
+    init_peak = torch.cuda.max_memory_allocated() - before
+    nbytes = tree_bytes(params)
+    if nbytes != want_bytes:
+        fail(f"{arch}: {nbytes} parameter bytes, reckoned {want_bytes}")
+    fused = not base.logits_softcap
+    with softcap_heads() as capped:
+        built = build_engine(args, params, cfg=base)
     engine, cfg = built
     runner = engine.runner
-    nbytes = tree_bytes(params)
-    table = params["embed"]["table"]
-    # every parameter but the embedding table is read once a decode step:
-    # the capacity dispatch runs every expert (C 8 at 4 slots)
-    floor_ms = (nbytes - table.numel() * table.element_size()) \
-        / HBM_BYTES_PER_S * 1e3
-    print(f"moe engine {cfg.name}: {cfg.num_layers} layers, d "
-          f"{cfg.d_model}, {cfg.num_heads} heads (kv {cfg.num_kv_heads}), "
-          f"{cfg.num_experts} experts top-{cfg.top_k} + "
-          f"{cfg.num_shared_experts} shared, expert ff {cfg.moe_d_ff}, V "
-          f"{cfg.vocab_size}; parameters {nbytes / 1e9:.2f} GB, drawn in "
-          f"{init_s:.2f}s; decode chunk graph warm-up + capture "
-          f"{runner.capture_s:.3f}s; peak "
-          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; bytes "
-          f"floor a decode step {floor_ms:.2f} ms; launches a replay "
-          f"{runner.captured}", flush=True)
-    want = {"paged_decode_attention": cfg.num_layers * args.chunk,
-            "uncertainty_head": args.chunk}
+    want = {"paged_decode_attention": cfg.num_layers * args.chunk}
+    if fused:
+        want["uncertainty_head"] = args.chunk
     if runner.captured != want:
-        fail(f"moe: a replay records {runner.captured}, expected {want}")
-    counts = serve_runs(args, built, "moe serve", launches)
-    print(f"moe peak memory after the runs "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-    print(graph_vs_eager(args, built, "moe, kernel path, kernel entropy")[1],
+        fail(f"{arch}: a replay records {runner.captured}, expected {want}")
+    if fused == bool(capped) or not all(c for _, c in capped):
+        fail(f"{arch}: the plain head's logits were computed {len(capped)} "
+             f"times in the capture ({capped[:2]}), expected "
+             f"{'none' if fused else 'soft-capped ones'}")
+    # a decode step reads every parameter but the embedding table (which
+    # it reads a row a slot; the moe family's capacity dispatch runs every
+    # expert, C 8 at 4 slots) and each slot's K/V at the trace's mean depth
+    table = tree_bytes(params["embed"])
+    kv_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim \
+        * runner.cache["k"].element_size()
+    attended = args.slots * (args.prompt_len + args.gen_len / 2) * kv_token
+    floor_ms = (nbytes - table + attended) / HBM_BYTES_PER_S * 1e3
+    moe = cfg.family == "moe"
+    print(f"{arch} engine {cfg.name}: {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} of "
+          f"D {cfg.head_dim}, ff {cfg.moe_d_ff or cfg.d_ff} "
+          f"({cfg.mlp_activation}"
+          + (f", {cfg.num_experts} experts top-{cfg.top_k}"
+             + (f" + {cfg.num_shared_experts} shared"
+                if cfg.num_shared_experts else "") if moe else "")
+          + f"), V {cfg.vocab_size}, head "
+          + ("fused" if fused else f"soft-capped at {cfg.logits_softcap}, "
+             "plain")
+          + f"; parameters {nbytes / 1e9:.3f} GB (reckoned "
+          f"{want_bytes / 1e9:.3f}; layers "
+          f"{tree_bytes(params['blocks']) / 1e9:.3f}, embedding "
+          f"{table / 1e9:.3f}, head {tree_bytes(params['head']) / 1e9:.3f}"
+          f"), drawn in {init_s:.2f}s, the draw's peak {init_peak / 1e9:.3f} "
+          f"GB (reckoned {want_peak / 1e9:.3f}, {init_peak / want_peak:.3f}"
+          f"x); decode chunk graph warm-up + capture {runner.capture_s:.3f}"
+          f"s; bytes floor a decode step {floor_ms:.4f} ms; launches a "
+          f"replay {runner.captured}", flush=True)
+    counts = serve_runs(args, built, f"{arch} serve", launches, runs=runs,
+                        head=fused, floor_ms=floor_ms)
+    print(f"{arch} peak memory after the serves "
+          f"{(torch.cuda.max_memory_allocated() - before) / 1e9:.3f} GB",
           flush=True)
+    with softcap_heads() as capped:
+        r, report = graph_vs_eager(args, built, f"{arch}, kernel path, "
+                                   "kernel entropy")
+    check_finished(arch, r)
+    eager_steps = r["chunks_run"] * args.chunk
+    if not fused and (len(capped) < eager_steps
+                      or not all(c for _, c in capped)):
+        fail(f"{arch}: {len(capped)} soft-capped plain heads in the eager "
+             f"chunks, expected one a step ({eager_steps})")
+    print(report + ("" if fused else f"; the soft-capped plain head ran "
+                    f"{len(capped)} times in the eager chunks"), flush=True)
     del built, engine, runner
     gc.collect()
     torch.cuda.empty_cache()
 
-    a_args = serve_args(KERNEL_PATH + ["--entropy", "operand"], MOE_FLAGS)
-    with prefill_routing() as routed_a:
+    a_args = serve_args(KERNEL_PATH + ["--entropy", "operand"],
+                        arch_flags(arch))
+    b_args = serve_args(GATHER_PATH + ["--entropy", "operand"],
+                        arch_flags(arch))
+    with prefill_routing() if moe else contextlib.nullcontext([]) \
+            as routed_a:
         a = serve(a_args, build_engine(a_args, params, cfg=base))
     gc.collect()
-    b_args = serve_args(GATHER_PATH + ["--entropy", "operand"], MOE_FLAGS)
-    with prefill_routing() as routed_b:
-        b, report = graph_vs_eager(b_args, build_engine(b_args, params,
-                                                        cfg=base),
-                                   "moe, gather path, operand entropy")
+    with prefill_routing() if moe else contextlib.nullcontext([]) \
+            as routed_b:
+        b, report = graph_vs_eager(
+            b_args, build_engine(b_args, params, cfg=base),
+            f"{arch}, gather path, operand entropy")
     print(report, flush=True)
-    print(routing_flips(routed_a, routed_b, cfg.num_layers,
-                        a_args.prompt_len // a_args.prefill_chunk),
+    check_finished(f"{arch} operand", a, b)
+    if moe:
+        print(routing_flips(routed_a, routed_b, cfg.num_layers,
+                            a_args.prompt_len // a_args.prefill_chunk),
+              flush=True)
+    print(f"{arch} {compare_plain(a, b)}; peak memory "
+          f"{(torch.cuda.max_memory_allocated() - before) / 1e9:.3f} GB",
           flush=True)
-    for req in (*a["requests"], *b["requests"]):
-        u = torch.tensor([req.H, req.SE, req.MI])
-        if req.state != "finished" or not torch.isfinite(u).all() \
-                or (u[2] < 0).any():
-            fail(f"moe operand run: request {req.rid} unfinished, "
-                 "non-finite or MI < 0")
-    print(f"moe {compare_plain(a, b)}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
+
+
+def check_finished(label: str, *runs) -> None:
+    """Every request of the runs finished, with finite H / SE / MI and
+    MI >= 0."""
+    for r in runs:
+        for req in r["requests"]:
+            u = torch.tensor([req.H, req.SE, req.MI])
+            if req.state != "finished" or not torch.isfinite(u).all() \
+                    or (u[2] < 0).any():
+                fail(f"{label}: request {req.rid} unfinished, non-finite "
+                     "or MI < 0")
 
 
 @contextlib.contextmanager
@@ -2722,7 +2869,15 @@ SERVED = {"serve": (SERVE_FLAGS, 128, 28),
           "ssm_serve": (SSM_FLAGS, 0, 0),
           "hybrid_serve": (HYBRID_FLAGS, ZB_D, -(-HYBRID_DEPTH // 6)),
           "encdec_serve": (ENCDEC_FLAGS, SM_D, ENCDEC_DEPTH),
-          "vlm_serve": (VLM_FLAGS, PV_D, VLM_DEPTH)}
+          "vlm_serve": (VLM_FLAGS, PV_D, VLM_DEPTH),
+          # phase 21's archs (D 128 each), profiled by ``python3
+          # chip_smoke.py --trace KIND`` or ``profile_serve(KIND)``
+          "nemotron_serve": (arch_flags("nemotron_4_15b"), 128,
+                             DENSE_ARCH_DEPTH),
+          "codeqwen_serve": (arch_flags("codeqwen1_5_7b"), 128,
+                             DENSE_ARCH_DEPTH),
+          "qwen2_7b_serve": (arch_flags("qwen2_7b"), 128, DENSE_ARCH_DEPTH),
+          "grok_serve": (arch_flags("grok_1_314b"), 128, GROK_DEPTH)}
 
 
 def hybrid_phase(launches) -> dict:
@@ -3307,7 +3462,7 @@ def vlm_prefix_check(engine) -> str:
 SHARED = ["--shared-prefix", "200"]
 # the layers phase 14 serves (of qwen2-1.5B's 28): cut for the script's
 # time (the widths stay whole)
-SPEC_LAYERS = 8
+SPEC_LAYERS = 4
 PREFIX_ON = ["--prefix-cache", "on"]
 SPEC_FORCED = ["--spec-decode", "on", "--spec-k", "4", "--spec-draft-s", "1",
                "--spec-mi-threshold", "inf"]
@@ -3614,14 +3769,12 @@ def burst_requests(vocab: int) -> list:
 
 def check_risk_run(label: str, engine, r: dict) -> None:
     """Every request finished at its full length with finite H / SE / MI
-    and MI >= 0, and the pool back at identity."""
+    and MI >= 0 (``check_finished``), and the pool back at identity."""
+    check_finished(label, r)
     for req in r["requests"]:
-        u = torch.tensor([req.H, req.SE, req.MI])
-        if req.state != "finished" or len(req.tokens) != req.max_new_tokens \
-                or not torch.isfinite(u).all() or (u[2] < 0).any():
-            fail(f"{label}: request {req.rid} unfinished ({req.state}, "
-                 f"{len(req.tokens)} of {req.max_new_tokens} tokens) or "
-                 "non-finite")
+        if len(req.tokens) != req.max_new_tokens:
+            fail(f"{label}: request {req.rid} gave {len(req.tokens)} of "
+                 f"{req.max_new_tokens} tokens")
     alloc = engine._last_alloc
     if alloc.in_use or alloc._reserved \
             or sorted(alloc._free) != list(range(alloc.num_blocks)):
@@ -4248,7 +4401,7 @@ def main():
     print(f"phase lm kernels: {time.perf_counter() - t0:.1f}s", flush=True)
 
     t0 = time.perf_counter()
-    moe_counts = moe_phase()
+    moe_counts = serve_arch("deepseek_moe_16b", launches, SERVE_RUNS)
     for name in ("paged_decode_attention", "paged_prefill_attention",
                  "uncertainty_head"):
         counts[name] += moe_counts[name]
@@ -4349,6 +4502,15 @@ def main():
     import dryrun_phase
     dryrun_phase.dryrun_phase(dense_ranks, smi)
     print(f"phase dry run (20): {time.perf_counter() - t0:.1f}s", flush=True)
+
+    t0 = time.perf_counter()
+    import arch_phase
+    arch_counts = arch_phase.arch_phase(launches)
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "uncertainty_head"):
+        counts[name] += arch_counts[name]
+    print(f"archs launches {arch_counts}", flush=True)
+    print(f"phase archs (21): {time.perf_counter() - t0:.1f}s", flush=True)
 
     meta = {
         "uncertainty_head": ("src/repro_torch/kernels/csrc/uncertainty_head.cu",

@@ -22,7 +22,9 @@ KEYS = ("H", "SE", "MI", "p_max")
 WIDTHS = {"qwen2-1.5b": (1536, 151936), "deepseek-moe-16b": (2048, 102400),
           "mamba2-370m": (1024, 50280), "zamba2-7b": (3584, 32000),
           "seamless-m4t-medium": (1024, 256206),
-          "phi-3-vision-4.2b": (3072, 32064)}
+          "phi-3-vision-4.2b": (3072, 32064),
+          "nemotron-4-15b": (6144, 256000), "codeqwen1.5-7b": (4096, 92416),
+          "qwen2-7b": (3584, 152064)}
 SMEM_PER_SM = 228 * 1024       # an H100 SM's shared memory
 
 

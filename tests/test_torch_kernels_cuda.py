@@ -705,6 +705,92 @@ def test_cuda_prefill_mma_matches_plain_at_seamless_mha(cuda_device, S,
         assert_close(got.float(), want.float().cpu(), atol=2e-2)
 
 
+# (H, Hkv) of the dense configs first served at full width in the archs
+# phase: qwen2-7b's group of 7 (rows 7-15 of the m16 fragment padding)
+# and codeqwen1.5-7b's MHA over 32 kv heads; nemotron-4-15b's and
+# grok-1-314b's 48 over 8 is rep 6, qwen2-1.5b's ratio
+ARCH_GROUPS = [(28, 4), (32, 32)]
+
+
+@pytest.mark.parametrize("K,V", [(6144, 256000), (4096, 92416),
+                                 (3584, 152064)])
+def test_cuda_head_matches_plain_at_the_dense_archs_widths(cuda_device, K,
+                                                            V):
+    """The heads of nemotron-4-15b (K 6144 x V 256000: 12.58 GB of mu and
+    sigma, three K slices at M 4), codeqwen1.5-7b and qwen2-7b, M 4, S
+    10, operands drawn on the card: row 0's argmax planted in the last
+    column and row 3's in the last tile's first column, both found there
+    by both versions; H/SE/MI/p_max within 2e-4 of the plain version,
+    with the xi operand and with the Philox stream; one launch a call."""
+    g = torch.Generator(device=cuda_device).manual_seed(K + V)
+    x = torch.randn((4, K), generator=g, device=cuda_device)
+    mu = torch.randn((K, V), generator=g, device=cuda_device) / K ** 0.5
+    sg = 0.05 * (0.5 + torch.rand((K, V), generator=g, device=cuda_device))
+    xi = torch.randn((10, 4, V), generator=g, device=cuda_device)
+    x = x.to(torch.bfloat16)
+    x32 = x.float()
+    last = V - (V % 128 or 128)
+    for row, col in ((0, V - 1), (3, last)):
+        mu[:, col] = x32[row] / x32[row].norm()
+    assert UH.head_plan(4, K, V).splits >= (3 if K == 6144 else 2)
+    for kw in ({"xi": xi}, {"seed": 4, "step": 9}):
+        launches.reset()
+        got = UH.uncertainty_head_cuda(x, mu, sg, num_samples=10, **kw)
+        assert launches.snapshot()["uncertainty_head"] == 1
+        want = UH.uncertainty_head_plain(x, mu, sg, num_samples=10, **kw)
+        for k in KEYS:
+            assert torch.isfinite(got[k]).all(), k
+            assert_close(got[k], want[k].cpu(), atol=2e-4, msg=k)
+        assert got["pred"][[0, 3]].tolist() == [V - 1, last]
+        assert want["pred"][[0, 3]].tolist() == [V - 1, last]
+
+
+@pytest.mark.parametrize("H,Hkv", ARCH_GROUPS)
+def test_cuda_decode_mma_matches_plain_at_the_dense_archs_groups(
+        cuda_device, H, Hkv):
+    """Decode at D 128, bf16, over 7 query heads a kv head and over 32 kv
+    heads (MHA): the tensor-core route, one launch, within 2e-2 of the
+    plain version at the served depths and at 4 tiles a split, NaN
+    exactly on the empty slot."""
+    assert PA.decode_route(torch.bfloat16, 128) == "mma"
+    for tiles in (None, 4):
+        q, k, v, table, d = (t.to(cuda_device) for t in _decode_case(
+            H + Hkv, H, Hkv, 128, 16, 19, [288, 150, 17, 0]))
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        launches.reset()
+        out = PA.paged_decode_attention_cuda(q, k, v, table, d, tiles=tiles)
+        assert launches.snapshot()["paged_decode_attention"] == 1
+        want = PA.paged_decode_attention_plain(q, k, v, table, d,
+                                               tiles=tiles)
+        torch.cuda.synchronize()
+        assert_close(out.float(), want.float().cpu(), atol=2e-2,
+                     equal_nan=True)
+        assert torch.isnan(out[3]).all() and not torch.isnan(out[:3]).any()
+
+
+@pytest.mark.parametrize("S,offset,span", [(64, 0, 256), (64, 192, 256),
+                                           (37, 192, 229)])
+@pytest.mark.parametrize("H,Hkv", ARCH_GROUPS)
+def test_cuda_prefill_mma_matches_plain_at_the_dense_archs_groups(
+        cuda_device, H, Hkv, S, offset, span):
+    """Prefill chunks at D 128, bf16, over 7 query heads a kv head (7 S
+    packed rows a kv head: 448 at S 64) and over 32 kv heads: the
+    tensor-core route, one launch, within 2e-2 of the plain version, no
+    NaN."""
+    assert PA.prefill_route(torch.bfloat16, 128) == "mma"
+    q, k, v, row = _prefill_bf16(cuda_device, S + offset + H, S, H, Hkv,
+                                 128, 16, span)
+    for kc in (1024, 64):
+        launches.reset()
+        got = PA.paged_prefill_attention_cuda(q, k, v, row, offset, span,
+                                              kc)
+        assert launches.snapshot()["paged_prefill_attention"] == 1
+        want = PA.paged_prefill_attention_plain(q, k, v, row, offset, span,
+                                                kc)
+        assert not torch.isnan(got).any()
+        assert_close(got.float(), want.float().cpu(), atol=2e-2)
+
+
 @pytest.mark.parametrize("kc", [1024, 16])
 def test_cuda_prefill_matches_plain(cuda_device, kc):
     r = np.random.default_rng(kc)

@@ -183,10 +183,12 @@ def test_prefill_chunk_matches_jax_and_threads_exact_offsets():
     np.testing.assert_array_equal(tc["len"].numpy(), np.asarray(jc["len"]))
 
 
-def test_operand_decode_with_jax_noise_matches_jax():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_operand_decode_with_jax_noise_matches_jax(arch):
     """Staggered slot depths, four steps: tokens exact, H/SE/MI/p_max
-    within atol, the caches close."""
-    jcfg, jparams, tcfg, tparams = moe_pair()
+    within atol, the caches close (grok: its soft-capped head and
+    ``experts_tp``)."""
+    jcfg, jparams, tcfg, tparams = moe_pair(arch)
     toks = _tokens(2, 3, 9)
     _, jc = JM.prefill(jparams, jcfg, jnp.asarray(toks), 16)
     jc["len"] = jnp.asarray([9, 7, 4], jnp.int32)
@@ -246,11 +248,12 @@ def test_chunked_prefill_equals_batch_prefill_inside_port(decode_attn):
     assert _streams(chunked) == _streams(batch)
 
 
-def test_engine_matches_jax_engine():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_matches_jax_engine(arch):
     """Paged KV, chunked prefill, operand entropy with the JAX xi: the
     port's engine gives the JAX engine's token streams, and H/SE/MI/p_max
-    within atol."""
-    jcfg, jparams, tcfg, tparams = moe_pair()
+    within atol (grok: its soft-capped head and ``experts_tp``)."""
+    jcfg, jparams, tcfg, tparams = moe_pair(arch)
     kw = dict(num_slots=2, max_len=27 + 8 + 4, chunk=4, kv_layout="paged",
               kv_block=4, prefill_mode="chunked", prefill_chunk=8,
               decode_attn="gather")

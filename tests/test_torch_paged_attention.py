@@ -114,6 +114,8 @@ PREFILL_TILE_CASES = {
     "rep1": (24, 4, 4, 64, 16, 40, 64, None),
     "rep16": (9, 16, 1, 64, 16, 100, 130, None),
     "served_offset192_D128": (64, 12, 2, 128, 16, 192, 256, None),
+    # qwen2-7b's group of 7: 448 packed rows (replica * S + query)
+    "rep7_offset192_D128": (64, 28, 4, 128, 16, 192, 256, None),
 }
 
 

@@ -35,6 +35,11 @@ CASES = {
     "hole_below_depth": (12, 2, 16, 4, 24, (90, 37, 12, 0), (0, 5)),
     # a hole at the first entry: slot 1 reads nothing, like an empty slot
     "hole_at_first_block": (8, 2, 32, 8, 8, (60, 20, 9, 0), (1, 0)),
+    # qwen2-7b's group: 7 query heads a kv head, rows 7-15 of the m16
+    # fragment padding, at the served depths
+    "rep7_D128_BS16": (28, 4, 128, 16, 19, (288, 150, 17, 0), None),
+    # codeqwen1.5-7b's MHA over 32 kv heads
+    "rep1_D128_Hkv32": (32, 32, 128, 16, 19, (288, 150, 17, 0), None),
 }
 
 
@@ -96,7 +101,8 @@ def test_mma_walk_matches_the_pallas_kernel_in_interpret_mode():
     assert_close(got, want, atol=2e-6, equal_nan=True)
 
 
-@pytest.mark.parametrize("name", ["rep6_D128_BS16_served", "rep16_D16_BS4"])
+@pytest.mark.parametrize("name", ["rep6_D128_BS16_served", "rep16_D16_BS4",
+                                  "rep7_D128_BS16"])
 def test_mma_walk_bf16_rounds_p_like_the_kernel(name):
     """bf16 operands: the JAX oracle runs in f32 on the same bf16 values;
     the walk rounds p to bf16 before p @ V and its output to bf16 (atol
